@@ -9,18 +9,29 @@ result line:
 1. environment: the card's name and power limit (nvidia-smi), CUDA present,
    which msgpack the wire codec uses;
 2. build: nvcc compiles the kernels from this checkout's sources;
-3. kernel parity: K1-K4 against their plain-torch versions on the same
-   CUDA inputs, several seeds with the edge cases of
-   ``ratis_tpu_torch.tools.cases``; the bar is exact equality;
-4. the main path: 3 port servers x ``--groups`` groups on ``cuda`` with the
-   batched properties, leaders by election, ``--writes`` INCREMENTs per
-   group through the port's RaftClient, every counter read back from all
-   three replicas; every kernel's launch count, zeroed just before, must
-   be > 0 after;
-5. kernel parity again at every shape the main path gave each kernel,
-   then timing at the most common one: CUDA events, warm-up, median of
-   60 calls (K1/K2 each on the same fresh state), beside the plain
-   version's time and the card's bound for the same work;
+3. kernel parity: K1-K4 and K6 against their plain-torch versions on the
+   same CUDA inputs, several seeds with the edge cases of
+   ``ratis_tpu_torch.tools.cases`` (negative indices included), K6 also
+   on the bench's own batches at its three shapes, its inputs unchanged;
+   the bar is exact equality;
+4. the main paths, each with its kernels' launch counts zeroed just
+   before and read just after (each must be > 0):
+   a. simulated transport: 3 port servers x ``--groups`` groups on
+      ``cuda`` with the batched properties, leaders by election,
+      ``--writes`` INCREMENTs per group through the port's RaftClient,
+      every counter read back from all three replicas (K1-K4);
+   b. the bench's kernel rungs (``tools/bench.py``): the stateless tick
+      at 10240 x 8 x 4096 and 102400 x 8 x 8192 (K6);
+   c. the bench's headline e2e rung over real localhost TCP sockets:
+      3 servers x 1024 groups, one warm-up write and 8 writes per group,
+      every write acknowledged and every counter read back equal from all
+      three replicas (K1-K4; the cluster is prewarmed before the counts
+      are zeroed); a socket that cannot bind fails the run;
+5. kernel parity again at every shape the main paths gave K1-K4, then
+   timing: K1-K4 at their most common shape, K6 at both rung shapes;
+   CUDA events, warm-up, median of 60 calls (K1/K2 each on the same fresh
+   state), beside the plain version's time and the card's bound for the
+   same work (K6 also its device time per call from ``torch.profiler``);
 6. one JSON line of kernels, then the result line
    ``{"ok": true, "device": {...}}`` last.
 
@@ -46,6 +57,10 @@ import torch
 P = 8
 NOW = 100_000
 TIMEOUT_MS = 300
+# the bench's headline e2e rung: 3 servers x 1024 groups over TCP, one
+# warm-up write and then 8 measured writes per group
+TCP_GROUPS = 1024
+TCP_WRITES = 8
 # H100 SXM published peaks: HBM bytes/s, and the INT32 rate (132 SMs x
 # 64 INT32 lanes x 1.98 GHz, a multiply-add counted as two, as NVIDIA
 # counts it), against which the kernels' integer ops count
@@ -64,7 +79,11 @@ KERNELS = (
      "ratis_tpu/ops/quorum.py:144"),
     ("ledger_pass", "K4", "ratis_tpu_torch/ops/kernels/ledger_pass.cu",
      "ratis_tpu/ops/ledger.py:68"),
+    ("engine_step", "K6", "ratis_tpu_torch/ops/kernels/resident_step.cu",
+     "ratis_tpu/ops/quorum.py:257"),
 )
+# K6: entry() and the bench's two kernel rungs (G, P, E)
+K6_SHAPES = ((1024, 8, 256), (10_240, 8, 4096), (102_400, 8, 8192))
 
 
 def log(*a) -> None:
@@ -88,10 +107,10 @@ def cuda(arrays):
 
 # -- phases 3 and 5: parity ----------------------------------------------------
 
-def parity_k1(tq, cases, g, p, e, seed):
+def parity_k1(tq, cases, g, p, e, seed, negative=False):
     rng = np.random.default_rng(seed)
     st = cases.resident_state(rng, g, p, NOW)
-    ev, meta = cuda([cases.fast_events(rng, g, p, e, NOW),
+    ev, meta = cuda([cases.fast_events(rng, g, p, e, NOW, negative),
                      np.array([NOW, TIMEOUT_MS], np.int32)])
     a = tq.device_state_from_numpy(st, "cuda")
     b = tq.device_state_from_numpy(st, "cuda")
@@ -100,10 +119,10 @@ def parity_k1(tq, cases, g, p, e, seed):
     return max_abs_err([k.out, *a], [want, *b])
 
 
-def parity_k2(tq, cases, g, p, d, e, seed):
+def parity_k2(tq, cases, g, p, d, e, seed, negative=False):
     rng = np.random.default_rng(seed)
     st = cases.resident_state(rng, g, p, NOW)
-    rf_idx, rf, acks = cases.refresh(rng, g, p, d, e, NOW)
+    rf_idx, rf, acks = cases.refresh(rng, g, p, d, e, NOW, negative)
     rf_idx, *rf = cuda([rf_idx, *rf])
     acks = cuda(acks)
     a = tq.device_state_from_numpy(st, "cuda")
@@ -111,6 +130,20 @@ def parity_k2(tq, cases, g, p, d, e, seed):
     k = tq.engine_step_resident(a, rf_idx, *rf, *acks, NOW, TIMEOUT_MS)
     want = tq._resident_refresh_plain(b, rf_idx, rf, acks, NOW, TIMEOUT_MS)
     return max_abs_err([torch.stack(k[1:]), *a], [want, *b])
+
+
+def parity_k6(tq, args_np):
+    """K6 against its plain version on the same card tensors; raises if
+    the kernel wrote any of its inputs (it is functional, as in JAX)."""
+    args = tq.engine_step_args_from_numpy(args_np, "cuda")
+    before = [t.clone() for t in args[:15]]
+    k = tq.engine_step(*args)
+    want = tq._engine_step_plain(*args)
+    torch.cuda.synchronize()
+    for (name, _, _), x, y in zip(tq.ENGINE_STEP_ARRAYS, args, before):
+        if not torch.equal(x, y):
+            raise AssertionError(f"K6 wrote its input {name}")
+    return max_abs_err(list(k), list(want))
 
 
 def parity_k3(tq, cases, g, p, seed):
@@ -148,23 +181,30 @@ class Parity:
                                      f"max_abs_err {self.errs[k]}")
 
 
-def run_parity(tq, tl, cases, par: Parity) -> None:
+def run_parity(tq, tl, cases, bench, par: Parity) -> None:
     """Fixed shapes, before the main path: the edge cases at G up to
     102400 and E up to 16384."""
     for g in (1024, 10240, 102400):
         for e in (64, 1024, 16384):
             for seed in (0, 1):
                 par.add("K1", parity_k1(tq, cases, g, P, e, seed))
+            par.add("K1", parity_k1(tq, cases, g, P, e, 2, negative=True))
     for g in (1024, 10240):
         for d, e in ((64, 64), (1024, 1024), (64, 16384)):
             for seed in (0, 1):
                 par.add("K2", parity_k2(tq, cases, g, P, d, e, seed))
+            par.add("K2", parity_k2(tq, cases, g, P, d, e, 2, negative=True))
         for seed in (0, 1, 2):
             par.add("K3", parity_k3(tq, cases, g, P, seed))
         for width in (8, 16):
             for seed in (0, 1):
                 par.add("K4", parity_k4(tl, cases, g, P, width, seed))
         par.add("K4", parity_k4(tl, cases, g, P, 8, 2, big_cell=True))
+    for g, p, e in K6_SHAPES:
+        for seed in (0, 1, 2):
+            par.add("K6", parity_k6(tq, cases.step_args(
+                np.random.default_rng(seed), g, p, e, NOW, TIMEOUT_MS)))
+            par.add("K6", parity_k6(tq, bench._example_batch(g, p, e, seed)))
     par.check("fixed shapes")
 
 
@@ -188,7 +228,9 @@ async def drive(cluster, writes: int) -> dict:
         t0 = time.monotonic()
         await cluster.start(timeout=600)
         bring_up = time.monotonic() - t0
+        timeouts = cluster.election_timeouts()
         stats = await cluster.write_all(writes)
+        timeouts = [timeouts, cluster.election_timeouts() - timeouts]
         counters = await cluster.read_counters(timeout=300)
         # the watchdog's ledger pass runs once a second on every server
         deadline = time.monotonic() + 30
@@ -212,6 +254,7 @@ async def drive(cluster, writes: int) -> dict:
                 raise AssertionError(f"{s.peer_id}: no batched dispatch")
         return {"bring_up_s": bring_up, **{k: v for k, v in stats.items()
                                            if k != "acked"},
+                "election_timeouts": timeouts,
                 "dispatches": [s.engine.metrics["batched_dispatches"]
                                for s in cluster.servers],
                 "ledger_samples": [s.engine.ledger.samples.count
@@ -220,39 +263,87 @@ async def drive(cluster, writes: int) -> dict:
         await cluster.close()
 
 
-def run_main_path(tq, kernels, groups: int, writes: int):
+class ShapeRecorder:
+    """Records the shapes the engine hands K1 and K2 while active (the
+    wrappers are swapped for counting ones and restored on exit)."""
+
+    def __init__(self, tq):
+        self.tq = tq
+        self.shapes = {"K1": collections.Counter(),
+                       "K2": collections.Counter()}
+
+    def __enter__(self):
+        tq, shapes = self.tq, self.shapes
+        self.fast, self.refresh = (tq.engine_step_resident_fast,
+                                   tq.engine_step_resident)
+        fast, refresh = self.fast, self.refresh
+
+        def rec_fast(state, ev, meta):
+            shapes["K1"][ev.shape[1]] += 1
+            return fast(state, ev, meta)
+
+        def rec_refresh(state, rf_idx, *rest):
+            shapes["K2"][(rf_idx.shape[0], rest[10].shape[0])] += 1
+            return refresh(state, rf_idx, *rest)
+
+        tq.engine_step_resident_fast = rec_fast
+        tq.engine_step_resident = rec_refresh
+        return self
+
+    def __exit__(self, *exc):
+        self.tq.engine_step_resident_fast = self.fast
+        self.tq.engine_step_resident = self.refresh
+
+
+def counted(kernels: dict, keys, drive):
+    """Zero the launch counts of ``keys`` just before ``drive()``, read
+    them just after; every one must be > 0."""
+    for k in keys:
+        kernels[k].launches = 0
+    res = drive()
+    launches = {k: kernels[k].launches for k in keys}
+    for k, n in launches.items():
+        if n == 0:
+            raise AssertionError(f"{k} never launched on this path")
+    return res, launches
+
+
+def run_main_path(tq, kernels, groups: int, writes: int, rec):
     from ratis_tpu_torch.tools.cluster import Cluster
-    # record the shapes the engine hands K1 and K2 on this path
-    shapes = {"K1": collections.Counter(), "K2": collections.Counter()}
-    fast, refresh = tq.engine_step_resident_fast, tq.engine_step_resident
-
-    def rec_fast(state, ev, meta):
-        shapes["K1"][ev.shape[1]] += 1
-        return fast(state, ev, meta)
-
-    def rec_refresh(state, rf_idx, *rest):
-        shapes["K2"][(rf_idx.shape[0], rest[10].shape[0])] += 1
-        return refresh(state, rf_idx, *rest)
-
     cluster = Cluster(groups, device="cuda")
     cluster.prewarm()
-    tq.engine_step_resident_fast = rec_fast
-    tq.engine_step_resident = rec_refresh
-    try:
-        for k in kernels.values():
-            k.launches = 0
-        res = asyncio.run(drive(cluster, writes))
-        launches = {name: k.launches for name, k in kernels.items()}
-    finally:
-        tq.engine_step_resident_fast = fast
-        tq.engine_step_resident = refresh
-    for name, n in launches.items():
-        if n == 0:
-            raise AssertionError(f"{name} never launched on the main path")
+    with rec:
+        res, launches = counted(kernels, ("K1", "K2", "K3", "K4"),
+                                lambda: asyncio.run(drive(cluster, writes)))
     res["capacity"] = cluster.servers[0].engine.state.capacity
     res["peers"] = cluster.servers[0].engine.state.max_peers
     res["ledger_width"] = cluster.servers[0].engine.ledger._table_width()
-    return res, launches, shapes
+    return res, launches
+
+
+def run_kernel_rungs(kernels, bench):
+    """The bench's kernel rungs on the card (K6)."""
+    return counted(kernels, ("K6",), lambda: {
+        "kernel": bench.kernel_rung("cuda"),
+        "kernel_100k": bench.kernel_100k_rung("cuda")})
+
+
+def run_tcp_path(kernels, bench, rec):
+    """The bench's headline e2e rung: 3 servers over localhost TCP."""
+    cluster = bench.e2e_cluster("cuda", TCP_GROUPS)
+    with rec:
+        res, launches = counted(
+            kernels, ("K1", "K2", "K3", "K4"),
+            lambda: asyncio.run(bench.e2e_rung(cluster, TCP_WRITES)))
+    groups = TCP_GROUPS
+    want = groups * (bench.WARMUP_WRITES + TCP_WRITES)
+    if res["acked"] != want or res["replicas_read_back"] != groups * 3:
+        raise AssertionError(f"TCP path: {res['acked']} of {want} writes "
+                             f"acked, {res['replicas_read_back']} replicas "
+                             f"read back")
+    if not res["engine_device"].startswith("cuda"):
+        raise AssertionError(f"TCP path: engine on {res['engine_device']}")
+    return res, launches
 
 
 # -- phase 5: timing ---------------------------------------------------------
@@ -315,10 +406,38 @@ def time_inplace(tq, st, kernel, plain):
     return ms, plain_ms, written_bytes(fresh, a)
 
 
-def run_timing(tq, tl, cases, main, shapes) -> dict:
-    """Times at the main path's most common shape.  Bytes: every input
-    read once (K2's refresh rows only where they are not padding), the
-    state elements a call changes and the [4, G] output written once."""
+def k6_bytes(g: int, p: int, e: int) -> int:
+    """K6's least traffic: each input read once (match and last_ack int32
+    and three bool masks per link; four int32 and one bool per ack;
+    flush, commit, first, deadline int32 and role int8 per row), each
+    output written once (two [G, P] int32, new_commit int32 and three
+    bools per row)."""
+    return g * p * (8 + 3) + 17 * e + 17 * g + g * p * 8 + 7 * g
+
+
+def device_us_per_call(fn, n: int = 20):
+    """Device time per call of ``fn`` (every kernel and copy the profiler
+    traced, summed), or None when the trace shows no device time."""
+    from ratis_tpu_torch.tools.profile_main_path import _device_us
+    fn()
+    torch.cuda.synchronize()
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+    total = sum(_device_us(evt) for evt in prof.key_averages()
+                if evt.device_type == torch.autograd.DeviceType.CUDA)
+    return total / n if total > 0 else None
+
+
+def run_timing(tq, tl, cases, bench, main, shapes) -> dict:
+    """K1-K4 at the main paths' most common shape, K6 at both kernel-rung
+    shapes (key ``K6`` at 10240 groups, ``K6_100k`` at 102400).  Bytes:
+    every input read once (K2's refresh rows only where they are not
+    padding), the state elements a call changes and the outputs written
+    once."""
     g, p, w = main["capacity"], main["peers"], main["ledger_width"]
     e1 = shapes["K1"].most_common(1)[0][0]
     d2, e2 = shapes["K2"].most_common(1)[0][0]
@@ -369,10 +488,25 @@ def run_timing(tq, tl, cases, main, shapes) -> dict:
     nbytes = g * (1 + 3 * 4 + 1) + g * p * (3 * 4 + 3) \
         + 4 * tl.packed_size(g, w)
     out["K4"] = (ms, plain, *bound(nbytes, g * p * 45), f"G={g} P={p} W={w}")
+
+    # K6 on the bench's own batches, at the rungs' shapes; functional, so
+    # every call sees the same inputs
+    device_us = {}
+    for key, (g6, p6, e6) in zip(("K6", "K6_100k"), K6_SHAPES[1:]):
+        args = tq.engine_step_args_from_numpy(
+            bench._example_batch(g6, p6, e6), "cuda")
+        ms = timed(lambda: tq.engine_step(*args))
+        plain = timed(lambda: tq._engine_step_plain(*args))
+        out[key] = (ms, plain, *bound(k6_bytes(g6, p6, e6),
+                                      g6 * (4 * p6 * p6 + 64) + 10 * e6),
+                    f"G={g6} P={p6} E={e6}")
+        device_us[key] = device_us_per_call(lambda: tq.engine_step(*args))
     for k, (ms, plain, b_ms, by, shape) in out.items():
+        dev = (f", device {device_us[k]:.3f} us/call" if device_us.get(k)
+               else "")
         log(f"timing: {k} [{shape}] kernel {ms:.4f} ms, plain {plain:.4f} "
-            f"ms, bound {b_ms:.6f} ms ({by})")
-    return out
+            f"ms, bound {b_ms:.6f} ms ({by}){dev}")
+    return out, device_us
 
 
 def main(argv=None) -> int:
@@ -399,8 +533,9 @@ def main(argv=None) -> int:
     from ratis_tpu_torch.ops import _build
     from ratis_tpu_torch.ops import ledger as tl
     from ratis_tpu_torch.ops import quorum as tq
-    from ratis_tpu_torch.tools import cases
-    kernels = {"K1": tq.K1, "K2": tq.K2, "K3": tq.K3, "K4": tl.K4}
+    from ratis_tpu_torch.tools import bench, cases
+    kernels = {"K1": tq.K1, "K2": tq.K2, "K3": tq.K3, "K4": tl.K4,
+               "K6": tq.K6}
 
     # 2. build
     t0 = time.monotonic()
@@ -414,37 +549,71 @@ def main(argv=None) -> int:
 
     # 3. parity at fixed shapes
     par = Parity()
-    run_parity(tq, tl, cases, par)
+    run_parity(tq, tl, cases, bench, par)
 
-    # 4. the main path
-    main_res, launches, shapes = run_main_path(tq, kernels, args.groups,
-                                               args.writes)
-    log(f"main path: {card} | 3 servers x {args.groups} groups | "
+    # 4a. the main path over the simulated transport
+    rec = ShapeRecorder(tq)
+    main_res, sim_launches = run_main_path(tq, kernels, args.groups,
+                                           args.writes, rec)
+    log(f"main path (sim): {card} | 3 servers x {args.groups} groups | "
         f"bring-up {main_res['bring_up_s']:.3f} s | "
         f"{main_res['commits']} writes acked, all replicas read back | "
         f"{main_res['commits_per_sec']:.1f} commits/s | "
-        f"p50 {main_res['p50_ms']:.2f} ms | p99 {main_res['p99_ms']:.2f} ms")
-    log(f"main path launches: {launches}; K1 E {dict(shapes['K1'])}; "
-        f"K2 (D, E) {dict(shapes['K2'])}")
+        f"p50 {main_res['p50_ms']:.2f} ms | p99 {main_res['p99_ms']:.2f} ms | "
+        f"election timeouts (bring-up, writes) "
+        f"{main_res['election_timeouts']}")
+    log(f"main path (sim) launches: {sim_launches}")
 
-    # 5. parity at every shape the main path gave a kernel, then timing
+    # 4b. the bench's kernel rungs
+    rungs, rung_launches = run_kernel_rungs(kernels, bench)
+    log(f"kernel rungs: {card} | 10240 x 8 x 4096: "
+        f"{rungs['kernel']['group_updates_per_sec']:.1f} group updates/s, "
+        f"{rungs['kernel']['vs_scalar_loop']:.2f} x the scalar loop | "
+        f"102400 x 8 x 8192: "
+        f"{rungs['kernel_100k']['group_updates_per_sec_100k']:.1f} group "
+        f"updates/s | launches {rung_launches}")
+
+    # 4c. the headline e2e rung over localhost TCP
+    tcp_res, tcp_launches = run_tcp_path(kernels, bench, rec)
+    log(f"main path (tcp): {card} | 3 servers x {TCP_GROUPS} groups | "
+        f"bring-up {tcp_res['election_convergence_s']:.3f} s | "
+        f"{tcp_res['acked']} writes acked, all replicas read back | "
+        f"{tcp_res['commits_per_sec']:.1f} commits/s | "
+        f"p50 {tcp_res['p50_ms']:.2f} ms | p99 {tcp_res['p99_ms']:.2f} ms | "
+        f"election timeouts (bring-up, warm-up, writes) "
+        f"{tcp_res['election_timeouts']}")
+    log(f"main path (tcp) launches: {tcp_launches}")
+    shapes = rec.shapes
+    log(f"K1 E {dict(shapes['K1'])}; K2 (D, E) {dict(shapes['K2'])}")
+
+    # 5. parity at every shape the main paths gave a kernel, then timing
     run_parity_observed(tq, tl, cases, main_res, shapes, par)
-    timing = run_timing(tq, tl, cases, main_res, shapes)
+    timing, device_us = run_timing(tq, tl, cases, bench, main_res, shapes)
 
     # 6. results
+    by_path = {k: {"sim": sim_launches[k], "tcp": tcp_launches[k]}
+               for k in sim_launches}
+    by_path["K6"] = {"kernel_rungs": rung_launches["K6"]}
     rows = []
     for name, key, source, replaces in KERNELS:
         ms, plain, b_ms, by, shape = timing[key]
         rows.append({"name": name, "route": "cuda", "source": source,
-                     "replaces": replaces, "launches": launches[key],
+                     "replaces": replaces,
+                     "launches": sum(by_path[key].values()),
+                     "launches_by_path": by_path[key],
                      "max_abs_err": par.errs[key], "ms": ms, "plain_ms": plain,
                      "bound_ms": b_ms, "bound_by": by, "library_ms": None})
     if args.out:
         with open(args.out, "w") as f:
             json.dump({"card": card, "main_path": main_res,
+                       "tcp_path": tcp_res, "kernel_rungs": rungs,
                        "shapes": {k: {str(s): n for s, n in v.items()}
                                   for k, v in shapes.items()},
-                       "timing_shapes": {k: v[4] for k, v in timing.items()},
+                       "timing": {k: dict(zip(("ms", "plain_ms", "bound_ms",
+                                               "bound_by", "shape"), v))
+                                  for k, v in timing.items()},
+                       "k6_device_us": device_us,
+                       "parity_cases": dict(par.n),
                        "kernels": rows}, f, indent=1, default=str)
     log(card)
     print(json.dumps({"kernels": rows}))

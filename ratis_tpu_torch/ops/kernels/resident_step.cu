@@ -1,23 +1,33 @@
-// The resident engine tick: K1 (fast) and K2 (dirty-row refresh).
+// The engine tick: K1 (resident fast), K2 (resident dirty-row refresh) and
+// K6 (the stateless fused tick).
 //
-// Replaces ratis_tpu/ops/quorum.py:engine_step_resident_fast (K1) and
-// ratis_tpu/ops/quorum.py:engine_step_resident (K2), which XLA compiled
-// from jnp ops.  Both update the resident [G, P] state IN PLACE (JAX
-// donated the buffers and returned new ones) and write the packed int32
-// [4, G] output (new_commit, commit_changed, timeouts, stale).
+// Replaces ratis_tpu/ops/quorum.py:engine_step_resident_fast (K1),
+// ratis_tpu/ops/quorum.py:engine_step_resident (K2) and
+// ratis_tpu/ops/quorum.py:engine_step (K6), which XLA compiled from jnp
+// ops.  K1 and K2 update the resident [G, P] state IN PLACE (JAX donated
+// the buffers and returned new ones) and write the packed int32 [4, G]
+// output (new_commit, commit_changed, timeouts, stale).  K6 is functional
+// like its JAX original: it writes only fresh outputs (match and ack
+// copies [G, P], new_commit [G], bool flags [3, G]) and none of its inputs.
 //
 // Bound on the card: at the main path's shape (G = 1024, P = 8, E <= 16384)
-// one tick moves ~0.2 MB, ~0.06 us at 3.35 TB/s, and does a few thousand
-// integer operations.  Neither bytes nor operations bound it: the launch
-// latency of its 2-3 kernels (a few us each) and the host's upload and
-// download around them do.  The design therefore keeps each pass a single
-// flat launch with no shared memory, no second sweep over the batch and no
-// host synchronisation, so the tick costs its launches and nothing else.
+// one K1/K2 tick moves ~0.2 MB, ~0.06 us at 3.35 TB/s, and does a few
+// thousand integer operations.  K6 at the bench's shapes must move ~1.9 MB
+// (G = 10240, P = 8, E = 4096; ~0.56 us) and ~18 MB (G = 102400, E = 8192;
+// ~5.4 us), most of it the copy of the two [G, P] arrays.  Bytes bind none
+// of them at 1024 and 10240 groups: the launch latency of the 2-4 steps
+// (a few us each) and the host's work around them do.  The design
+// therefore keeps each pass a single flat launch with no shared memory, no
+// second sweep over the batch and no host synchronisation, so a tick costs
+// its launches and nothing else; K6's copies are plain device-to-device
+// copies on the same stream.
 //
 // Design:
+// - Scatter indices follow XLA's mode="drop": an index in [-n, -1] counts
+//   from the end of its own dimension (n + idx), one outside [-n, n) is
+//   skipped (the engine pads with index G).
 // - Pass R (K2 only): one thread per dirty row scatters the host's rows
-//   into the state; padded entries carry index G and are skipped (the JAX
-//   scatter's mode="drop").  Dirty rows are unique, so plain stores.
+//   into the state.  Dirty rows are unique, so plain stores.
 // - Pass A: one thread per event column.  A valid ack does atomicMax on
 //   match_index[g, p] and last_ack_ms[g, p] (integer max is order-free, so
 //   the result is deterministic); invalid acks write nothing.  Update
@@ -26,8 +36,9 @@
 // - Pass B: one thread per group row, its <= MAXP peer values in
 //   registers.  The majority-min of a row is the member of rank (k-1)/2
 //   in ascending order, found by counting ranks (O(P^2) compares, no
-//   sort, no local memory).  It writes the new commit and the disarmed
-//   deadline back into the state and writes out[4, G].
+//   sort, no local memory).  In place (K1, K2) it writes the new commit and
+//   the disarmed deadline back into the state and writes out[4, G]; K6's
+//   instance writes new_commit [G] and the flags [3, G] only.
 // - int32 arithmetic that XLA wraps (now - quorum_ack) is done in uint32:
 //   signed overflow is undefined in C++.
 
@@ -47,6 +58,11 @@ constexpr int kThreads = 256;
 
 __device__ __forceinline__ int32_t wrap_sub(int32_t a, int32_t b) {
   return (int32_t)((uint32_t)a - (uint32_t)b);
+}
+
+// XLA's index normalisation: [-n, -1] -> [0, n); the caller drops the rest
+__device__ __forceinline__ int wrap_index(int32_t i, int n) {
+  return i < 0 ? i + n : i;
 }
 
 __device__ __forceinline__ unsigned row_bits(const uint8_t* m, int P) {
@@ -100,7 +116,7 @@ __global__ void refresh_rows(
     int32_t* first, int32_t* deadline) {
   int d = blockIdx.x * blockDim.x + threadIdx.x;
   if (d >= D) return;
-  int g = rf_idx[d];
+  int g = wrap_index(rf_idx[d], G);
   if (g < 0 || g >= G) return;  // padding: dropped
   for (int p = 0; p < P; ++p) {
     size_t src = (size_t)d * P + p, dst = (size_t)g * P + p;
@@ -128,10 +144,10 @@ __global__ void apply_events(
     int32_t* match, int32_t* ack, int32_t* flush, int32_t* deadline) {
   int e = blockIdx.x * blockDim.x + threadIdx.x;
   if (e >= E) return;
-  int g = ev_g[e];
+  int g = wrap_index(ev_g[e], G);
   bool in_row = g >= 0 && g < G;
   if (ev_valid[e] != 0) {
-    int p = ev_p[e];
+    int p = wrap_index(ev_p[e], P);
     if (in_row && p >= 0 && p < P) {
       size_t i = (size_t)g * P + p;
       atomicMax(&match[i], ev_m[e]);
@@ -147,7 +163,10 @@ __global__ void apply_events(
 }
 
 // Pass B: the row math.  now/timeout come from ``meta`` when given (K1's
-// device-side meta), else from the arguments (K2).
+// device-side meta), else from the arguments (K2, K6).  kInPlace (K1, K2):
+// commit and deadline are updated and out is int32 [4, G]; otherwise (K6)
+// out is new_commit [G], flags bool [3, G], and no input is written.
+template <bool kInPlace>
 __global__ void row_pass(
     const int32_t* __restrict__ match, const int32_t* __restrict__ ack,
     const uint8_t* __restrict__ self_mask, const uint8_t* __restrict__ cur,
@@ -155,7 +174,7 @@ __global__ void row_pass(
     const int32_t* __restrict__ flush, int32_t* commit,
     const int32_t* __restrict__ first, int32_t* deadline,
     const int32_t* __restrict__ meta, int now_arg, int timeout_arg,
-    int32_t* __restrict__ out, int G, int P) {
+    int32_t* __restrict__ out, uint8_t* __restrict__ flags, int G, int P) {
   int g = blockIdx.x * blockDim.x + threadIdx.x;
   if (g >= G) return;
   int32_t now = meta != nullptr ? meta[0] : now_arg;
@@ -186,12 +205,18 @@ __global__ void row_pass(
   int32_t quorum_ack = combined_majority_min(eff_ack, cb, ob);
   bool stale = is_leader && wrap_sub(now, quorum_ack) > timeout;
 
-  commit[g] = new_commit;
-  if (timed_out) deadline[g] = kIntMax;
   out[g] = new_commit;
-  out[G + g] = ok;
-  out[2 * G + g] = timed_out;
-  out[3 * G + g] = stale;
+  if constexpr (kInPlace) {
+    commit[g] = new_commit;
+    if (timed_out) deadline[g] = kIntMax;
+    out[G + g] = ok;
+    out[2 * G + g] = timed_out;
+    out[3 * G + g] = stale;
+  } else {
+    flags[g] = ok;
+    flags[G + g] = timed_out;
+    flags[2 * G + g] = stale;
+  }
 }
 
 inline int blocks(int n) { return (n + kThreads - 1) / kThreads; }
@@ -220,9 +245,9 @@ int k1_resident_fast(int32_t* match, int32_t* ack, const uint8_t* self_mask,
         ev + 6 * e, E, G, P, match, ack, flush, deadline);
   }
   if (G > 0)
-    row_pass<<<blocks(G), kThreads, 0, s>>>(
+    row_pass<true><<<blocks(G), kThreads, 0, s>>>(
         match, ack, self_mask, cur, old, role, flush, commit, first,
-        deadline, meta, 0, 0, out, G, P);
+        deadline, meta, 0, 0, out, nullptr, G, P);
   return (int)cudaGetLastError();
 }
 
@@ -251,9 +276,45 @@ int k2_resident(int32_t* match, int32_t* ack, uint8_t* self_mask,
         ev_g, ev_p, ev_m, ev_t, ev_valid, nullptr, nullptr, E, G, P, match,
         ack, flush, deadline);
   if (G > 0)
-    row_pass<<<blocks(G), kThreads, 0, s>>>(
+    row_pass<true><<<blocks(G), kThreads, 0, s>>>(
         match, ack, self_mask, cur, old, role, flush, commit, first,
-        deadline, nullptr, now_ms, timeout_ms, out, G, P);
+        deadline, nullptr, now_ms, timeout_ms, out, nullptr, G, P);
+  return (int)cudaGetLastError();
+}
+
+// K6: the stateless tick, arguments in engine_step's order.  Copies match
+// and ack into match_out / ack_out, scatters the E unpacked acks there,
+// then the row pass writes new_commit [G] and flags bool [3, G]
+// (commit_changed, timeouts, stale).  No input is written.
+int k6_engine_step(const int32_t* match, const int32_t* ack,
+                   const int32_t* ev_g, const int32_t* ev_p,
+                   const int32_t* ev_m, const int32_t* ev_t,
+                   const uint8_t* ev_valid, const uint8_t* self_mask,
+                   const int32_t* flush, const uint8_t* cur,
+                   const uint8_t* old, const int32_t* commit,
+                   const int32_t* first, const int8_t* role,
+                   const int32_t* deadline, int now_ms, int timeout_ms,
+                   int32_t* match_out, int32_t* ack_out,
+                   int32_t* new_commit, uint8_t* flags, int G, int P, int E,
+                   void* stream) {
+  cudaStream_t s = (cudaStream_t)stream;
+  const size_t gp = (size_t)G * P * sizeof(int32_t);
+  if (gp > 0) {
+    cudaError_t err = cudaMemcpyAsync(match_out, match, gp,
+                                      cudaMemcpyDeviceToDevice, s);
+    if (err == cudaSuccess)
+      err = cudaMemcpyAsync(ack_out, ack, gp, cudaMemcpyDeviceToDevice, s);
+    if (err != cudaSuccess) return (int)err;
+  }
+  if (E > 0)
+    apply_events<uint8_t><<<blocks(E), kThreads, 0, s>>>(
+        ev_g, ev_p, ev_m, ev_t, ev_valid, nullptr, nullptr, E, G, P,
+        match_out, ack_out, nullptr, nullptr);
+  if (G > 0)
+    row_pass<false><<<blocks(G), kThreads, 0, s>>>(
+        match_out, ack_out, self_mask, cur, old, role, flush,
+        const_cast<int32_t*>(commit), first, const_cast<int32_t*>(deadline),
+        nullptr, now_ms, timeout_ms, new_commit, flags, G, P);
   return (int)cudaGetLastError();
 }
 

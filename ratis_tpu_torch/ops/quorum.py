@@ -9,20 +9,23 @@ masks).  Each function on the engine's path has two bodies:
   held against;
 - a hand-written CUDA kernel for Hopper (``ops/kernels/*.cu``), launched
   by the public wrapper when its tensors are on a CUDA device:
-  K1 ``engine_step_resident_fast``, K2 ``engine_step_resident`` (both in
-  ``resident_step.cu``) and K3 ``tally_votes`` (``tally_votes.cu``).
+  K1 ``engine_step_resident_fast``, K2 ``engine_step_resident``, K6
+  ``engine_step`` (all three in ``resident_step.cu``) and K3
+  ``tally_votes`` (``tally_votes.cu``).
 
 A wrapper takes the plain version only because its tensors lie on the
 CPU; for CUDA tensors it launches the kernel or raises.
 
 Where the JAX functions return new arrays from donated buffers, the
 resident steps here update the ``DeviceState`` tensors IN PLACE and
-return the same tensors in the result's ``state``.
+return the same tensors in the result's ``state``.  The stateless tick
+(``engine_step``) writes none of its inputs, as in JAX.
 
-Scatter indices outside ``[0, n)`` are dropped, like the JAX scatters'
-``mode="drop"`` (the engine pads with index ``capacity`` and never emits
-negative indices).  int32 differences that XLA wraps are wrapped here
-explicitly.
+Scatter indices follow the JAX scatters' ``mode="drop"``: an index in
+``[-n, -1]`` counts from the end of its own dimension (``n + idx``, as
+numpy and XLA normalise it), and one outside ``[-n, n)`` is dropped (the
+engine pads with index ``capacity``).  int32 differences that XLA wraps
+are wrapped here explicitly.
 """
 
 from __future__ import annotations
@@ -196,18 +199,125 @@ def check_leadership(last_ack_ms, self_mask, conf_cur, conf_old, now_ms,
     return is_leader & stale
 
 
+def wrap_index(idx: torch.Tensor, n: int) -> torch.Tensor:
+    """An index in ``[-n, -1]`` counts from the end (``n + idx``), as XLA
+    normalises scatter indices; anything else is returned as it is, and
+    the caller drops what lies outside ``[0, n)``."""
+    return torch.where(idx < 0, idx + n, idx)
+
+
 def apply_ack_events(match_index, last_ack_ms, ev_group, ev_peer, ev_match,
                      ev_time_ms, ev_valid):
     """Scatter-max a packed batch of acks into ``match_index`` and
-    ``last_ack_ms`` IN PLACE and return them.  Invalid slots and
-    out-of-range (group, peer) pairs write nothing."""
+    ``last_ack_ms`` IN PLACE and return them.  Group and peer each wrap a
+    negative index by their own extent; invalid slots and (group, peer)
+    pairs still out of range write nothing."""
     g_n, p_n = match_index.shape
+    ev_group, ev_peer = wrap_index(ev_group, g_n), wrap_index(ev_peer, p_n)
     keep = ev_valid & (ev_group >= 0) & (ev_group < g_n) & (ev_peer >= 0) \
         & (ev_peer < p_n)
     flat = (ev_group[keep].long() * p_n + ev_peer[keep].long())
     match_index.view(-1).scatter_reduce_(0, flat, ev_match[keep], "amax")
     last_ack_ms.view(-1).scatter_reduce_(0, flat, ev_time_ms[keep], "amax")
     return match_index, last_ack_ms
+
+
+class EngineStep(NamedTuple):
+    match_index: torch.Tensor     # [G, P] int32, a new tensor
+    last_ack_ms: torch.Tensor     # [G, P] int32, a new tensor
+    new_commit: torch.Tensor      # [G] int32
+    commit_changed: torch.Tensor  # [G] bool
+    timeouts: torch.Tensor        # [G] bool followers to become candidates
+    stale: torch.Tensor           # [G] bool leaders that lost quorum contact
+
+
+# the arrays of engine_step's signature, in order: name, dtype, shape
+# ([G, P], [E] or [G]); the two trailing scalars, now_ms and
+# leadership_timeout_ms, are ints
+ENGINE_STEP_ARRAYS = (
+    ("match_index", np.int32, "GP"), ("last_ack_ms", np.int32, "GP"),
+    ("ev_group", np.int32, "E"), ("ev_peer", np.int32, "E"),
+    ("ev_match", np.int32, "E"), ("ev_time_ms", np.int32, "E"),
+    ("ev_valid", np.bool_, "E"), ("self_mask", np.bool_, "GP"),
+    ("flush_index", np.int32, "G"), ("conf_cur", np.bool_, "GP"),
+    ("conf_old", np.bool_, "GP"), ("commit_index", np.int32, "G"),
+    ("first_leader_index", np.int32, "G"), ("role", np.int8, "G"),
+    ("election_deadline_ms", np.int32, "G"))
+
+
+def engine_step_args_from_numpy(args: Sequence, device) -> tuple:
+    """The 17 arguments of ``engine_step`` (the JAX function's order, e.g.
+    ``tools.bench._example_batch``) as fresh tensors on ``device`` with
+    the JAX dtypes (int32, bool masks, int8 role; each checked), and the
+    two trailing scalars ``now_ms`` and ``leadership_timeout_ms`` as
+    Python ints: the kernel takes them by value, so no call waits on a
+    device scalar."""
+    args = list(args)
+    if len(args) != len(ENGINE_STEP_ARRAYS) + 2:
+        raise ValueError(f"expected {len(ENGINE_STEP_ARRAYS) + 2} "
+                         f"arguments, got {len(args)}")
+    out = _tensors_from_numpy([(n, dt) for n, dt, _ in ENGINE_STEP_ARRAYS],
+                              args[:-2], device)
+    return (*out, int(args[-2]), int(args[-1]))
+
+
+def _engine_step_plain(match_index, last_ack_ms, ev_group, ev_peer, ev_match,
+                       ev_time_ms, ev_valid, self_mask, flush_index, conf_cur,
+                       conf_old, commit_index, first_leader_index, role,
+                       election_deadline_ms, now_ms: int,
+                       timeout_ms: int) -> EngineStep:
+    match_index, last_ack_ms = apply_ack_events(
+        match_index.clone(memory_format=torch.contiguous_format),
+        last_ack_ms.clone(memory_format=torch.contiguous_format),
+        ev_group, ev_peer, ev_match, ev_time_ms, ev_valid)
+    is_leader = role == ROLE_LEADER
+    cu = update_commit(match_index, self_mask, flush_index, conf_cur,
+                       conf_old, commit_index, first_leader_index, is_leader)
+    timeouts = election_timeout(now_ms, election_deadline_ms,
+                                role == ROLE_FOLLOWER)
+    stale = check_leadership(last_ack_ms, self_mask, conf_cur, conf_old,
+                             now_ms, timeout_ms, is_leader)
+    return EngineStep(match_index, last_ack_ms, cu.new_commit, cu.changed,
+                      timeouts, stale)
+
+
+K6 = Kernel("resident_step.cu", "k6_engine_step",
+            (PTR,) * 15 + (INT, INT) + (PTR,) * 4 + (INT, INT, INT))
+
+
+def engine_step(match_index, last_ack_ms, ev_group, ev_peer, ev_match,
+                ev_time_ms, ev_valid, self_mask, flush_index, conf_cur,
+                conf_old, commit_index, first_leader_index, role,
+                election_deadline_ms, now_ms, leadership_timeout_ms
+                ) -> EngineStep:
+    """One stateless fused tick for every group (K6): scatter-max the ack
+    batch into COPIES of ``match_index`` / ``last_ack_ms``, advance
+    commits, fire election timeouts, find stale leaders.  No input is
+    written.  Arrays as in ``ENGINE_STEP_ARRAYS``; ``now_ms`` and
+    ``leadership_timeout_ms`` are host scalars (int, numpy int32).  CPU
+    tensors: plain torch; CUDA tensors: the kernel."""
+    arrays = (match_index, last_ack_ms, ev_group, ev_peer, ev_match,
+              ev_time_ms, ev_valid, self_mask, flush_index, conf_cur,
+              conf_old, commit_index, first_leader_index, role,
+              election_deadline_ms)
+    dev = _device_of(*arrays)
+    now, timeout = int(now_ms), int(leadership_timeout_ms)
+    if dev.type == "cpu":
+        return _engine_step_plain(*arrays, now, timeout)
+    g, p = match_index.shape
+    _check_peers(p)
+    e = ev_group.shape[0]
+    shapes = {"GP": (g, p), "E": (e,), "G": (g,)}
+    for (_, dt, shape), t in zip(ENGINE_STEP_ARRAYS, arrays):
+        _check(t, _TORCH_DTYPE[dt], shapes[shape])
+    match_out = torch.empty_like(match_index)
+    ack_out = torch.empty_like(last_ack_ms)
+    new_commit = torch.empty(g, dtype=torch.int32, device=dev)
+    flags = torch.empty((3, g), dtype=torch.bool, device=dev)
+    K6(dev, *(t.data_ptr() for t in arrays), now, timeout,
+       match_out.data_ptr(), ack_out.data_ptr(), new_commit.data_ptr(),
+       flags.data_ptr(), g, p, e)
+    return EngineStep(match_out, ack_out, new_commit, *flags)
 
 
 class DeviceState(NamedTuple):
@@ -243,14 +353,21 @@ def device_state_from_numpy(arrays: Sequence[np.ndarray],
     if len(arrays) != len(DeviceState._fields):
         raise ValueError(f"expected {len(DeviceState._fields)} arrays, "
                          f"got {len(arrays)}")
+    return DeviceState(*_tensors_from_numpy(
+        zip(DeviceState._fields, _STATE_DTYPES), arrays, device))
+
+
+def _tensors_from_numpy(fields, arrays, device) -> list[torch.Tensor]:
+    """Fresh tensors on ``device`` from numpy arrays whose dtypes must be
+    the ``(name, dtype)`` pairs of ``fields``."""
     out = []
-    for name, a, dt in zip(DeviceState._fields, arrays, _STATE_DTYPES):
+    for (name, dt), a in zip(fields, arrays):
         a = np.asarray(a)
         if a.dtype != dt:
             raise TypeError(f"{name}: dtype {a.dtype}, expected "
                             f"{np.dtype(dt)}")
         out.append(torch.tensor(a, device=device))
-    return DeviceState(*out)
+    return out
 
 
 def upload(arrays: Sequence[np.ndarray], device) -> list[torch.Tensor]:
@@ -313,6 +430,7 @@ def _row_pass_plain(st: DeviceState, now_ms: int,
 
 def _scatter_rows(dst: torch.Tensor, idx: torch.Tensor,
                   rows: torch.Tensor) -> None:
+    idx = wrap_index(idx, dst.shape[0])
     keep = (idx >= 0) & (idx < dst.shape[0])
     dst[idx[keep].long()] = rows[keep]
 
@@ -371,13 +489,14 @@ def _resident_fast_plain(state: DeviceState, ev_packed, meta):
     ev_valid = ev_packed[4] != 0
     up_flush, up_deadline = ev_packed[5], ev_packed[6]
     cap = state.flush_index.shape[0]
-    in_row = (slot >= 0) & (slot < cap)
+    row = wrap_index(slot, cap)
+    in_row = (row >= 0) & (row < cap)
     # slot updates first: a deadline re-armed in the same tick is seen by
     # the timeout check below
     f = in_row & (up_flush != PACK_SENTINEL)
-    state.flush_index.scatter_reduce_(0, slot[f].long(), up_flush[f], "amax")
+    state.flush_index.scatter_reduce_(0, row[f].long(), up_flush[f], "amax")
     d = in_row & (up_deadline != PACK_SENTINEL)
-    state.election_deadline_ms[slot[d].long()] = up_deadline[d]
+    state.election_deadline_ms[row[d].long()] = up_deadline[d]
     apply_ack_events(state.match_index, state.last_ack_ms, slot, ev_peer,
                      ev_packed[2], ev_packed[3], ev_valid)
     return _row_pass_plain(state, int(meta[0]), int(meta[1]))
@@ -437,8 +556,9 @@ def _check_peers(p: int) -> None:
                          f"{MAX_KERNEL_PEERS}")
 
 
-_STATE_TORCH_DTYPES = tuple(torch.from_numpy(np.zeros(0, d)).dtype
-                            for d in _STATE_DTYPES)
+_TORCH_DTYPE = {np.int32: torch.int32, np.bool_: torch.bool,
+                np.int8: torch.int8}
+_STATE_TORCH_DTYPES = tuple(_TORCH_DTYPE[d] for d in _STATE_DTYPES)
 
 
 def _check_state(state: DeviceState) -> tuple[int, int]:

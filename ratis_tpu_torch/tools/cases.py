@@ -10,8 +10,15 @@ versions on the card), so both hold the kernels to the same cases:
   extreme indices for the ledger's wrapping differences;
 - fast-tick events: valid acks, invalid ack columns carrying sentinels,
   duplicate acks on one (group, peer), flush / deadline update columns,
-  columns aimed at row ``capacity`` (dropped), sentinel padding;
-- refresh: sorted unique dirty rows padded with index ``capacity``;
+  columns aimed at row ``capacity`` (dropped), sentinel padding; with
+  ``negative``, also group and peer indices in ``[-n, -1]`` (they count
+  from the end, as XLA's scatters normalise them) and below ``-n``
+  (dropped);
+- refresh: sorted unique dirty rows padded with index ``capacity`` (with
+  ``negative``, some rows given as ``row - g``);
+- the stateless tick (``engine_step``): the resident state's arrays with
+  unpacked acks that mix valid, invalid (garbage values), duplicate,
+  in-range negative and out-of-range (positive and negative) indices;
 - ledger: duplicate dense peer ids in a row, unmapped columns (-1), ids
   past the table width, argmax ties, and optionally one (peer, bucket)
   cell holding more than 2048 links.
@@ -61,11 +68,22 @@ def resident_state(rng, g: int, p: int, now: int = 100_000) -> list:
             commit, first, deadline]
 
 
-def fast_events(rng, g: int, p: int, e: int, now: int = 100_000
-                ) -> np.ndarray:
+def _negate(rng, idx: np.ndarray, n: int, frac: float) -> None:
+    """In place: a ``frac`` of the indices become ``idx - n`` (the same
+    slot, counted from the end), a tenth of those ``idx - 2n - 1`` (below
+    ``-n``: dropped)."""
+    neg = rng.random(idx.shape) < frac
+    idx[neg] -= n
+    below = neg & (rng.random(idx.shape) < 0.1)
+    idx[below] -= n + 1
+
+
+def fast_events(rng, g: int, p: int, e: int, now: int = 100_000,
+                negative: bool = False) -> np.ndarray:
     """A fast-tick pack int32 [7, e]: about half ack columns (some
     invalid, some duplicated), a quarter update columns on unique slots
-    (some aimed at row g and dropped), the rest sentinel padding."""
+    (some aimed at row g and dropped), the rest sentinel padding.
+    ``negative``: some ack and update indices negative (see module)."""
     ev = np.full((7, e), SENT, np.int32)
     ev[0] = 0
     ev[1] = 0
@@ -96,19 +114,32 @@ def fast_events(rng, g: int, p: int, e: int, now: int = 100_000
     dl[rng.random(n_up) < 0.3] = SENT
     ev[5, cols] = flush
     ev[6, cols] = dl
+    if negative:
+        _negate(rng, ev[0, :n_ack], g, 0.2)
+        _negate(rng, ev[1, :n_ack], p, 0.2)
+        # update slots stay unique once wrapped: row g (dropped) is kept
+        up = ev[0, cols]
+        real = up[up < g]
+        _negate(rng, real, g, 0.2)
+        up[up < g] = real
     return ev
 
 
-def refresh(rng, g: int, p: int, d: int, e: int, now: int = 100_000
-            ) -> tuple[np.ndarray, list, list]:
+def refresh(rng, g: int, p: int, d: int, e: int, now: int = 100_000,
+            negative: bool = False) -> tuple[np.ndarray, list, list]:
     """(rf_idx [d], the ten refreshed-row arrays [d, ...], the five
-    unpacked ack arrays [e]) for the refresh tick."""
+    unpacked ack arrays [e]) for the refresh tick.  ``negative``: a fifth
+    of the rows given as ``row - g`` (still unique once wrapped), and
+    negative ack indices as in ``fast_events``."""
     n = int(rng.integers(1, d + 1))
     rows = np.sort(rng.permutation(g)[:min(n, g)]).astype(np.int32)
     rf_idx = np.full(d, g, np.int32)    # padding: one past the end
     rf_idx[:len(rows)] = rows
+    if negative:
+        neg = rng.random(len(rows)) < 0.2
+        rf_idx[:len(rows)][neg] -= g
     rf = resident_state(rng, d, p, now)
-    ev = fast_events(rng, g, p, e, now)
+    ev = fast_events(rng, g, p, e, now, negative)
     ack_cols = ev[4] != 0
     acks = [np.where(ack_cols, ev[0], 0).astype(np.int32),
             np.where(ack_cols, ev[1], 0).astype(np.int32),
@@ -116,6 +147,45 @@ def refresh(rng, g: int, p: int, d: int, e: int, now: int = 100_000
             np.where(ack_cols, ev[3], 0).astype(np.int32),
             ack_cols.copy()]
     return rf_idx, rf, acks
+
+
+def step_events(rng, g: int, p: int, e: int, now: int = 100_000) -> list:
+    """The five unpacked ack arrays [e] of the stateless tick: group, peer,
+    match, time, valid.  A tenth invalid (their values garbage: they must
+    write nothing), a fifth duplicates of an earlier (group, peer), and
+    group / peer indices in ``[-n, -1]``, below ``-n`` and at or past
+    ``n``."""
+    grp = rng.integers(0, g, size=e).astype(np.int32)
+    peer = rng.integers(0, p, size=e).astype(np.int32)
+    dup = rng.random(e) < 0.2
+    src = rng.integers(0, max(1, e), size=e)
+    grp[dup] = grp[src[dup]]
+    peer[dup] = peer[src[dup]]
+    _negate(rng, grp, g, 0.15)
+    _negate(rng, peer, p, 0.15)
+    past = rng.random(e) < 0.03
+    grp[past] = g + rng.integers(0, 3, size=int(past.sum()))
+    past = rng.random(e) < 0.03
+    peer[past] = p + rng.integers(0, 3, size=int(past.sum()))
+    match = rng.integers(-1, 2500, size=e).astype(np.int32)
+    t = rng.integers(now - 100, now + 1, size=e).astype(np.int32)
+    valid = rng.random(e) < 0.9
+    match[~valid] = INT32_MAX
+    t[~valid] = INT32_MAX
+    return [grp, peer, match, t, valid]
+
+
+def step_args(rng, g: int, p: int, e: int, now: int = 100_000,
+              timeout: int = 300) -> list:
+    """The 17 arguments of ``engine_step`` in its order: the resident
+    state's arrays (joint and empty confs, a leader whose empty conf
+    takes the wrapping ``now - INT32_MIN`` branch), ``step_events``, and
+    ``now_ms`` / ``leadership_timeout_ms`` as numpy int32 scalars."""
+    (match, last_ack, self_mask, conf_cur, conf_old, role, flush, commit,
+     first, deadline) = resident_state(rng, g, p, now)
+    return [match, last_ack, *step_events(rng, g, p, e, now), self_mask,
+            flush, conf_cur, conf_old, commit, first, role, deadline,
+            np.int32(now), np.int32(timeout)]
 
 
 def tally_inputs(rng, g: int, p: int) -> list:

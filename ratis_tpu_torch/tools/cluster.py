@@ -1,21 +1,25 @@
 """An in-process multi-Raft cluster of the port's servers.
 
-``num_servers`` port ``RaftServer``s over one ``SimulatedNetwork``, each
-hosting the same ``num_groups`` sibling groups with a ``CounterStateMachine``,
-every group's consensus ticked by one ``QuorumEngine`` per server on
-``device``.  The properties are the batched multi-Raft deployment of the
-JAX package's bench harness (``ratis_tpu/tools/bench_cluster.py``,
-``bench_properties`` with ``batched=True`` over the simulated transport):
-the batched engine on every tick (scalar-fallback-threshold 0), appender
-and heartbeat coalescing, timeouts scaled to the channel count, the
-default stall watchdog (so the ledger pass runs).
+``num_servers`` port ``RaftServer``s over one ``SimulatedNetwork``
+(``transport="sim"``) or over real TCP sockets on ``127.0.0.1``
+(``transport="tcp"``, the framed transport of ``transport/tcp.py``, each
+server on a port the kernel picks when it binds, the groups made from the
+ports the servers got), each hosting the same ``num_groups`` sibling
+groups with a ``CounterStateMachine``, every group's consensus
+ticked by one ``QuorumEngine`` per server on ``device``.  The properties
+are the batched multi-Raft deployment of the JAX package's bench harness
+(``ratis_tpu/tools/bench_cluster.py``, ``bench_properties`` with
+``batched=True``): the batched engine on every tick
+(scalar-fallback-threshold 0), appender and heartbeat coalescing, wire
+write coalescing, the GC discipline, timeouts scaled to the channel
+count, the default stall watchdog (so the ledger pass runs).
 
 Leaders come from ordinary randomized-timeout elections (every round goes
 through the batched vote tally), group by group in waves; writes go
 through the port's ``RaftClient``; counters are read back from every
 replica through stale reads.
 
-    cluster = Cluster(num_groups=1024, device="cuda")
+    cluster = Cluster(num_groups=1024, device="cuda", transport="tcp")
     cluster.prewarm()             # optional: start() prewarms otherwise
     await cluster.start()
     stats = await cluster.write_all(writes_per_group=4)
@@ -30,20 +34,29 @@ import time
 
 from ratis_tpu_torch.client.client import RaftClient
 from ratis_tpu_torch.conf import RaftProperties, RaftServerConfigKeys
+from ratis_tpu_torch.conf.keys import WireConfigKeys
 from ratis_tpu_torch.engine.engine import QuorumEngine
 from ratis_tpu_torch.models.counter import CounterStateMachine
 from ratis_tpu_torch.protocol.group import RaftGroup
 from ratis_tpu_torch.protocol.ids import RaftGroupId, RaftPeerId
 from ratis_tpu_torch.protocol.peer import RaftPeer
 from ratis_tpu_torch.server.server import RaftServer
+from ratis_tpu_torch.transport.base import TransportFactory
 from ratis_tpu_torch.transport.simulated import (SimulatedNetwork,
                                                  SimulatedTransportFactory)
 
+TRANSPORTS = ("sim", "tcp")
+
 
 def cluster_properties(num_groups: int, num_servers: int = 3,
-                       device: str = "cuda") -> RaftProperties:
-    """The batched simulated-transport deployment of ``num_groups`` groups
-    on ``num_servers`` servers (bench_properties, batched, sim)."""
+                       device: str = "cuda",
+                       transport: str = "sim") -> RaftProperties:
+    """The batched deployment of ``num_groups`` groups on ``num_servers``
+    servers: the JAX bench's ``bench_properties(batched=True, num_groups,
+    num_servers=..., transport=...)`` key for key, plus the port's engine
+    device."""
+    if transport not in TRANSPORTS:
+        raise ValueError(f"transport {transport!r}: one of {TRANSPORTS}")
     p = RaftProperties()
     channels = num_groups * max(num_servers - 1, 1)
     if channels >= 2048:
@@ -66,33 +79,56 @@ def cluster_properties(num_groups: int, num_servers: int = 3,
     p.set(RaftServerConfigKeys.Engine.SCALAR_FALLBACK_THRESHOLD_KEY, "0")
     p.set(RaftServerConfigKeys.Engine.DEVICE_KEY, device)
     RaftServerConfigKeys.Log.set_use_memory(p, True)
+    # heap discipline: tuned collector thresholds, one seal after bring-up,
+    # a steady-state re-freeze every 15s (the memory log never purges)
+    p.set(RaftServerConfigKeys.Gc.DISCIPLINE_KEY, "true")
+    p.set(RaftServerConfigKeys.Gc.REFREEZE_INTERVAL_KEY, "15s")
     p.set(RaftServerConfigKeys.Log.Appender.COALESCING_ENABLED_KEY, "true")
     p.set(RaftServerConfigKeys.Heartbeat.COALESCING_ENABLED_KEY, "true")
+    # wire write coalescing: pending frames leave in one buffered flush per
+    # connection, at 128KB or after 100us (the gRPC pair is set as the JAX
+    # bench sets it; no transport of the port reads it yet)
+    p.set(WireConfigKeys.Tcp.FLUSH_BYTES_KEY, "128KB")
+    p.set(WireConfigKeys.Tcp.FLUSH_MICROS_KEY, "100")
+    p.set(WireConfigKeys.Grpc.FLUSH_MICROS_KEY, "100")
+    p.set(WireConfigKeys.Grpc.FLUSH_CHUNKS_KEY, "64")
     return p
 
 
 class Cluster:
     def __init__(self, num_groups: int, num_servers: int = 3,
-                 device: str = "cuda", properties=None):
+                 device: str = "cuda", properties=None,
+                 transport: str = "sim"):
         self.num_groups = num_groups
+        self.device = device
+        self.transport = transport
         self.properties = properties or cluster_properties(
-            num_groups, num_servers, device)
-        self.network = SimulatedNetwork()
-        # the hub's default 3s rpc deadline models a small cluster
-        self.network.request_timeout_s = max(
-            3.0, RaftServerConfigKeys.Rpc.timeout_min(
-                self.properties).seconds)
-        self.factory = SimulatedTransportFactory(self.network)
-        peers = [RaftPeer(RaftPeerId.value_of(f"s{i}"), address=f"sim:s{i}")
-                 for i in range(num_servers)]
-        self.groups = [RaftGroup.value_of(RaftGroupId.random_id(), peers)
-                       for _ in range(num_groups)]
+            num_groups, num_servers, device, transport)
+        if transport == "tcp":
+            import ratis_tpu_torch.transport.tcp  # noqa: F401 (registers TCP)
+            self.network = None
+            self.factory = TransportFactory.get("TCP")
+            # port 0: each server binds a port the kernel picks, so no
+            # other process can take it between choosing and binding
+            addresses = ["127.0.0.1:0"] * num_servers
+        elif transport == "sim":
+            self.network = SimulatedNetwork()
+            # the hub's default 3s rpc deadline models a small cluster
+            self.network.request_timeout_s = max(
+                3.0, RaftServerConfigKeys.Rpc.timeout_min(
+                    self.properties).seconds)
+            self.factory = SimulatedTransportFactory(self.network)
+            addresses = [f"sim:s{i}" for i in range(num_servers)]
+        else:
+            raise ValueError(f"transport {transport!r}: one of {TRANSPORTS}")
         self.servers = [
-            RaftServer(p.id, p.address,
+            RaftServer(RaftPeerId.value_of(f"s{i}"), a,
                        state_machine_registry=lambda gid: CounterStateMachine(),
                        properties=self.properties,
-                       transport_factory=self.factory, group=self.groups[0])
-            for p in peers]
+                       transport_factory=self.factory)
+            for i, a in enumerate(addresses)]
+        # made by start(), from the addresses the servers listen on
+        self.groups: list[RaftGroup] = []
         self._client_transport = None
         self._clients: dict = {}
         # group id -> log index of its last acknowledged write
@@ -110,19 +146,31 @@ class Cluster:
         self.prewarm_s = time.monotonic() - t0
 
     async def start(self, wave: int = 128, timeout: float = 120.0) -> None:
-        """Prewarm unless done, start the servers, then add the groups in
-        waves and wait for a ready leader in each."""
+        """Prewarm unless done, start the servers, make the groups over the
+        addresses they listen on, then add the groups (the first alone,
+        then in waves) and wait for a ready leader in each."""
         if self.prewarm_s is None:
             self.prewarm()
         t0 = time.monotonic()
         await asyncio.gather(*(s.start() for s in self.servers))
-        await self.wait_leaders(self.groups[:1], timeout)
-        for i in range(1, len(self.groups), wave):
-            batch = self.groups[i:i + wave]
+        peers = [RaftPeer(s.peer_id, address=s.transport.address)
+                 for s in self.servers]
+        self.groups = [RaftGroup.value_of(RaftGroupId.random_id(), peers)
+                       for _ in range(self.num_groups)]
+        for lo, hi in [(0, 1)] + [(i, i + wave)
+                                  for i in range(1, self.num_groups, wave)]:
+            batch = self.groups[lo:hi]
             await asyncio.gather(*(s.group_add(g) for g in batch
                                    for s in self.servers))
             await self.wait_leaders(batch, timeout)
         self.bring_up_s = time.monotonic() - t0
+
+    def election_timeouts(self) -> int:
+        """Election timeouts fired so far, summed over every division of
+        every server: a bring-up fires about one per group, and a rise
+        while writes run is election churn."""
+        return sum(d.election_metrics.timeout_count.count
+                   for s in self.servers for d in s.divisions.values())
 
     def leader_of(self, group: RaftGroup):
         for s in self.servers:

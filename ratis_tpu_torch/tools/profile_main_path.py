@@ -1,9 +1,10 @@
 """Where the main path's time goes on a CUDA card.
 
     python -m ratis_tpu_torch.tools.profile_main_path [--groups 1024]
-        [--writes 4] [--out FILE]
+        [--writes 4] [--transport sim|tcp] [--out FILE]
 
-Brings up the port's 3-server cluster on ``cuda`` (``tools/cluster.py``),
+Brings up the port's 3-server cluster on ``cuda`` (``tools/cluster.py``)
+over the simulated transport or localhost TCP,
 then traces the write phase under ``torch.profiler`` (CPU and CUDA
 activity) and reports, for that window:
 
@@ -13,7 +14,8 @@ activity) and reports, for that window:
 - the share of the wall clock the engines spent in batched dispatches
   (host view: pack, upload, launch, download), from their
   ``dispatchLatency`` timers;
-- the window's commits/s and commit latency percentiles.
+- the window's commits/s and commit latency percentiles;
+- the election timeouts fired in bring-up and in the window (churn).
 
 The numbers describe the card it ran on; the script prints its name and
 power limit first.  It needs CUDA and fails without it.
@@ -35,13 +37,14 @@ def _device_us(evt) -> float:
     return float(t if t is not None else evt.self_cuda_time_total)
 
 
-async def _run(groups: int, writes: int) -> dict:
+async def _run(groups: int, writes: int, transport: str) -> dict:
     from ratis_tpu_torch.tools.cluster import Cluster
-    cluster = Cluster(groups, device="cuda")
+    cluster = Cluster(groups, device="cuda", transport=transport)
     cluster.prewarm()
     try:
         await cluster.start(timeout=600)
         timers = [s.engine._m.dispatch_timer for s in cluster.servers]
+        timeouts = cluster.election_timeouts()
         before = [(t.count, t._total_s) for t in timers]
         acts = [torch.profiler.ProfilerActivity.CPU,
                 torch.profiler.ProfilerActivity.CUDA]
@@ -52,6 +55,7 @@ async def _run(groups: int, writes: int) -> dict:
             wall = time.perf_counter() - t0
         dispatch = [(t.count - c, t._total_s - s)
                     for t, (c, s) in zip(timers, before)]
+        timeouts = [timeouts, cluster.election_timeouts() - timeouts]
     finally:
         await cluster.close()
     kernels = {}
@@ -72,6 +76,7 @@ async def _run(groups: int, writes: int) -> dict:
             "engine_dispatch_share": sum(s for _, s in dispatch) / wall,
             "commits_per_sec": stats["commits_per_sec"],
             "p50_ms": stats["p50_ms"], "p99_ms": stats["p99_ms"],
+            "election_timeouts": timeouts,
             "kernels": dict(sorted(kernels.items(),
                                    key=lambda kv: -kv[1]["total_us"]))}
 
@@ -80,6 +85,7 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--groups", type=int, default=1024)
     ap.add_argument("--writes", type=int, default=4)
+    ap.add_argument("--transport", default="sim", choices=("sim", "tcp"))
     ap.add_argument("--out", help="also write the report as JSON here")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
@@ -89,11 +95,14 @@ def main(argv=None) -> int:
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True).stdout.strip().splitlines()[0]
     print(card, flush=True)
-    res = asyncio.run(_run(args.groups, args.writes))
+    res = asyncio.run(_run(args.groups, args.writes, args.transport))
     res["card"] = card
+    res["transport"] = args.transport
     print(f"write window: {res['wall_s']:.3f} s wall, "
           f"{res['commits_per_sec']:.1f} commits/s, p50 {res['p50_ms']:.2f}"
-          f" ms, p99 {res['p99_ms']:.2f} ms")
+          f" ms, p99 {res['p99_ms']:.2f} ms; election timeouts in "
+          f"bring-up {res['election_timeouts'][0]}, in the window "
+          f"{res['election_timeouts'][1]}")
     print(f"device busy {res['device_busy_s'] * 1e3:.3f} ms, idle share "
           f"{res['device_idle_share']:.6f}; engines in dispatch "
           f"{res['engine_dispatch_share']:.4f} of wall "

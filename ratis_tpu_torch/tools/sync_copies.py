@@ -48,10 +48,10 @@ VERBATIM = (
     "server/serving/__init__.py", "server/serving/admission.py",
     "server/serving/readbatch.py",
     "trace/__init__.py", "trace/tracer.py",
-    "transport/__init__.py", "transport/base.py", "transport/datastream.py",
-    "transport/simulated.py",
-    "util/__init__.py", "util/injection.py", "util/lifecycle.py",
-    "util/sliding_window.py", "util/timeduration.py",
+    "transport/__init__.py", "transport/base.py", "transport/coalesce.py",
+    "transport/datastream.py", "transport/simulated.py", "transport/tcp.py",
+    "util/__init__.py", "util/gcdiscipline.py", "util/injection.py",
+    "util/lifecycle.py", "util/sliding_window.py", "util/timeduration.py",
 )
 
 # copies whose code the port changes (device code, the engine's device

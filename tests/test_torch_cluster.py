@@ -1,8 +1,10 @@
 """The slice as a whole: the same workload on the JAX package's cluster and
 on the port's (``ratis_tpu_torch.tools.cluster``, engines on the CPU).
 
-3 servers x 32 groups over the simulated transport, the batched engine on
-every tick (scalar-fallback-threshold 0), leaders by election, a fixed
+3 servers x 32 groups over the simulated transport (the TCP transport:
+``test_torch_tcp_cluster.py``, through the same two runs), the batched
+engine on every tick (scalar-fallback-threshold 0), leaders by election, a
+fixed
 number of INCREMENTs per group through each package's RaftClient, and
 every counter read back from all three replicas.  Both runs must reach
 counter == writes on every replica, show fast and refresh ticks, batched
@@ -24,6 +26,7 @@ from ratis_tpu.protocol.ids import RaftGroupId as JaxGroupId
 from ratis_tpu.protocol.ids import RaftPeerId as JaxPeerId
 from ratis_tpu.protocol.peer import RaftPeer as JaxPeer
 from ratis_tpu.server.server import RaftServer as JaxServer
+from ratis_tpu.transport.base import TransportFactory as JaxTransports
 from ratis_tpu.transport.simulated import SimulatedNetwork as JaxNetwork
 from ratis_tpu.transport.simulated import \
     SimulatedTransportFactory as JaxFactory
@@ -57,20 +60,24 @@ async def _wait(pred, what):
         await asyncio.sleep(0.05)
 
 
-async def _jax_run() -> dict:
+async def _jax_run(transport: str = "sim") -> dict:
     """The port harness's steps, with the JAX package's classes."""
-    props = JaxProperties(dict(cluster_properties(GROUPS, 3, "cpu").items()))
-    net = JaxNetwork()
-    net.request_timeout_s = 3.0
-    factory = JaxFactory(net)
-    peers = [JaxPeer(JaxPeerId.value_of(f"s{i}"), address=f"sim:s{i}")
-             for i in range(3)]
-    groups = [JaxGroup.value_of(JaxGroupId.random_id(), peers)
-              for _ in range(GROUPS)]
-    servers = [JaxServer(p.id, p.address,
+    props = JaxProperties(dict(cluster_properties(GROUPS, 3, "cpu",
+                                                  transport).items()))
+    if transport == "tcp":
+        import ratis_tpu.transport.tcp  # noqa: F401 (registers TCP)
+        factory = JaxTransports.get("TCP")
+        addresses = ["127.0.0.1:0"] * 3
+    else:
+        net = JaxNetwork()
+        net.request_timeout_s = 3.0
+        factory = JaxFactory(net)
+        addresses = [f"sim:s{i}" for i in range(3)]
+    servers = [JaxServer(JaxPeerId.value_of(f"s{i}"), a,
                          state_machine_registry=lambda gid: JaxCounter(),
-                         properties=props, transport_factory=factory,
-                         group=groups[0]) for p in peers]
+                         properties=props, transport_factory=factory)
+               for i, a in enumerate(addresses)]
+    groups = []
     servers[0].engine.prewarm(group_counts=[64], event_counts=[64, 256])
     transport = factory.new_client_transport(props)
 
@@ -84,6 +91,11 @@ async def _jax_run() -> dict:
 
     try:
         await asyncio.gather(*(s.start() for s in servers))
+        peers = [JaxPeer(s.peer_id, address=s.transport.address)
+                 for s in servers]
+        groups.extend(JaxGroup.value_of(JaxGroupId.random_id(), peers)
+                      for _ in range(GROUPS))
+        await asyncio.gather(*(s.group_add(groups[0]) for s in servers))
         await _wait(lambda: leader_of(groups[0]), "first leader")
         await asyncio.gather(*(s.group_add(g) for g in groups[1:]
                                for s in servers))
@@ -112,6 +124,7 @@ async def _jax_run() -> dict:
             asyncio.gather(*(write(g) for g in groups)), TIMEOUT)
         await asyncio.sleep(1.2)  # at least one watchdog ledger sample
         return {"counters": counters, "engines": [s.engine for s in servers],
+                "transports": [type(s.transport).__name__ for s in servers],
                 "applied": [s.divisions[g.group_id].applied_index
                             for s in servers for g in groups]}
     finally:
@@ -120,8 +133,8 @@ async def _jax_run() -> dict:
                              return_exceptions=True)
 
 
-async def _torch_run() -> dict:
-    cluster = Cluster(GROUPS, device="cpu")
+async def _torch_run(transport: str = "sim") -> dict:
+    cluster = Cluster(GROUPS, device="cpu", transport=transport)
     try:
         await cluster.start(timeout=TIMEOUT)
         stats = await cluster.write_all(WRITES)
@@ -130,27 +143,42 @@ async def _torch_run() -> dict:
         await asyncio.sleep(1.2)  # at least one watchdog ledger sample
         return {"counters": [read[g.group_id] for g in cluster.groups],
                 "engines": [s.engine for s in cluster.servers],
+                "transports": [type(s.transport).__name__
+                               for s in cluster.servers],
                 "applied": [s.divisions[g.group_id].applied_index
-                            for s in cluster.servers for g in cluster.groups]}
+                            for s in cluster.servers for g in cluster.groups],
+                "addresses": sorted({p.address for g in cluster.groups
+                                     for p in g.peers}),
+                "listening": sorted(s.transport.address
+                                    for s in cluster.servers)}
     finally:
         await cluster.close()
 
 
-def test_cluster_slice_matches_jax(monkeypatch):
+def run_both_and_compare(monkeypatch, transport: str) -> dict:
+    """Both clusters over ``transport``, held to the same bar."""
     jax_tallies = _count_vote_passes(monkeypatch, JaxEngine)
     torch_tallies = _count_vote_passes(monkeypatch, TorchEngine)
-    runs = {"jax": asyncio.run(_jax_run()),
-            "torch": asyncio.run(_torch_run())}
+    runs = {"jax": asyncio.run(_jax_run(transport)),
+            "torch": asyncio.run(_torch_run(transport))}
     for name, run in runs.items():
         assert run["counters"] == [[WRITES] * 3] * GROUPS, name
         assert min(run["applied"]) >= WRITES, name
         for e in run["engines"]:
+            assert e.metrics["batched_dispatches"] > 0, name
             assert e.metrics["fast_ticks"] > 0, name
             assert e.metrics["refresh_ticks"] > 0, name
             assert e.ledger.samples.count > 0, name
     assert runs["jax"]["counters"] == runs["torch"]["counters"]
+    assert runs["jax"]["transports"] == runs["torch"]["transports"]
     assert jax_tallies and torch_tallies
     for e in runs["torch"]["engines"]:
         assert e.device.type == "cpu"
         assert e._dev is None or e._dev.match_index.device.type == "cpu"
+    return runs
+
+
+def test_cluster_slice_matches_jax(monkeypatch):
+    runs = run_both_and_compare(monkeypatch, "sim")
+    assert set(runs["torch"]["transports"]) == {"SimulatedServerTransport"}
 

@@ -19,7 +19,7 @@ import torch
 
 from ratis_tpu_torch.ops import ledger as tl
 from ratis_tpu_torch.ops import quorum as tq
-from ratis_tpu_torch.tools import cases
+from ratis_tpu_torch.tools import bench, cases
 
 pytestmark = pytest.mark.cuda
 
@@ -38,11 +38,12 @@ def _cuda(arrays):
     return [torch.from_numpy(np.ascontiguousarray(a)).cuda() for a in arrays]
 
 
+@pytest.mark.parametrize("negative", [False, True])
 @pytest.mark.parametrize("g,e", [(1024, 64), (1024, 16384), (10240, 1024)])
-def test_fast_step_kernel_matches_plain(card, g, e):
+def test_fast_step_kernel_matches_plain(card, g, e, negative):
     rng = np.random.default_rng(g + e)
     st = cases.resident_state(rng, g, P, NOW)
-    ev, meta = _cuda([cases.fast_events(rng, g, P, e, NOW),
+    ev, meta = _cuda([cases.fast_events(rng, g, P, e, NOW, negative),
                       np.array([NOW, 300], np.int32)])
     a = tq.device_state_from_numpy(st, card)
     b = tq.device_state_from_numpy(st, card)
@@ -52,11 +53,12 @@ def test_fast_step_kernel_matches_plain(card, g, e):
         assert torch.equal(x, y)
 
 
-def test_refresh_step_kernel_matches_plain(card):
+@pytest.mark.parametrize("negative", [False, True])
+def test_refresh_step_kernel_matches_plain(card, negative):
     rng = np.random.default_rng(1)
     g = 1024
     st = cases.resident_state(rng, g, P, NOW)
-    rf_idx, rf, acks = cases.refresh(rng, g, P, 256, 1024, NOW)
+    rf_idx, rf, acks = cases.refresh(rng, g, P, 256, 1024, NOW, negative)
     rf_idx, *rf = _cuda([rf_idx, *rf])
     acks = _cuda(acks)
     a = tq.device_state_from_numpy(st, card)
@@ -66,6 +68,36 @@ def test_refresh_step_kernel_matches_plain(card):
     assert torch.equal(torch.stack(k[1:]), want)
     for x, y in zip(a, b):
         assert torch.equal(x, y)
+
+
+def _step_both(args):
+    """K6 and its plain version on the same card tensors: equal outputs,
+    inputs unchanged."""
+    before = [t.clone() for t in args[:15]]
+    k = tq.engine_step(*args)
+    want = tq._engine_step_plain(*args)
+    for name, x, y in zip(tq.EngineStep._fields, k, want):
+        assert x.dtype == y.dtype and torch.equal(x, y), name
+    for x, y in zip(args, before):
+        assert torch.equal(x, y)
+    return k
+
+
+@pytest.mark.parametrize("g,e", [(1024, 256), (10240, 4096)])
+@pytest.mark.parametrize("seed", [0, 1])
+def test_engine_step_kernel_matches_plain(card, g, e, seed):
+    rng = np.random.default_rng(seed)
+    _step_both(tq.engine_step_args_from_numpy(
+        cases.step_args(rng, g, P, e, NOW), card))
+    _step_both(tq.engine_step_args_from_numpy(
+        bench._example_batch(g, P, e, seed), card))
+
+
+def test_engine_step_kernel_counts_its_launches(card):
+    fn, args = bench.entry(card)
+    n = tq.K6.launches
+    fn(*args)
+    assert tq.K6.launches == n + 1
 
 
 def test_tally_kernel_matches_plain(card):
@@ -82,11 +114,12 @@ def test_ledger_kernel_matches_plain(card, big_cell):
     assert torch.equal(got, tl._ledger_plain(*dev, *scalars, 8))
 
 
-def test_cluster_runs_on_the_card(card):
+@pytest.mark.parametrize("transport", ["sim", "tcp"])
+def test_cluster_runs_on_the_card(card, transport):
     from ratis_tpu_torch.tools.cluster import Cluster
 
     async def run():
-        cluster = Cluster(32, device="cuda")
+        cluster = Cluster(32, device="cuda", transport=transport)
         try:
             await cluster.start(timeout=60)
             await cluster.write_all(3)

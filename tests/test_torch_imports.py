@@ -1,7 +1,8 @@
 """The port stands alone: it imports neither jax nor ``ratis_tpu``.
 
-A fresh interpreter imports every module of ``ratis_tpu_torch`` and runs a
-tiny CPU cluster through the port's own harness; nothing it loads may be
+A fresh interpreter imports every module of ``ratis_tpu_torch``, runs a
+tiny CPU cluster through the port's own harness over the simulated
+transport and over TCP, and the bench's kernel rung; nothing it loads may be
 ``jax`` or a ``ratis_tpu`` module (``ratis_tpu_torch`` itself shares the
 prefix, so names are matched exactly).  On a machine without CUDA an
 engine built without ``device=`` must raise rather than fall back to the
@@ -27,8 +28,8 @@ for name in names:
     importlib.import_module(name)
 from ratis_tpu_torch.tools.cluster import Cluster
 
-async def run():
-    c = Cluster(4, device="cpu")
+async def run(transport):
+    c = Cluster(4, device="cpu", transport=transport)
     try:
         await c.start(timeout=60)
         stats = await c.write_all(1)
@@ -36,7 +37,9 @@ async def run():
     finally:
         await c.close()
 
-commits = asyncio.run(run())
+commits = [asyncio.run(run(t)) for t in ("sim", "tcp")]
+from ratis_tpu_torch.tools import bench
+bench.kernel_rung("cpu", 16, 8, 8, iters=1, scalar_groups=4)
 import torch
 from ratis_tpu_torch.engine.engine import QuorumEngine
 raised = None
@@ -60,9 +63,10 @@ def test_port_loads_no_jax_and_no_ratis_tpu():
     assert proc.returncode == 0, proc.stderr[-4000:]
     res = json.loads(proc.stdout.strip().splitlines()[-1])
     assert res["bad"] == []
-    assert res["commits"] == 4
-    assert "ratis_tpu_torch.server.server" in res["modules"]
-    assert "ratis_tpu_torch.ops.quorum" in res["modules"]
+    assert res["commits"] == [4, 4]
+    for name in ("server.server", "ops.quorum", "transport.tcp",
+                 "transport.coalesce", "util.gcdiscipline", "tools.bench"):
+        assert f"ratis_tpu_torch.{name}" in res["modules"], name
     assert res["raised"] in (True, None)  # None: this machine has CUDA
 
 

@@ -179,6 +179,65 @@ def test_refresh_step_matches_jax(seed, d, e):
                                       np.asarray(getattr(jr, f)), err_msg=f)
 
 
+# negative indices: XLA's scatters count [-n, -1] from the end of each
+# dimension and drop only what lies below -n
+@pytest.mark.parametrize("e", [64, 1024, 16384])
+@pytest.mark.parametrize("seed", [0, 1, 2])
+def test_fast_step_negative_indices_match_jax(seed, e):
+    rng = np.random.default_rng(40 + seed)
+    g = 96
+    st = cases.resident_state(rng, g, P, NOW)
+    ev = cases.fast_events(rng, g, P, e, NOW, negative=True)
+    assert (ev[0] < 0).any() and (ev[1] < 0).any()
+    _fast_both(st, ev)
+
+
+@pytest.mark.parametrize("d,e", [(64, 64), (256, 1024)])
+@pytest.mark.parametrize("seed", [0, 1])
+def test_refresh_step_negative_indices_match_jax(seed, d, e):
+    rng = np.random.default_rng(50 + seed)
+    g = 128
+    st = cases.resident_state(rng, g, P, NOW)
+    rf_idx, rf, acks = cases.refresh(rng, g, P, d, e, NOW, negative=True)
+    assert (rf_idx < 0).any() and (acks[0] < 0).any()
+    jr = _jrefresh(_jstate(st), jnp.asarray(rf_idx),
+                   *(jnp.asarray(a) for a in rf),
+                   *(jnp.asarray(a) for a in acks),
+                   jnp.int32(NOW), jnp.int32(TIMEOUT))
+    tr = tq.engine_step_resident(
+        _tstate(st), torch.from_numpy(rf_idx),
+        *(torch.from_numpy(a) for a in rf),
+        *(torch.from_numpy(a) for a in acks), NOW, TIMEOUT)
+    _assert_state_equal(jr.state, tr.state)
+    np.testing.assert_array_equal(tr.new_commit.numpy(),
+                                  np.asarray(jr.new_commit))
+    for f in ("commit_changed", "timeouts", "stale"):
+        np.testing.assert_array_equal(getattr(tr, f).numpy() != 0,
+                                      np.asarray(getattr(jr, f)), err_msg=f)
+
+
+def test_apply_ack_events_wraps_group_and_peer_by_their_own_extent():
+    """G, P = 4, 3: acks at (-1, 0) and (1, -1) land on (3, 0) and (1, 2);
+    (-5, 0) and (0, -4) lie below -n and are dropped."""
+    g, p = 4, 3
+    grp = np.array([-1, 1, -5, 0, -4], np.int32)
+    peer = np.array([0, -1, 0, -4, -3], np.int32)
+    match = np.array([7, 8, 9, 10, 11], np.int32)
+    t = np.array([1, 2, 3, 4, 5], np.int32)
+    valid = np.ones(5, bool)
+    zeros = np.zeros((g, p), np.int32)
+    jm, ja = jax.jit(jq.apply_ack_events)(
+        jnp.asarray(zeros), jnp.asarray(zeros), *(jnp.asarray(a) for a in
+                                                  (grp, peer, match, t, valid)))
+    tm, ta = tq.apply_ack_events(
+        torch.zeros((g, p), dtype=torch.int32),
+        torch.zeros((g, p), dtype=torch.int32),
+        *(torch.from_numpy(a) for a in (grp, peer, match, t, valid)))
+    np.testing.assert_array_equal(tm.numpy(), np.asarray(jm))
+    np.testing.assert_array_equal(ta.numpy(), np.asarray(ja))
+    assert int(tm[3, 0]) == 7 and int(tm[1, 2]) == 8 and int(tm[0, 0]) == 11
+
+
 @pytest.mark.parametrize("seed", range(4))
 def test_tally_matches_jax_and_reference(seed):
     rng = np.random.default_rng(20 + seed)
