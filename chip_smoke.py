@@ -9,13 +9,17 @@ result line:
 1. environment: the card's name and power limit (nvidia-smi), CUDA present,
    which msgpack the wire codec uses;
 2. build: nvcc compiles the kernels from this checkout's sources;
-3. kernel parity: K1-K4 and K6 against their plain-torch versions on the
+3. kernel parity: K1-K6 against their plain-torch versions on the
    same CUDA inputs, several seeds with the edge cases of
    ``ratis_tpu_torch.tools.cases`` (negative indices included), K6 also
    on the bench's own batches at its three shapes, its inputs unchanged;
-   the bar is exact equality;
+   K5 at 1, 2 and 8 slices with rows past and before the slice and padding
+   columns, equal to K1 at one slice, and on the mesh100k rung's batch
+   (also equal to K1 on the same acks unrouted); the bar is exact
+   equality;
 4. the main paths, each with its kernels' launch counts zeroed just
-   before and read just after (each must be > 0):
+   before and read just after (each must be > 0; K5 must stay 0 on the
+   paths without a mesh):
    a. simulated transport: 3 port servers x ``--groups`` groups on
       ``cuda`` with the batched properties, leaders by election,
       ``--writes`` INCREMENTs per group through the port's RaftClient,
@@ -27,11 +31,19 @@ result line:
       every write acknowledged and every counter read back equal from all
       three replicas (K1-K4; the cluster is prewarmed before the counts
       are zeroed); a socket that cannot bind fails the run;
-5. kernel parity again at every shape the main paths gave K1-K4, then
-   timing: K1-K4 at their most common shape, K6 at both rung shapes;
-   CUDA events, warm-up, median of 60 calls (K1/K2 each on the same fresh
-   state), beside the plain version's time and the card's bound for the
-   same work (K6 also its device time per call from ``torch.profiler``);
+   d. the mesh path: 3 servers x 1024 groups with ``mesh-devices=8`` over
+      the simulated transport, 4 INCREMENTs per group, every counter read
+      back from all three replicas, 8 slices on every server (K5, K2, K3
+      and K4 > 0; K1 must stay 0: a mesh engine's fast ticks are K5);
+      then ``dryrun_multichip(8)`` and the bench's ``mesh_100k`` rung
+      (K5 against the flat K1 at 102400 x 8 x 8192);
+5. kernel parity again at every shape the main paths gave K1-K5, then
+   timing: K1-K5 at their most common shape (K5 also at the mesh100k
+   rung's), K6 at both rung shapes;
+   CUDA events, warm-up, median of 60 calls (K1/K2/K5 each on the same
+   fresh state), beside the plain version's time and the card's bound for
+   the same work (K5 and K6 also their device time per call from
+   ``torch.profiler``);
 6. one JSON line of kernels, then the result line
    ``{"ok": true, "device": {...}}`` last.
 
@@ -79,11 +91,22 @@ KERNELS = (
      "ratis_tpu/ops/quorum.py:144"),
     ("ledger_pass", "K4", "ratis_tpu_torch/ops/kernels/ledger_pass.cu",
      "ratis_tpu/ops/ledger.py:68"),
+    ("engine_step_resident_fast_sliced", "K5",
+     "ratis_tpu_torch/ops/kernels/resident_step.cu",
+     "ratis_tpu/ops/quorum.py:465"),
     ("engine_step", "K6", "ratis_tpu_torch/ops/kernels/resident_step.cu",
      "ratis_tpu/ops/quorum.py:257"),
 )
 # K6: entry() and the bench's two kernel rungs (G, P, E)
 K6_SHAPES = ((1024, 8, 256), (10_240, 8, 4096), (102_400, 8, 8192))
+# the mesh path: 3 servers x 1024 groups in 8 slices, 4 writes per group.
+# Capacity 2048, not the bench's bucket of 1024: divisions pin to their
+# crc32 slice, which fills 8 slices of 128 rows unevenly, and a full slice
+# refuses its group (the bench's 10240 rung has 16384 rows)
+MESH_GROUPS = 1024
+MESH_SLICES = 8
+MESH_MAX_GROUPS = 2048
+MESH_WRITES = 4
 
 
 def log(*a) -> None:
@@ -130,6 +153,38 @@ def parity_k2(tq, cases, g, p, d, e, seed, negative=False):
     k = tq.engine_step_resident(a, rf_idx, *rf, *acks, NOW, TIMEOUT_MS)
     want = tq._resident_refresh_plain(b, rf_idx, rf, acks, NOW, TIMEOUT_MS)
     return max_abs_err([torch.stack(k[1:]), *a], [want, *b])
+
+
+def parity_k5(tq, cases, g, p, s, e, seed, negative=False):
+    """K5 against its plain version; at one slice also against K1 on the
+    same plane."""
+    rng = np.random.default_rng(seed)
+    st = cases.resident_state(rng, g, p, NOW)
+    ev, meta = cuda([cases.sliced_events(rng, g, p, s, e, NOW, negative),
+                     np.array([NOW, TIMEOUT_MS], np.int32)])
+    a = tq.device_state_from_numpy(st, "cuda")
+    b = tq.device_state_from_numpy(st, "cuda")
+    k = tq.engine_step_resident_fast_sliced(a, ev, meta)
+    want = tq._resident_fast_sliced_plain(b, ev, meta)
+    err = max_abs_err([k.out, *a], [want, *b])
+    if s == 1:
+        c = tq.device_state_from_numpy(st, "cuda")
+        k1 = tq.engine_step_resident_fast(c, ev[:, 0].contiguous(), meta)
+        err = max(err, max_abs_err([k.out, *a], [k1.out, *c]))
+    return err
+
+
+def parity_k5_rung(tq, bench):
+    """K5 on the mesh100k rung's batch against its plain version, and
+    against K1 on the same acks with global rows."""
+    state, evs, evf, meta = bench.mesh100k_batch()
+    ev_s, ev_f, mt = cuda([evs, evf, meta])
+    a, b, c = (tq.device_state_from_numpy(state, "cuda") for _ in range(3))
+    k = tq.engine_step_resident_fast_sliced(a, ev_s, mt)
+    want = tq._resident_fast_sliced_plain(b, ev_s, mt)
+    k1 = tq.engine_step_resident_fast(c, ev_f, mt)
+    return max(max_abs_err([k.out, *a], [want, *b]),
+               max_abs_err([k.out, *a], [k1.out, *c]))
 
 
 def parity_k6(tq, args_np):
@@ -200,6 +255,13 @@ def run_parity(tq, tl, cases, bench, par: Parity) -> None:
             for seed in (0, 1):
                 par.add("K4", parity_k4(tl, cases, g, P, width, seed))
         par.add("K4", parity_k4(tl, cases, g, P, 8, 2, big_cell=True))
+    for g in (2048, 10240):
+        for s in (1, 2, MESH_SLICES):
+            for e in (64, 2048):
+                par.add("K5", parity_k5(tq, cases, g, P, s, e, 0))
+                par.add("K5", parity_k5(tq, cases, g, P, s, e, 1,
+                                        negative=True))
+    par.add("K5", parity_k5_rung(tq, bench))
     for g, p, e in K6_SHAPES:
         for seed in (0, 1, 2):
             par.add("K6", parity_k6(tq, cases.step_args(
@@ -208,17 +270,20 @@ def run_parity(tq, tl, cases, bench, par: Parity) -> None:
     par.check("fixed shapes")
 
 
-def run_parity_observed(tq, tl, cases, main, shapes, par: Parity) -> None:
-    """Every shape the main path gave a kernel, after the main path."""
+def run_parity_observed(tq, tl, cases, main, shapes, par: Parity,
+                        what: str) -> None:
+    """Every shape a main path gave a kernel, after the main path."""
     g, p, w = main["capacity"], main["peers"], main["ledger_width"]
     for seed in (10, 11):
         for e in shapes["K1"]:
             par.add("K1", parity_k1(tq, cases, g, p, e, seed))
         for d, e in shapes["K2"]:
             par.add("K2", parity_k2(tq, cases, g, p, d, e, seed))
+        for s, e in shapes["K5"]:
+            par.add("K5", parity_k5(tq, cases, g, p, s, e, seed))
         par.add("K3", parity_k3(tq, cases, g, p, seed))
         par.add("K4", parity_k4(tl, cases, g, p, w, seed))
-    par.check("main path shapes")
+    par.check(f"{what} shapes")
 
 
 # -- phase 4: the main path --------------------------------------------------
@@ -264,19 +329,21 @@ async def drive(cluster, writes: int) -> dict:
 
 
 class ShapeRecorder:
-    """Records the shapes the engine hands K1 and K2 while active (the
+    """Records the shapes the engine hands K1, K2 and K5 while active (the
     wrappers are swapped for counting ones and restored on exit)."""
 
     def __init__(self, tq):
         self.tq = tq
         self.shapes = {"K1": collections.Counter(),
-                       "K2": collections.Counter()}
+                       "K2": collections.Counter(),
+                       "K5": collections.Counter()}
 
     def __enter__(self):
         tq, shapes = self.tq, self.shapes
-        self.fast, self.refresh = (tq.engine_step_resident_fast,
-                                   tq.engine_step_resident)
-        fast, refresh = self.fast, self.refresh
+        self.fast, self.refresh, self.sliced = (
+            tq.engine_step_resident_fast, tq.engine_step_resident,
+            tq.engine_step_resident_fast_sliced)
+        fast, refresh, sliced = self.fast, self.refresh, self.sliced
 
         def rec_fast(state, ev, meta):
             shapes["K1"][ev.shape[1]] += 1
@@ -286,25 +353,36 @@ class ShapeRecorder:
             shapes["K2"][(rf_idx.shape[0], rest[10].shape[0])] += 1
             return refresh(state, rf_idx, *rest)
 
+        def rec_sliced(state, ev, meta):
+            shapes["K5"][(ev.shape[1], ev.shape[2])] += 1
+            return sliced(state, ev, meta)
+
         tq.engine_step_resident_fast = rec_fast
         tq.engine_step_resident = rec_refresh
+        tq.engine_step_resident_fast_sliced = rec_sliced
         return self
 
     def __exit__(self, *exc):
         self.tq.engine_step_resident_fast = self.fast
         self.tq.engine_step_resident = self.refresh
+        self.tq.engine_step_resident_fast_sliced = self.sliced
 
 
-def counted(kernels: dict, keys, drive):
-    """Zero the launch counts of ``keys`` just before ``drive()``, read
-    them just after; every one must be > 0."""
-    for k in keys:
+def counted(kernels: dict, keys, drive, never=()):
+    """Zero the launch counts of ``keys`` and ``never`` just before
+    ``drive()``, read them just after; every one of ``keys`` must be > 0,
+    every one of ``never`` 0."""
+    for k in (*keys, *never):
         kernels[k].launches = 0
     res = drive()
-    launches = {k: kernels[k].launches for k in keys}
-    for k, n in launches.items():
-        if n == 0:
+    launches = {k: kernels[k].launches for k in (*keys, *never)}
+    for k in keys:
+        if launches[k] == 0:
             raise AssertionError(f"{k} never launched on this path")
+    for k in never:
+        if launches[k] != 0:
+            raise AssertionError(f"{k} launched {launches[k]} times on a "
+                                 f"path that must not take it")
     return res, launches
 
 
@@ -314,11 +392,47 @@ def run_main_path(tq, kernels, groups: int, writes: int, rec):
     cluster.prewarm()
     with rec:
         res, launches = counted(kernels, ("K1", "K2", "K3", "K4"),
-                                lambda: asyncio.run(drive(cluster, writes)))
-    res["capacity"] = cluster.servers[0].engine.state.capacity
-    res["peers"] = cluster.servers[0].engine.state.max_peers
-    res["ledger_width"] = cluster.servers[0].engine.ledger._table_width()
+                                lambda: asyncio.run(drive(cluster, writes)),
+                                never=("K5",))
+    res.update(engine_shape(cluster))
     return res, launches
+
+
+def engine_shape(cluster) -> dict:
+    e = cluster.servers[0].engine
+    return {"capacity": e.state.capacity, "peers": e.state.max_peers,
+            "ledger_width": e.ledger._table_width()}
+
+
+def run_mesh_path(kernels, rec):
+    """3 servers x 1024 groups, every engine in 8 slices: the fast ticks
+    must all be K5."""
+    from ratis_tpu_torch.conf import RaftServerConfigKeys
+    from ratis_tpu_torch.tools.cluster import Cluster, cluster_properties
+    props = cluster_properties(MESH_GROUPS, 3, "cuda", "sim", MESH_SLICES)
+    props.set(RaftServerConfigKeys.Engine.MAX_GROUPS_KEY,
+              str(MESH_MAX_GROUPS))
+    cluster = Cluster(MESH_GROUPS, device="cuda", properties=props)
+    cluster.prewarm()
+    with rec:
+        res, launches = counted(
+            kernels, ("K2", "K3", "K4", "K5"),
+            lambda: asyncio.run(drive(cluster, MESH_WRITES)), never=("K1",))
+    slices = [(s.engine.state.n_slices, s.engine.mesh.n_slices)
+              for s in cluster.servers]
+    if slices != [(MESH_SLICES, MESH_SLICES)] * 3:
+        raise AssertionError(f"mesh path: slices {slices}")
+    res["n_slices"] = [n for n, _ in slices]
+    res.update(engine_shape(cluster))
+    return res, launches
+
+
+def run_mesh_rungs(kernels, bench):
+    """``dryrun_multichip(8)`` (K6, then a mesh engine: K5 and K2) and the
+    bench's ``mesh_100k`` rung (K5 and its control K1)."""
+    return counted(kernels, ("K1", "K2", "K5", "K6"), lambda: {
+        "dryrun_multichip": bench.dryrun_multichip(MESH_SLICES, "cuda"),
+        "mesh_100k": bench.mesh_100k_rung("cuda")})
 
 
 def run_kernel_rungs(kernels, bench):
@@ -334,7 +448,8 @@ def run_tcp_path(kernels, bench, rec):
     with rec:
         res, launches = counted(
             kernels, ("K1", "K2", "K3", "K4"),
-            lambda: asyncio.run(bench.e2e_rung(cluster, TCP_WRITES)))
+            lambda: asyncio.run(bench.e2e_rung(cluster, TCP_WRITES)),
+            never=("K5",))
     groups = TCP_GROUPS
     want = groups * (bench.WARMUP_WRITES + TCP_WRITES)
     if res["acked"] != want or res["replicas_read_back"] != groups * 3:
@@ -432,12 +547,32 @@ def device_us_per_call(fn, n: int = 20):
     return total / n if total > 0 else None
 
 
-def run_timing(tq, tl, cases, bench, main, shapes) -> dict:
-    """K1-K4 at the main paths' most common shape, K6 at both kernel-rung
-    shapes (key ``K6`` at 10240 groups, ``K6_100k`` at 102400).  Bytes:
-    every input read once (K2's refresh rows only where they are not
-    padding), the state elements a call changes and the outputs written
-    once."""
+def k5_timing(tq, st, ev_np, out, key, device_us) -> None:
+    """K5 on ``ev_np`` ([7, S, E]) over the state ``st``: each input read
+    once (the state, the S x E event columns, meta), the state it changes
+    and the [4, G] output written once."""
+    g, p = st[0].shape
+    _, s, e = ev_np.shape
+    ev, meta = cuda([ev_np, np.array([NOW, TIMEOUT_MS], np.int32)])
+    ms, plain, wrote = time_inplace(
+        tq, st, lambda a: tq.engine_step_resident_fast_sliced(a, ev, meta),
+        lambda a: tq._resident_fast_sliced_plain(a, ev, meta))
+    nbytes = state_bytes(g, p) + 7 * s * e * 4 + 8 + wrote + 16 * g
+    out[key] = (ms, plain, *bound(nbytes, g * (4 * p * p + 64) + 10 * s * e),
+                f"G={g} P={p} S={s} E={e}")
+    a = tq.device_state_from_numpy(st, "cuda")
+    device_us[key] = device_us_per_call(
+        lambda: tq.engine_step_resident_fast_sliced(a, ev, meta))
+
+
+def run_timing(tq, tl, cases, bench, main, shapes, mesh_main,
+               mesh_shapes) -> dict:
+    """K1-K4 at the main paths' most common shape, K5 at the mesh path's
+    (key ``K5``) and on the mesh100k rung's batch (``K5_100k``), K6 at
+    both kernel-rung shapes (key ``K6`` at 10240 groups, ``K6_100k`` at
+    102400).  Bytes: every input read once (K2's refresh rows only where
+    they are not padding), the state elements a call changes and the
+    outputs written once."""
     g, p, w = main["capacity"], main["peers"], main["ledger_width"]
     e1 = shapes["K1"].most_common(1)[0][0]
     d2, e2 = shapes["K2"].most_common(1)[0][0]
@@ -489,9 +624,18 @@ def run_timing(tq, tl, cases, bench, main, shapes) -> dict:
         + 4 * tl.packed_size(g, w)
     out["K4"] = (ms, plain, *bound(nbytes, g * p * 45), f"G={g} P={p} W={w}")
 
+    # K5 at the mesh path's most common (S, E) and at the rung's batch
+    device_us = {}
+    s5, e5 = mesh_shapes["K5"].most_common(1)[0][0]
+    g5 = mesh_main["capacity"]
+    k5_timing(tq, cases.resident_state(rng, g5, p, NOW),
+              cases.sliced_events(rng, g5, p, s5, e5, NOW), out, "K5",
+              device_us)
+    state, evs, _, _ = bench.mesh100k_batch()
+    k5_timing(tq, state, evs, out, "K5_100k", device_us)
+
     # K6 on the bench's own batches, at the rungs' shapes; functional, so
     # every call sees the same inputs
-    device_us = {}
     for key, (g6, p6, e6) in zip(("K6", "K6_100k"), K6_SHAPES[1:]):
         args = tq.engine_step_args_from_numpy(
             bench._example_batch(g6, p6, e6), "cuda")
@@ -517,6 +661,7 @@ def main(argv=None) -> int:
     args = ap.parse_args(argv)
 
     # 1. environment
+    t_start = time.monotonic()
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
         return 1
@@ -535,7 +680,7 @@ def main(argv=None) -> int:
     from ratis_tpu_torch.ops import quorum as tq
     from ratis_tpu_torch.tools import bench, cases
     kernels = {"K1": tq.K1, "K2": tq.K2, "K3": tq.K3, "K4": tl.K4,
-               "K6": tq.K6}
+               "K5": tq.K5, "K6": tq.K6}
 
     # 2. build
     t0 = time.monotonic()
@@ -586,14 +731,46 @@ def main(argv=None) -> int:
     shapes = rec.shapes
     log(f"K1 E {dict(shapes['K1'])}; K2 (D, E) {dict(shapes['K2'])}")
 
+    # 4d. the mesh path, then dryrun_multichip and the mesh100k rung
+    rec_mesh = ShapeRecorder(tq)
+    mesh_res, mesh_launches = run_mesh_path(kernels, rec_mesh)
+    log(f"main path (mesh): {card} | 3 servers x {MESH_GROUPS} groups in "
+        f"{MESH_SLICES} slices, slices per server {mesh_res['n_slices']} | "
+        f"bring-up {mesh_res['bring_up_s']:.3f} s | "
+        f"{mesh_res['commits']} writes acked, all replicas read back | "
+        f"{mesh_res['commits_per_sec']:.1f} commits/s | "
+        f"p50 {mesh_res['p50_ms']:.2f} ms | p99 {mesh_res['p99_ms']:.2f} ms "
+        f"| election timeouts (bring-up, writes) "
+        f"{mesh_res['election_timeouts']}")
+    log(f"main path (mesh) launches: {mesh_launches}")
+    log(f"mesh K5 (S, E) {dict(rec_mesh.shapes['K5'])}; K2 (D, E) "
+        f"{dict(rec_mesh.shapes['K2'])}")
+    mesh_rungs, mesh_rung_launches = run_mesh_rungs(kernels, bench)
+    m = mesh_rungs["mesh_100k"]
+    log(f"dryrun_multichip(8): {mesh_rungs['dryrun_multichip']}")
+    log(f"mesh_100k: {card} | {m['groups']} groups in {m['devices']} "
+        f"slices | {m['updates_per_s']:.1f} updates/s, "
+        f"{m['per_slice_updates_per_s']:.1f} per slice | tick "
+        f"{m['tick_ms']:.4f} ms, control (K1) {m['control_tick_ms']:.4f} "
+        f"ms, efficiency {m['efficiency_frac']:.3f} | launches "
+        f"{mesh_rung_launches}")
+
     # 5. parity at every shape the main paths gave a kernel, then timing
-    run_parity_observed(tq, tl, cases, main_res, shapes, par)
-    timing, device_us = run_timing(tq, tl, cases, bench, main_res, shapes)
+    run_parity_observed(tq, tl, cases, main_res, shapes, par, "main path")
+    run_parity_observed(tq, tl, cases, mesh_res, rec_mesh.shapes, par,
+                        "mesh path")
+    timing, device_us = run_timing(tq, tl, cases, bench, main_res, shapes,
+                                   mesh_res, rec_mesh.shapes)
 
     # 6. results
-    by_path = {k: {"sim": sim_launches[k], "tcp": tcp_launches[k]}
-               for k in sim_launches}
+    by_path = {k: {"sim": sim_launches[k], "tcp": tcp_launches[k],
+                   "mesh": mesh_launches[k]}
+               for k in ("K1", "K2", "K3", "K4")}
+    by_path["K5"] = {"sim": sim_launches["K5"], "tcp": tcp_launches["K5"],
+                     "mesh": mesh_launches["K5"]}
     by_path["K6"] = {"kernel_rungs": rung_launches["K6"]}
+    for k, n in mesh_rung_launches.items():
+        by_path[k]["mesh_rungs"] = n
     rows = []
     for name, key, source, replaces in KERNELS:
         ms, plain, b_ms, by, shape = timing[key]
@@ -602,19 +779,25 @@ def main(argv=None) -> int:
                      "launches": sum(by_path[key].values()),
                      "launches_by_path": by_path[key],
                      "max_abs_err": par.errs[key], "ms": ms, "plain_ms": plain,
-                     "bound_ms": b_ms, "bound_by": by, "library_ms": None})
+                     "bound_ms": b_ms, "bound_by": by, "library_ms": None,
+                     "device_us": device_us.get(key)})
     if args.out:
         with open(args.out, "w") as f:
             json.dump({"card": card, "main_path": main_res,
                        "tcp_path": tcp_res, "kernel_rungs": rungs,
+                       "mesh_path": mesh_res, "mesh_rungs": mesh_rungs,
+                       "seconds": time.monotonic() - t_start,
                        "shapes": {k: {str(s): n for s, n in v.items()}
                                   for k, v in shapes.items()},
+                       "mesh_shapes": {k: {str(s): n for s, n in v.items()}
+                                       for k, v in rec_mesh.shapes.items()},
                        "timing": {k: dict(zip(("ms", "plain_ms", "bound_ms",
                                                "bound_by", "shape"), v))
                                   for k, v in timing.items()},
-                       "k6_device_us": device_us,
+                       "device_us": device_us,
                        "parity_cases": dict(par.n),
                        "kernels": rows}, f, indent=1, default=str)
+    log(f"smoke: {time.monotonic() - t_start:.1f} s")
     log(card)
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {

@@ -20,6 +20,7 @@ CUDA device, their plain-torch versions when it is the CPU.
 from __future__ import annotations
 
 import asyncio
+import functools
 import logging
 import threading
 import time
@@ -36,6 +37,10 @@ from ratis_tpu_torch.metrics.hops import hop
 from ratis_tpu_torch.ops import ledger as ops_ledger
 from ratis_tpu_torch.ops import quorum as q
 from ratis_tpu_torch.ops import reference as ref
+from ratis_tpu_torch.parallel.mesh import (pad_to_mesh, same_card,
+                                           shard_device_state,
+                                           sharded_resident_fast_step_sliced,
+                                           sharded_resident_step)
 from ratis_tpu_torch.trace.tracer import STAGE_ENGINE, TRACER
 
 _PACK_SENTINEL = q.PACK_SENTINEL
@@ -210,12 +215,21 @@ class QuorumEngine:
         elif self.device.type != "cpu":
             raise ValueError(f"QuorumEngine device {device!r}: the "
                              f"kernels run on 'cuda' or 'cpu'")
-        # Multi-device slicing of the resident tick is a later slice of
-        # the port (ratis_tpu's parallel.mesh).
-        if mesh is not None:
-            raise NotImplementedError(
-                "mesh-sliced engine is not ported (single device only)")
+        # Optional parallel.mesh.GroupMesh: the resident state is S
+        # contiguous slices of G/S rows on the engine's device, each group
+        # pinned to a slot inside its crc32 slice; the fast tick ships
+        # slice-routed [7, S, E] event planes (kernel K5) so a slice's
+        # events only ever touch its own rows.
+        self.mesh = mesh
         n_slices = 1
+        if mesh is not None:
+            if not same_card(mesh.device, self.device):
+                raise ValueError(f"mesh on {mesh.device}, engine on "
+                                 f"{self.device}")
+            n_slices = int(mesh.n_slices)
+            # auto-pad: mesh size no longer needs to divide max-groups —
+            # padded rows stay ROLE_UNUSED and cost nothing
+            max_groups = pad_to_mesh(max_groups, n_slices)
         # raft.tpu.engine.profile-dir is accepted and ignored: the JAX
         # engine's profiler hooks are not ported.
         self.profile_dir = profile_dir
@@ -935,11 +949,25 @@ class QuorumEngine:
 
     def _kernels(self):
         # The refresh step (K2); its wrapper launches the CUDA kernel for
-        # a CUDA-resident state and the plain version for a CPU one.
+        # a CUDA-resident state and the plain version for a CPU one.  A
+        # mesh engine's steps are checked against its mesh (same kernels;
+        # its fast tick is the sliced K5).
+        if self.mesh is not None:
+            return self._mesh_steps[0]
         return q.engine_step_resident
 
     def _fast_kernel(self):
+        if self.mesh is not None:
+            return self._mesh_steps[1]
         return q.engine_step_resident_fast
+
+    @functools.cached_property
+    def _mesh_steps(self):
+        # fast path: the SLICED variant — events pre-routed per slice
+        # ([7, S, E]); the refresh path keeps global rows (dirty rows are
+        # rare and whole-row)
+        return (sharded_resident_step(self.mesh),
+                sharded_resident_fast_step_sliced(self.mesh))
 
     def prewarm(self) -> None:
         """Build and load the kernels, and launch each of them once.
@@ -973,10 +1001,13 @@ class QuorumEngine:
 
     def _upload_device_state(self):
         s = self.state
-        return q.device_state_from_numpy(
+        dev = q.device_state_from_numpy(
             (s.match_index, s.last_ack_ms, s.self_mask, s.conf_cur,
              s.conf_old, s.role, s.flush_index, s.commit_index,
              s.first_leader_index, s.election_deadline_ms), self.device)
+        if self.mesh is not None:
+            dev = shard_device_state(self.mesh, dev)
+        return dev
 
     @staticmethod
     def _pow2(n: int) -> int:
@@ -1014,6 +1045,49 @@ class QuorumEngine:
                 evp[0, k + i] = slot
                 evp[5, k + i] = flush
                 evp[6, k + i] = deadline
+        return evp
+
+    def _pack_tick_sliced(self, acks, updates: dict) -> np.ndarray:
+        """Slice-routed fast-tick packing: [7, S, E] with SLICE-LOCAL row
+        indices (ops.quorum.engine_step_resident_fast_sliced, kernel K5):
+        plane s holds only the events of slice s's rows, acks first in
+        intake order, then its slot updates.  E is the bucket of the
+        FULLEST slice; the other planes are padded to it."""
+        s = self.state
+        n_slices, rows = s.n_slices, s.slice_rows
+        na = len(acks)
+        a = np.asarray(acks, np.int32).reshape(na, 4)  # slot,peer,match,t
+        asl = a[:, 0] // rows
+        ack_counts = np.bincount(asl, minlength=n_slices)
+        counts = ack_counts.copy()
+        for slot in updates:
+            counts[slot // rows] += 1
+        n = int(counts.max()) if n_slices else 0
+        ecap = self._bucket(n)
+        self._last_event_rows, self._last_event_cap = n, ecap
+        evp = np.full((7, n_slices, ecap), _PACK_SENTINEL, np.int32)
+        evp[0] = 0
+        evp[1] = 0
+        evp[4] = 0
+        if na:
+            order = np.argsort(asl, kind="stable")
+            srt, ssl = a[order], asl[order]
+            starts = np.concatenate(
+                ([0], np.cumsum(ack_counts)[:-1])).astype(np.int64)
+            col = np.arange(na) - starts[ssl]
+            evp[0, ssl, col] = srt[:, 0] % rows
+            evp[1, ssl, col] = srt[:, 1]
+            evp[2, ssl, col] = srt[:, 2]
+            evp[3, ssl, col] = srt[:, 3]
+            evp[4, ssl, col] = 1
+        cur = ack_counts.copy()
+        for slot, (flush, deadline) in updates.items():
+            sl = slot // rows
+            c = int(cur[sl])
+            cur[sl] += 1
+            evp[0, sl, c] = slot % rows
+            evp[5, sl, c] = flush
+            evp[6, sl, c] = deadline
         return evp
 
     # Hard ceiling on one dispatch's event bucket (64 * 4^4).  A backlog
@@ -1084,7 +1158,11 @@ class QuorumEngine:
             self._m.fast_ticks.inc()
             step = self._fast_kernel()
             updates, self._slot_updates = self._slot_updates, {}
-            ev = self._pack_tick(acks, updates)
+            # mesh: slice-routed [7, S, E] planes for the sliced kernel;
+            # single device: the flat [7, E] pack
+            ev = (self._pack_tick_sliced(acks, updates)
+                  if self.mesh is not None
+                  else self._pack_tick(acks, updates))
             ev_t, meta_t = q.upload(
                 (ev, np.array([now, self.leadership_timeout_ms], np.int32)),
                 self.device)

@@ -30,6 +30,20 @@ from ratis_tpu_torch.engine.roles import ROLE_LEADER
 
 LOG = logging.getLogger(__name__)
 
+
+def _pass_fn(num_peers: int, mesh=None):
+    """The ledger pass (K4 on a CUDA device): over the mesh's slices for a
+    mesh engine (parallel.mesh.sharded_ledger_pass), so the telemetry
+    tick reads the same slice layout as the resident tick."""
+    if mesh is not None:
+        from ratis_tpu_torch.parallel.mesh import sharded_ledger_pass
+        return sharded_ledger_pass(mesh, num_peers)
+    import functools
+
+    from ratis_tpu_torch.ops.ledger import ledger_pass
+    return functools.partial(ledger_pass, num_peers=num_peers)
+
+
 @dataclasses.dataclass
 class LedgerSample:
     """One fetched ledger pass: numpy views over the single packed
@@ -141,16 +155,15 @@ class LagLedger:
         gen = st.alloc_gen.copy()
         leader_mask = st.role == ROLE_LEADER
         prev_valid = self._prev_gen == gen
-        from ratis_tpu_torch.ops.ledger import (LAG_BUCKETS, ledger_pass,
-                                                pack_slices)
+        from ratis_tpu_torch.ops.ledger import LAG_BUCKETS, pack_slices
         from ratis_tpu_torch.ops.quorum import upload
         t0 = time.perf_counter()
-        packed = ledger_pass(*upload(
+        packed = _pass_fn(width, self.engine.mesh)(*upload(
             (st.role, st.match_index, commit, st.applied_index,
              st.conf_cur, st.conf_old, st.self_mask, st.last_ack_ms,
              st.peer_index, self._prev_commit, prev_valid),
             self.engine.device), now, self.lag_threshold,
-            self.up_window_ms, num_peers=width).cpu().numpy()
+            self.up_window_ms).cpu().numpy()
         elapsed_s = time.perf_counter() - t0
         self.fetch_timer.update(elapsed_s)
         self._prev_commit = commit

@@ -1,14 +1,27 @@
-// The engine tick: K1 (resident fast), K2 (resident dirty-row refresh) and
-// K6 (the stateless fused tick).
+// The engine tick: K1 (resident fast), K2 (resident dirty-row refresh), K5
+// (the resident fast tick of a mesh engine, over S slices) and K6 (the
+// stateless fused tick).
 //
 // Replaces ratis_tpu/ops/quorum.py:engine_step_resident_fast (K1),
-// ratis_tpu/ops/quorum.py:engine_step_resident (K2) and
+// ratis_tpu/ops/quorum.py:engine_step_resident (K2),
+// ratis_tpu/ops/quorum.py:engine_step_resident_fast_sliced (K5, run by
+// ratis_tpu/parallel/mesh.py:sharded_resident_fast_step_sliced) and
 // ratis_tpu/ops/quorum.py:engine_step (K6), which XLA compiled from jnp
-// ops.  K1 and K2 update the resident [G, P] state IN PLACE (JAX donated
-// the buffers and returned new ones) and write the packed int32 [4, G]
-// output (new_commit, commit_changed, timeouts, stale).  K6 is functional
-// like its JAX original: it writes only fresh outputs (match and ack
-// copies [G, P], new_commit [G], bool flags [3, G]) and none of its inputs.
+// ops.  K1, K2 and K5 update the resident [G, P] state IN PLACE (JAX
+// donated the buffers and returned new ones) and write the packed int32
+// [4, G] output (new_commit, commit_changed, timeouts, stale).  K6 is
+// functional like its JAX original: it writes only fresh outputs (match and
+// ack copies [G, P], new_commit [G], bool flags [3, G]) and none of its
+// inputs.
+//
+// K5 is K1 over S contiguous slices of G / S rows, each with its own event
+// plane of E columns ([7, S, E]) whose row indices are local to the slice.
+// JAX vmaps the flat fast tick over the slices, so every slice wraps and
+// drops its indices by its OWN extent: a local row past the slice is
+// dropped (not spilled into the next slice) and row -1 is the slice's last
+// row.  So K5 cannot be K1 on offset indices; it is K1's event pass told
+// the slice extent, then K1's row pass unchanged (the row math is
+// row-local).  With S = 1 it is K1: both run the same code.
 //
 // Bound on the card: at the main path's shape (G = 1024, P = 8, E <= 16384)
 // one K1/K2 tick moves ~0.2 MB, ~0.06 us at 3.35 TB/s, and does a few
@@ -20,7 +33,11 @@
 // therefore keeps each pass a single flat launch with no shared memory, no
 // second sweep over the batch and no host synchronisation, so a tick costs
 // its launches and nothing else; K6's copies are plain device-to-device
-// copies on the same stream.
+// copies on the same stream.  K5 moves what K1 moves plus its padding
+// columns: E is the bucket of the FULLEST slice, so a tick ships S x E
+// columns, most of them padding, and the event pass reads them all (at
+// the mesh100k rung's 102400 x 8 x 8192 over 8 slices, ~2.6 MB of events
+// beside ~11 MB of state, ~4 us).
 //
 // Design:
 // - Scatter indices follow XLA's mode="drop": an index in [-n, -1] counts
@@ -31,14 +48,18 @@
 // - Pass A: one thread per event column.  A valid ack does atomicMax on
 //   match_index[g, p] and last_ack_ms[g, p] (integer max is order-free, so
 //   the result is deterministic); invalid acks write nothing.  Update
-//   columns (K1) atomicMax the flush index and store the deadline; update
-//   slots are unique per tick (the engine keys them by slot).
+//   columns (K1, K5) atomicMax the flush index and store the deadline;
+//   update slots are unique per tick (the engine keys them by slot).  For
+//   K5 the pass covers all S x E columns and takes each column's slice
+//   from its position; padding columns (valid 0, both update rows
+//   PACK_SENTINEL) write nothing.
 // - Pass B: one thread per group row, its <= MAXP peer values in
 //   registers.  The majority-min of a row is the member of rank (k-1)/2
 //   in ascending order, found by counting ranks (O(P^2) compares, no
-//   sort, no local memory).  In place (K1, K2) it writes the new commit and
-//   the disarmed deadline back into the state and writes out[4, G]; K6's
-//   instance writes new_commit [G] and the flags [3, G] only.
+//   sort, no local memory).  In place (K1, K2, K5) it writes the new
+//   commit and the disarmed deadline back into the state and writes
+//   out[4, G]; K6's instance writes new_commit [G] and the flags [3, G]
+//   only.
 // - int32 arithmetic that XLA wraps (now - quorum_ack) is done in uint32:
 //   signed overflow is undefined in C++.
 
@@ -133,19 +154,23 @@ __global__ void refresh_rows(
   deadline[g] = rf_deadline[d];
 }
 
-// Pass A: scatter ack events and (K1) slot updates.  ``valid`` is read
-// through its own type: int32 row 4 of the fast pack, bool for K2.
+// Pass A: scatter ack events and (K1, K5) slot updates.  ``valid`` is read
+// through its own type: int32 row 4 of the fast pack, bool for K2 and K6.
+// Column e belongs to slice e / Es, whose rows are [s * Gs, (s + 1) * Gs);
+// its row index is local to the slice and wraps and drops by Gs.  K1, K2
+// and K6 are one slice: Es = E, Gs = G.
 template <typename V>
 __global__ void apply_events(
     const int32_t* __restrict__ ev_g, const int32_t* __restrict__ ev_p,
     const int32_t* __restrict__ ev_m, const int32_t* __restrict__ ev_t,
     const V* __restrict__ ev_valid, const int32_t* __restrict__ up_flush,
-    const int32_t* __restrict__ up_deadline, int E, int G, int P,
+    const int32_t* __restrict__ up_deadline, int E, int Es, int Gs, int P,
     int32_t* match, int32_t* ack, int32_t* flush, int32_t* deadline) {
   int e = blockIdx.x * blockDim.x + threadIdx.x;
   if (e >= E) return;
-  int g = wrap_index(ev_g[e], G);
-  bool in_row = g >= 0 && g < G;
+  int g = wrap_index(ev_g[e], Gs);
+  bool in_row = g >= 0 && g < Gs;
+  g += (e / Es) * Gs;
   if (ev_valid[e] != 0) {
     int p = wrap_index(ev_p[e], P);
     if (in_row && p >= 0 && p < P) {
@@ -229,26 +254,53 @@ const char* k_error_string(int err) {
   return cudaGetErrorString((cudaError_t)err);
 }
 
-// K1: ev is int32 [7, E] (rows: slot, peer, match, time, valid, flush,
-// deadline), meta int32 [2] (now_ms, leadership_timeout_ms)
-int k1_resident_fast(int32_t* match, int32_t* ack, const uint8_t* self_mask,
-                     const uint8_t* cur, const uint8_t* old,
-                     const int8_t* role, int32_t* flush, int32_t* commit,
-                     const int32_t* first, int32_t* deadline,
-                     const int32_t* ev, const int32_t* meta, int32_t* out,
-                     int G, int P, int E, void* stream) {
-  cudaStream_t s = (cudaStream_t)stream;
-  if (E > 0) {
-    const size_t e = (size_t)E;
-    apply_events<int32_t><<<blocks(E), kThreads, 0, s>>>(
-        ev, ev + e, ev + 2 * e, ev + 3 * e, ev + 4 * e, ev + 5 * e,
-        ev + 6 * e, E, G, P, match, ack, flush, deadline);
+// K1 (S = 1) and K5: ev is int32 [7, S, E] (rows: slot local to the
+// slice, peer, match, time, valid, flush, deadline), meta int32 [2]
+// (now_ms, leadership_timeout_ms); G is a multiple of S
+static int resident_fast(int32_t* match, int32_t* ack,
+                         const uint8_t* self_mask, const uint8_t* cur,
+                         const uint8_t* old, const int8_t* role,
+                         int32_t* flush, int32_t* commit,
+                         const int32_t* first, int32_t* deadline,
+                         const int32_t* ev, const int32_t* meta, int32_t* out,
+                         int G, int P, int S, int E, cudaStream_t s) {
+  const int cols = S * E;
+  if (cols > 0) {
+    const size_t n = (size_t)cols;
+    apply_events<int32_t><<<blocks(cols), kThreads, 0, s>>>(
+        ev, ev + n, ev + 2 * n, ev + 3 * n, ev + 4 * n, ev + 5 * n,
+        ev + 6 * n, cols, E, G / S, P, match, ack, flush, deadline);
   }
   if (G > 0)
     row_pass<true><<<blocks(G), kThreads, 0, s>>>(
         match, ack, self_mask, cur, old, role, flush, commit, first,
         deadline, meta, 0, 0, out, nullptr, G, P);
   return (int)cudaGetLastError();
+}
+
+int k1_resident_fast(int32_t* match, int32_t* ack, const uint8_t* self_mask,
+                     const uint8_t* cur, const uint8_t* old,
+                     const int8_t* role, int32_t* flush, int32_t* commit,
+                     const int32_t* first, int32_t* deadline,
+                     const int32_t* ev, const int32_t* meta, int32_t* out,
+                     int G, int P, int E, void* stream) {
+  return resident_fast(match, ack, self_mask, cur, old, role, flush, commit,
+                       first, deadline, ev, meta, out, G, P, 1, E,
+                       (cudaStream_t)stream);
+}
+
+int k5_resident_fast_sliced(int32_t* match, int32_t* ack,
+                            const uint8_t* self_mask, const uint8_t* cur,
+                            const uint8_t* old, const int8_t* role,
+                            int32_t* flush, int32_t* commit,
+                            const int32_t* first, int32_t* deadline,
+                            const int32_t* ev, const int32_t* meta,
+                            int32_t* out, int G, int P, int S, int E,
+                            void* stream) {
+  if (S < 1 || G % S != 0) return (int)cudaErrorInvalidValue;
+  return resident_fast(match, ack, self_mask, cur, old, role, flush, commit,
+                       first, deadline, ev, meta, out, G, P, S, E,
+                       (cudaStream_t)stream);
 }
 
 // K2: refresh D rows, scatter E unpacked acks, then the row pass
@@ -273,8 +325,8 @@ int k2_resident(int32_t* match, int32_t* ack, uint8_t* self_mask,
         cur, old, role, flush, commit, first, deadline);
   if (E > 0)
     apply_events<uint8_t><<<blocks(E), kThreads, 0, s>>>(
-        ev_g, ev_p, ev_m, ev_t, ev_valid, nullptr, nullptr, E, G, P, match,
-        ack, flush, deadline);
+        ev_g, ev_p, ev_m, ev_t, ev_valid, nullptr, nullptr, E, E, G, P,
+        match, ack, flush, deadline);
   if (G > 0)
     row_pass<true><<<blocks(G), kThreads, 0, s>>>(
         match, ack, self_mask, cur, old, role, flush, commit, first,
@@ -308,7 +360,7 @@ int k6_engine_step(const int32_t* match, const int32_t* ack,
   }
   if (E > 0)
     apply_events<uint8_t><<<blocks(E), kThreads, 0, s>>>(
-        ev_g, ev_p, ev_m, ev_t, ev_valid, nullptr, nullptr, E, G, P,
+        ev_g, ev_p, ev_m, ev_t, ev_valid, nullptr, nullptr, E, E, G, P,
         match_out, ack_out, nullptr, nullptr);
   if (G > 0)
     row_pass<false><<<blocks(G), kThreads, 0, s>>>(

@@ -9,8 +9,9 @@ masks).  Each function on the engine's path has two bodies:
   held against;
 - a hand-written CUDA kernel for Hopper (``ops/kernels/*.cu``), launched
   by the public wrapper when its tensors are on a CUDA device:
-  K1 ``engine_step_resident_fast``, K2 ``engine_step_resident``, K6
-  ``engine_step`` (all three in ``resident_step.cu``) and K3
+  K1 ``engine_step_resident_fast``, K2 ``engine_step_resident``, K5
+  ``engine_step_resident_fast_sliced`` (a mesh engine's fast tick), K6
+  ``engine_step`` (all four in ``resident_step.cu``) and K3
   ``tally_votes`` (``tally_votes.cu``).
 
 A wrapper takes the plain version only because its tensors lie on the
@@ -524,6 +525,57 @@ def engine_step_resident_fast(state: DeviceState, ev_packed: torch.Tensor,
     out = torch.empty((4, g), dtype=torch.int32, device=dev)
     K1(dev, *(t.data_ptr() for t in state), ev_packed.data_ptr(),
        meta.data_ptr(), out.data_ptr(), g, p, e)
+    return ResidentFastStep(state, out)
+
+
+def _resident_fast_sliced_plain(state: DeviceState, ev_packed, meta):
+    """K5's plain version: the plain fast tick on each slice's ``G / S``
+    row view (views of the state, so the updates land in place), with the
+    slice's own event plane.  Each slice wraps and drops its indices by its
+    own extent, as each vmapped slice of the JAX function does."""
+    n_slices = ev_packed.shape[1]
+    rows = state.flush_index.shape[0] // n_slices
+    return torch.cat([
+        _resident_fast_plain(
+            DeviceState(*(t[s * rows:(s + 1) * rows] for t in state)),
+            ev_packed[:, s], meta)
+        for s in range(n_slices)], dim=1)
+
+
+K5 = Kernel("resident_step.cu", "k5_resident_fast_sliced",
+            (PTR,) * 13 + (INT, INT, INT, INT))
+
+
+def engine_step_resident_fast_sliced(state: DeviceState,
+                                     ev_packed: torch.Tensor,
+                                     meta: torch.Tensor) -> ResidentFastStep:
+    """The steady-state tick of a mesh engine (K5): the group batch is S
+    contiguous slices of ``G / S`` rows, and ``ev_packed`` is int32
+    [7, S, E], one plane per slice, with the rows of
+    :func:`engine_step_resident_fast` except that row 0 holds the
+    SLICE-LOCAL row (global slot = slice * (G / S) + local row).  A local
+    row wraps and drops by ``G / S`` (a row past the slice is dropped, not
+    spilled into the next one; ``-1`` is the slice's last row), a peer by
+    P.  With S == 1 it equals the flat fast tick.  ``meta`` is int32 [2];
+    ``out`` is int32 [4, G].  Updates ``state`` in place."""
+    dev = _device_of(*state, ev_packed, meta)
+    if ev_packed.dim() != 3 or ev_packed.shape[0] != 7:
+        raise ValueError(f"events of shape {tuple(ev_packed.shape)}, "
+                         f"expected [7, S, E]")
+    n_slices = ev_packed.shape[1]
+    g = state.flush_index.shape[0]
+    if n_slices < 1 or g % n_slices:
+        raise ValueError(f"{n_slices} slices do not divide {g} group rows")
+    if dev.type == "cpu":
+        return ResidentFastStep(
+            state, _resident_fast_sliced_plain(state, ev_packed, meta))
+    g, p = _check_state(state)
+    e = ev_packed.shape[2]
+    _check(ev_packed, torch.int32, (7, n_slices, e))
+    _check(meta, torch.int32, (2,))
+    out = torch.empty((4, g), dtype=torch.int32, device=dev)
+    K5(dev, *(t.data_ptr() for t in state), ev_packed.data_ptr(),
+       meta.data_ptr(), out.data_ptr(), g, p, n_slices, e)
     return ResidentFastStep(state, out)
 
 

@@ -446,13 +446,17 @@ class RaftServer:
         self.transactions: dict = {}
 
         p = properties
+        mesh = None
+        device = RaftServerConfigKeys.Engine.device(p)
         mesh_n = RaftServerConfigKeys.Engine.mesh_devices(p)
         if mesh_n > 0:
-            # multi-device slicing of the engine is a later slice of the
-            # port; one device only
-            raise NotImplementedError(
-                f"{RaftServerConfigKeys.Engine.MESH_DEVICES_KEY}={mesh_n}: "
-                f"the mesh-sliced engine is not ported")
+            # Mesh deployment: the resident engine state in n contiguous
+            # slices of the group axis (ratis_tpu_torch.parallel.mesh) on
+            # the engine's device; the fast tick ships slice-routed event
+            # planes (kernel K5) and the row-local quorum math needs no
+            # exchange between slices.
+            from ratis_tpu_torch.parallel import make_group_mesh
+            mesh = make_group_mesh(mesh_n, device=device)
         self.engine = QuorumEngine(
             max_groups=RaftServerConfigKeys.Engine.max_groups(p),
             max_peers=RaftServerConfigKeys.Engine.max_peers(p),
@@ -462,9 +466,10 @@ class RaftServer:
                 RaftServerConfigKeys.Engine.SCALAR_FALLBACK_THRESHOLD_DEFAULT),
             leadership_timeout_ms=int(
                 RaftServerConfigKeys.Rpc.timeout_max(p).to_ms() * 2),
+            mesh=mesh,
             profile_dir=RaftServerConfigKeys.Engine.profile_dir(p) or None,
             name=str(peer_id),
-            device=RaftServerConfigKeys.Engine.device(p))
+            device=device)
         # lag & health ledger thresholds (raft.tpu.lag.*); the ledger
         # itself is part of the engine
         self.engine.ledger.lag_threshold = RaftServerConfigKeys.Lag.threshold(p)

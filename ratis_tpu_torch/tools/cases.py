@@ -8,6 +8,9 @@ versions on the card), so both hold the kernels to the same cases:
   confs, EMPTY confs (majority-min INT32_MIN; a leader with an empty conf
   takes the wrapping ``now - INT32_MIN`` branch of the staleness check),
   extreme indices for the ledger's wrapping differences;
+- mesh fast-tick events: one ``[7, E]`` plane per slice with
+  slice-local rows, rows past the slice and (``negative``) below its
+  start, planes padded to a common width;
 - fast-tick events: valid acks, invalid ack columns carrying sentinels,
   duplicate acks on one (group, peer), flush / deadline update columns,
   columns aimed at row ``capacity`` (dropped), sentinel padding; with
@@ -122,6 +125,30 @@ def fast_events(rng, g: int, p: int, e: int, now: int = 100_000,
         real = up[up < g]
         _negate(rng, real, g, 0.2)
         up[up < g] = real
+    return ev
+
+
+def sliced_events(rng, g: int, p: int, s: int, e: int, now: int = 100_000,
+                  negative: bool = False) -> np.ndarray:
+    """A mesh engine's fast-tick pack int32 [7, s, e] over ``g`` rows in
+    ``s`` slices, row 0 local to the slice: each slice's plane is
+    ``fast_events`` over its ``g // s`` rows (update columns aimed at the
+    slice's row ``g // s`` are dropped), cut to a random number of columns
+    and padded (valid 0, update rows sentinel), as the engine pads every
+    plane to the fullest slice's bucket; a twentieth of the ack rows moved
+    past the slice (``row + g // s``: dropped, never spilled into the next
+    slice).  ``negative``: local rows in ``[-g // s, -1]`` (the slice's own
+    end) and below it (dropped), peers likewise."""
+    rows = g // s
+    ev = np.stack([fast_events(rng, rows, p, e, now, negative)
+                   for _ in range(s)], axis=1)
+    ack_rows = ev[0, :, :e // 2]
+    past = (rng.random(ack_rows.shape) < 0.05) & (ack_rows >= 0)
+    ack_rows[past] += rows
+    for i in range(s):
+        cut = int(rng.integers(0, e + 1))
+        ev[:, i, cut:] = SENT
+        ev[(0, 1, 4), i, cut:] = 0
     return ev
 
 

@@ -49,12 +49,13 @@ TRANSPORTS = ("sim", "tcp")
 
 
 def cluster_properties(num_groups: int, num_servers: int = 3,
-                       device: str = "cuda",
-                       transport: str = "sim") -> RaftProperties:
+                       device: str = "cuda", transport: str = "sim",
+                       mesh_devices: int = 0) -> RaftProperties:
     """The batched deployment of ``num_groups`` groups on ``num_servers``
     servers: the JAX bench's ``bench_properties(batched=True, num_groups,
-    num_servers=..., transport=...)`` key for key, plus the port's engine
-    device."""
+    num_servers=..., transport=..., mesh_devices=...)`` key for key, plus
+    the port's engine device.  ``mesh_devices`` > 0 runs every engine as
+    that many slices of its group batch (``parallel/mesh.py``)."""
     if transport not in TRANSPORTS:
         raise ValueError(f"transport {transport!r}: one of {TRANSPORTS}")
     p = RaftProperties()
@@ -78,6 +79,8 @@ def cluster_properties(num_groups: int, num_servers: int = 3,
           str(max(QuorumEngine._bucket(num_groups), 64)))
     p.set(RaftServerConfigKeys.Engine.SCALAR_FALLBACK_THRESHOLD_KEY, "0")
     p.set(RaftServerConfigKeys.Engine.DEVICE_KEY, device)
+    if mesh_devices:
+        p.set(RaftServerConfigKeys.Engine.MESH_DEVICES_KEY, str(mesh_devices))
     RaftServerConfigKeys.Log.set_use_memory(p, True)
     # heap discipline: tuned collector thresholds, one seal after bring-up,
     # a steady-state re-freeze every 15s (the memory log never purges)
@@ -98,12 +101,12 @@ def cluster_properties(num_groups: int, num_servers: int = 3,
 class Cluster:
     def __init__(self, num_groups: int, num_servers: int = 3,
                  device: str = "cuda", properties=None,
-                 transport: str = "sim"):
+                 transport: str = "sim", mesh_devices: int = 0):
         self.num_groups = num_groups
         self.device = device
         self.transport = transport
         self.properties = properties or cluster_properties(
-            num_groups, num_servers, device, transport)
+            num_groups, num_servers, device, transport, mesh_devices)
         if transport == "tcp":
             import ratis_tpu_torch.transport.tcp  # noqa: F401 (registers TCP)
             self.network = None

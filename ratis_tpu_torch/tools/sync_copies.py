@@ -55,10 +55,12 @@ VERBATIM = (
 )
 
 # copies whose code the port changes (device code, the engine's device
-# key, the package docstring); maintained by hand
+# key, the package docstring, the mesh as slices of one device); maintained
+# by hand
 CHANGED = (
     "__init__.py", "conf/keys.py", "engine/engine.py", "engine/ledger.py",
-    "ops/ledger.py", "ops/quorum.py", "server/server.py",
+    "ops/ledger.py", "ops/quorum.py", "parallel/__init__.py",
+    "parallel/mesh.py", "server/server.py",
 )
 
 _NAME = re.compile(r"\bratis_tpu\.")

@@ -60,10 +60,11 @@ async def _wait(pred, what):
         await asyncio.sleep(0.05)
 
 
-async def _jax_run(transport: str = "sim") -> dict:
-    """The port harness's steps, with the JAX package's classes."""
-    props = JaxProperties(dict(cluster_properties(GROUPS, 3, "cpu",
-                                                  transport).items()))
+async def _jax_run(transport: str = "sim", properties=None) -> dict:
+    """The port harness's steps, with the JAX package's classes (and the
+    port harness's properties, or ``properties``)."""
+    props = JaxProperties(dict((properties or cluster_properties(
+        GROUPS, 3, "cpu", transport)).items()))
     if transport == "tcp":
         import ratis_tpu.transport.tcp  # noqa: F401 (registers TCP)
         factory = JaxTransports.get("TCP")
@@ -133,8 +134,9 @@ async def _jax_run(transport: str = "sim") -> dict:
                              return_exceptions=True)
 
 
-async def _torch_run(transport: str = "sim") -> dict:
-    cluster = Cluster(GROUPS, device="cpu", transport=transport)
+async def _torch_run(transport: str = "sim", properties=None) -> dict:
+    cluster = Cluster(GROUPS, device="cpu", transport=transport,
+                      properties=properties)
     try:
         await cluster.start(timeout=TIMEOUT)
         stats = await cluster.write_all(WRITES)
@@ -155,12 +157,14 @@ async def _torch_run(transport: str = "sim") -> dict:
         await cluster.close()
 
 
-def run_both_and_compare(monkeypatch, transport: str) -> dict:
-    """Both clusters over ``transport``, held to the same bar."""
+def run_both_and_compare(monkeypatch, transport: str,
+                         properties=None) -> dict:
+    """Both clusters over ``transport`` (with ``properties`` when
+    given), held to the same bar."""
     jax_tallies = _count_vote_passes(monkeypatch, JaxEngine)
     torch_tallies = _count_vote_passes(monkeypatch, TorchEngine)
-    runs = {"jax": asyncio.run(_jax_run(transport)),
-            "torch": asyncio.run(_torch_run(transport))}
+    runs = {"jax": asyncio.run(_jax_run(transport, properties)),
+            "torch": asyncio.run(_torch_run(transport, properties))}
     for name, run in runs.items():
         assert run["counters"] == [[WRITES] * 3] * GROUPS, name
         assert min(run["applied"]) >= WRITES, name

@@ -54,6 +54,49 @@ def test_fast_step_kernel_matches_plain(card, g, e, negative):
 
 
 @pytest.mark.parametrize("negative", [False, True])
+@pytest.mark.parametrize("n_slices,g,e", [(1, 1024, 256), (2, 1024, 64),
+                                          (8, 1024, 64), (8, 10240, 1024)])
+def test_sliced_step_kernel_matches_plain(card, n_slices, g, e, negative):
+    rng = np.random.default_rng(n_slices + g + e)
+    st = cases.resident_state(rng, g, P, NOW)
+    ev, meta = _cuda([cases.sliced_events(rng, g, P, n_slices, e, NOW,
+                                          negative),
+                      np.array([NOW, 300], np.int32)])
+    a = tq.device_state_from_numpy(st, card)
+    b = tq.device_state_from_numpy(st, card)
+    k = tq.engine_step_resident_fast_sliced(a, ev, meta)
+    assert torch.equal(k.out, tq._resident_fast_sliced_plain(b, ev, meta))
+    for x, y in zip(a, b):
+        assert torch.equal(x, y)
+
+
+def test_sliced_step_kernel_at_one_slice_is_k1(card):
+    rng = np.random.default_rng(5)
+    st = cases.resident_state(rng, 1024, P, NOW)
+    ev, meta = _cuda([cases.fast_events(rng, 1024, P, 1024, NOW, True),
+                      np.array([NOW, 300], np.int32)])
+    a = tq.device_state_from_numpy(st, card)
+    b = tq.device_state_from_numpy(st, card)
+    k5 = tq.engine_step_resident_fast_sliced(a, ev[:, None].contiguous(),
+                                             meta)
+    k1 = tq.engine_step_resident_fast(b, ev, meta)
+    assert torch.equal(k5.out, k1.out)
+    for x, y in zip(a, b):
+        assert torch.equal(x, y)
+
+
+def test_sliced_step_kernel_counts_its_launches(card):
+    st = tq.device_state_from_numpy(
+        cases.resident_state(np.random.default_rng(6), 64, P, NOW), card)
+    ev, meta = _cuda([cases.sliced_events(np.random.default_rng(6), 64, P,
+                                          8, 16, NOW),
+                      np.array([NOW, 300], np.int32)])
+    n1, n5 = tq.K1.launches, tq.K5.launches
+    tq.engine_step_resident_fast_sliced(st, ev, meta)
+    assert (tq.K1.launches, tq.K5.launches) == (n1, n5 + 1)
+
+
+@pytest.mark.parametrize("negative", [False, True])
 def test_refresh_step_kernel_matches_plain(card, negative):
     rng = np.random.default_rng(1)
     g = 1024
@@ -130,3 +173,28 @@ def test_cluster_runs_on_the_card(card, transport):
         finally:
             await cluster.close()
     asyncio.run(run())
+
+
+def test_mesh_cluster_runs_on_the_card(card):
+    """3 x 32 with mesh-devices=8 on the card: every fast tick is K5."""
+    from ratis_tpu_torch.conf import RaftServerConfigKeys
+    from ratis_tpu_torch.tools.cluster import Cluster, cluster_properties
+    props = cluster_properties(32, 3, "cuda", "sim", mesh_devices=8)
+    props.set(RaftServerConfigKeys.Engine.MAX_GROUPS_KEY, "256")
+    cluster = Cluster(32, device="cuda", properties=props)
+    cluster.prewarm()
+    n1, n5 = tq.K1.launches, tq.K5.launches
+
+    async def run():
+        try:
+            await cluster.start(timeout=60)
+            await cluster.write_all(3)
+            read = await cluster.read_counters(timeout=60)
+            assert all(v == [3, 3, 3] for v in read.values())
+            for s in cluster.servers:
+                assert s.engine._dev.match_index.is_cuda
+                assert s.engine.state.n_slices == 8
+        finally:
+            await cluster.close()
+    asyncio.run(run())
+    assert tq.K1.launches == n1 and tq.K5.launches > n5

@@ -2,7 +2,8 @@
 
 A fresh interpreter imports every module of ``ratis_tpu_torch``, runs a
 tiny CPU cluster through the port's own harness over the simulated
-transport and over TCP, and the bench's kernel rung; nothing it loads may be
+transport and over TCP, the bench's kernel rung, the mesh engine's
+``dryrun_multichip`` and the ``mesh_100k`` rung; nothing it loads may be
 ``jax`` or a ``ratis_tpu`` module (``ratis_tpu_torch`` itself shares the
 prefix, so names are matched exactly).  On a machine without CUDA an
 engine built without ``device=`` must raise rather than fall back to the
@@ -40,6 +41,8 @@ async def run(transport):
 commits = [asyncio.run(run(t)) for t in ("sim", "tcp")]
 from ratis_tpu_torch.tools import bench
 bench.kernel_rung("cpu", 16, 8, 8, iters=1, scalar_groups=4)
+bench.dryrun_multichip(8, "cpu")
+bench.mesh_100k_rung("cpu", 64, 8, 16, iters=1, trials=1)
 import torch
 from ratis_tpu_torch.engine.engine import QuorumEngine
 raised = None
@@ -65,7 +68,8 @@ def test_port_loads_no_jax_and_no_ratis_tpu():
     assert res["bad"] == []
     assert res["commits"] == [4, 4]
     for name in ("server.server", "ops.quorum", "transport.tcp",
-                 "transport.coalesce", "util.gcdiscipline", "tools.bench"):
+                 "transport.coalesce", "util.gcdiscipline", "tools.bench",
+                 "parallel", "parallel.mesh"):
         assert f"ratis_tpu_torch.{name}" in res["modules"], name
     assert res["raised"] in (True, None)  # None: this machine has CUDA
 
