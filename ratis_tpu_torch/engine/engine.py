@@ -986,7 +986,8 @@ class QuorumEngine:
         s = self.state
         now = self.clock.now_ms()
         saved_dirty = set(s.dirty)
-        self._tick_batched([(0, 0, -1, now)], now)   # full upload + K1
+        # full upload + the fast tick (K1, or K5 on a mesh engine)
+        self._tick_batched([(0, 0, -1, now)], now)
         s.dirty = {0}
         self._tick_batched([(0, 0, -1, now)], now)   # K2
         self._tally_mirror()                         # K3

@@ -24,7 +24,11 @@ them; at most one rung that brings up a cluster per run):
   three replicas: ``commits_per_sec``, ``p50_ms``, ``p99_ms``,
   ``election_convergence_s`` (bring-up: servers start -> every group has
   a ready leader), ``prewarm_s`` (the kernels' build and first launch)
-  and ``election_timeouts`` (fired in bring-up, warm-up, measured writes).
+  and ``election_timeouts`` (fired in bring-up, warm-up, measured writes);
+  ``dispatch``: each engine's batched dispatches in the measured writes
+  (count, p50/p99/max ms on the host clock, share of the writes' wall,
+  ack batch p50/p99/max), and ``pack_ms``: the host time of the flat and
+  the slice-routed fast-tick pack at the largest p99 ack batch.
   Leaders come from elections (the JAX bench appoints them), so the
   bring-up includes 1024 elections through the batched vote tally;
 - ``mesh_100k`` (``child_mesh100k``): a mesh engine's fast tick (K5) over
@@ -75,6 +79,8 @@ WARMUP_WRITES = 1
 CONCURRENCY = 128
 # the slices of the mesh rungs (bench.py's "mesh": 8, child_mesh100k's S)
 MESH_SLICES = 8
+# the mesh rungs' load: writes per group, no warm-up (bench.py's mesh rung)
+MESH_WRITES = 2
 # rungs that bring up a cluster: one per process, as bench.py runs one
 # child per rung (a second cluster in one process inherits the first's
 # sealed heap and was measured churning elections)
@@ -385,6 +391,61 @@ def e2e_cluster(device="cuda", groups: int = 1024, transport: str = "tcp",
     return cluster
 
 
+def _fresh_dispatch_timers(engines) -> list:
+    """Give each engine fresh ``dispatchLatency`` / ``ackBatchSize``
+    reservoirs, so that they hold the measured writes alone; returns the
+    registry's own, for ``_dispatch_summary`` to put back."""
+    from ratis_tpu_torch.metrics.registry import Histogram, Timekeeper
+    saved = [(e._m.dispatch_timer, e._m.ack_batch) for e in engines]
+    for e in engines:
+        e._m.dispatch_timer, e._m.ack_batch = Timekeeper(), Histogram()
+    return saved
+
+
+def _dispatch_summary(engines, saved, elapsed_s: float) -> list[dict]:
+    """Each engine's batched dispatches over the measured writes (pack,
+    upload, kernel, download and the changed-row scan, host clock) and
+    the ack batches they carried; puts the registry's timers back."""
+    out = []
+    for e, (timer, batch) in zip(engines, saved):
+        t, b = e._m.dispatch_timer, e._m.ack_batch
+        out.append({"dispatches": t.count,
+                    "p50_ms": t.percentile_s(0.50) * 1e3,
+                    "p99_ms": t.percentile_s(0.99) * 1e3,
+                    "max_ms": t._max_s * 1e3,
+                    "share": t._total_s / elapsed_s,
+                    "ack_batch_p50": int(b.percentile_s(0.50)),
+                    "ack_batch_p99": int(b.percentile_s(0.99)),
+                    "ack_batch_max": int(b._max_s)})
+        e._m.dispatch_timer, e._m.ack_batch = timer, batch
+    return out
+
+
+def pack_ms(engine, acks: int, reps: int = 200) -> dict:
+    """Host ms of one flat (``_pack_tick``) and one slice-routed
+    (``_pack_tick_sliced``; one slice on an engine without a mesh) fast-
+    tick pack of ``acks`` acks over the engine's live slots (seed 0) and a
+    slot update for each slot of the first half: the median of ``reps``
+    calls."""
+    rng = np.random.default_rng(0)
+    live = np.array(sorted(engine.state.active), np.int64)
+    slots = live[rng.integers(0, len(live), max(1, acks))]
+    batch = [(int(x), 1, 5, 0) for x in slots]
+    updates = {int(x): [5, 100] for x in slots[:len(slots) // 2]}
+    saved = engine._last_event_rows, engine._last_event_cap
+    out = {"acks": len(batch), "updates": len(updates)}
+    for name, pack in (("flat", engine._pack_tick),
+                       ("sliced", engine._pack_tick_sliced)):
+        times = []
+        for _ in range(reps):
+            t0 = time.perf_counter()
+            pack(batch, updates)
+            times.append(time.perf_counter() - t0)
+        out[name] = float(np.median(times)) * 1e3
+    engine._last_event_rows, engine._last_event_cap = saved
+    return out
+
+
 async def e2e_rung(cluster, writes: int = 8,
                    warmup: int = WARMUP_WRITES) -> dict:
     """``run_bench`` on an ``e2e_cluster``: bring it up (elections in
@@ -407,8 +468,11 @@ async def e2e_rung(cluster, writes: int = 8,
         if warmup:
             acked = (await cluster.write_all(warmup, CONCURRENCY))["commits"]
         timeouts.append(cluster.election_timeouts())
+        engines = [s.engine for s in cluster.servers]
+        saved = _fresh_dispatch_timers(engines)
         stats = await cluster.write_all(writes, CONCURRENCY)
         timeouts.append(cluster.election_timeouts())
+        dispatch = _dispatch_summary(engines, saved, stats["elapsed_s"])
         acked += stats["commits"]
         counters = await cluster.read_counters(timeout=300)
         want = [warmup + writes] * len(cluster.servers)
@@ -423,7 +487,6 @@ async def e2e_rung(cluster, writes: int = 8,
             if time.monotonic() > deadline:
                 raise AssertionError("no ledger sample on some server")
             await asyncio.sleep(0.1)
-        engines = [s.engine for s in cluster.servers]
         mesh_n = RaftServerConfigKeys.Engine.mesh_devices(cluster.properties)
         for e in engines:
             on = e._dev.match_index.device if e._dev is not None else None
@@ -455,6 +518,11 @@ async def e2e_rung(cluster, writes: int = 8,
                 "batched_dispatches": sum(e.metrics["batched_dispatches"]
                                           for e in engines),
                 "engine_ticks": sum(e.metrics["ticks"] for e in engines),
+                # each engine's dispatches in the measured writes, and the
+                # two packs' host time at the largest p99 ack batch
+                "dispatch": dispatch,
+                "pack_ms": pack_ms(engines[0], max(
+                    d["ack_batch_p99"] for d in dispatch)),
                 "ledger_samples": [e.ledger.samples.count for e in engines],
                 "engine_device": str(engines[0].device)}
     finally:
@@ -487,7 +555,6 @@ def main(argv=None) -> int:
     ap.add_argument("--writes", type=int, default=8)
     ap.add_argument("--mesh-groups", type=int, default=10_240,
                     help="groups of the mesh and sim_10240 rungs")
-    ap.add_argument("--mesh-writes", type=int, default=2)
     args = ap.parse_args(argv)
     rungs = [r for r in args.rungs.split(",") if r]
     unknown = sorted(set(rungs) - set(RUNGS))
@@ -518,7 +585,7 @@ def main(argv=None) -> int:
         if rung in rungs:
             out[rung] = asyncio.run(e2e_rung(
                 e2e_cluster(args.device, args.mesh_groups, "sim", mesh_n),
-                args.mesh_writes, warmup=0))
+                MESH_WRITES, warmup=0))
     print(json.dumps(out), flush=True)
     return 0
 

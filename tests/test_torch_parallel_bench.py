@@ -140,8 +140,7 @@ def test_mesh100k_batch_routes_each_ack_to_its_slice():
         assert torch.equal(x, y)
 
 
-TINY = ["--mesh-100k", "256,8,64", "--mesh-groups", "4", "--mesh-writes",
-        "2"]
+TINY = ["--mesh-100k", "256,8,64", "--mesh-groups", "4"]
 
 
 def _bench(rungs: str):
@@ -178,6 +177,17 @@ def test_bench_mesh_e2e_rungs(rung, mesh_n):
     assert len(e["election_timeouts"]) == 3
     assert e["election_timeouts"][0] >= 4
     assert e["election_timeouts"][1] == 0
+    assert len(e["dispatch"]) == 3
+    # commits advance inline at ack intake, so at 4 groups the writes may
+    # end before any sweep is due: an engine may not dispatch in them
+    for d in e["dispatch"]:
+        assert d["dispatches"] >= 0
+        assert 0 <= d["p50_ms"] <= d["p99_ms"] <= d["max_ms"]
+        assert 0 <= d["share"] < 1
+        assert 0 <= d["ack_batch_p50"] <= d["ack_batch_p99"] <= d[
+            "ack_batch_max"]
+    p = e["pack_ms"]
+    assert p["acks"] >= 1 and p["flat"] > 0 and p["sliced"] > 0
 
 
 def test_bench_runs_one_cluster_rung_per_process():
