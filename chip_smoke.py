@@ -15,8 +15,11 @@ result line:
    on the bench's own batches at its three shapes, its inputs unchanged;
    K5 at 1, 2 and 8 slices with rows past and before the slice and padding
    columns, equal to K1 at one slice, and on the mesh100k rung's batch
-   (also equal to K1 on the same acks unrouted); the bar is exact
-   equality;
+   (also equal to K1 on the same acks unrouted); K7a-c (the vote-reply
+   scatter, the all-members replicated index, the lease expiry) at G =
+   1024 and 102400 with P = 8 and at P = 3, 5, 7 and 16, with the edge
+   cases of ``cases.vote_event_edges`` and the wrapping lease timeouts;
+   the bar is exact equality;
 4. the main paths, each with its kernels' launch counts zeroed just
    before and read just after (each must be > 0; K5 must stay 0 on the
    paths without a mesh):
@@ -37,13 +40,32 @@ result line:
       and K4 > 0; K1 must stay 0: a mesh engine's fast ticks are K5);
       then ``dryrun_multichip(8)`` and the bench's ``mesh_100k`` rung
       (K5 against the flat K1 at 102400 x 8 x 8192);
+   e. ``durable_1024``, the bench's ``durable`` rung: 3 servers x 1024
+      groups over localhost TCP on the server's default durable log
+      (per-group segment files in a fresh temporary directory),
+      ``ArithmeticStateMachine``, 1 + 8 writes per group at 128 in
+      flight; every replica's variable map equal to the fold of the
+      acknowledged writes, then a full restart from disk and the same
+      check (K1-K4 > 0, K5 0); fsyncs per commit and the storage's
+      filesystem are printed;
+   f. ``shared_256``: the same on the shared log plane
+      (``raft.tpu.log.shared``) at 3 x 256 groups;
+   g. ``churn_1024``, the bench's ``churn`` rung: 3 x 1024 over the
+      simulated transport, 8 writes per group while 64 leadership
+      transfers run and 8 groups each go through a joint-consensus round;
+      every write acknowledged and every counter read back in the final
+      configuration (K1-K4 > 0, K5 0, and K1/K2 launched while the
+      calling engine led a row with a non-empty ``conf_old`` more than 0
+      times);
 5. kernel parity again at every shape the main paths gave K1-K5, then
    timing: K1-K5 at their most common shape (K5 also at the mesh100k
    rung's), K6 at both rung shapes;
    CUDA events, warm-up, median of 60 calls (K1/K2/K5 each on the same
    fresh state), beside the plain version's time and the card's bound for
-   the same work (K5 and K6 also their device time per call from
-   ``torch.profiler``);
+   the same work, and each one's device time per call from
+   ``torch.profiler``; K7a-c at G = 1024, P = 8 (K7a with 2048 events;
+   no path calls K7: every path's run checks that it launched 0 times,
+   so phases 3 and 5 make all of its launches);
 6. one JSON line of kernels, then the result line
    ``{"ok": true, "device": {...}}`` last.
 
@@ -96,7 +118,25 @@ KERNELS = (
      "ratis_tpu/ops/quorum.py:465"),
     ("engine_step", "K6", "ratis_tpu_torch/ops/kernels/resident_step.cu",
      "ratis_tpu/ops/quorum.py:257"),
+    ("apply_vote_events", "K7a", "ratis_tpu_torch/ops/kernels/vote_lease.cu",
+     "ratis_tpu/ops/quorum.py:501"),
+    ("all_replicated_min", "K7b",
+     "ratis_tpu_torch/ops/kernels/vote_lease.cu",
+     "ratis_tpu/ops/quorum.py:110"),
+    ("lease_expiry", "K7c", "ratis_tpu_torch/ops/kernels/vote_lease.cu",
+     "ratis_tpu/ops/quorum.py:208"),
 )
+# K7: no path of the server calls them (none of the JAX package does)
+K7 = ("K7a", "K7b", "K7c")
+K7_PEERS = (3, 5, 7, 16)
+K7_VOTE_EDGES = ((4, 3), (2, 3), (16, 8), (8, 16), (1024, 8))
+# the durable paths: 3 x 1024 per-group logs, 3 x 256 on the shared plane,
+# 1 warm-up + 8 measured writes per group; the churn path: 3 x 1024
+DURABLE_GROUPS = 1024
+SHARED_GROUPS = 256
+DURABLE_WRITES = 8
+CHURN_GROUPS = 1024
+CHURN_WRITES = 8
 # K6: entry() and the bench's two kernel rungs (G, P, E)
 K6_SHAPES = ((1024, 8, 256), (10_240, 8, 4096), (102_400, 8, 8192))
 # the mesh path: 3 servers x 1024 groups in 8 slices, 4 writes per group.
@@ -215,6 +255,49 @@ def parity_k4(tl, cases, g, p, width, seed, big_cell=False):
                        [tl._ledger_plain(*dev, *scalars, width)])
 
 
+def parity_k7a(tq, arrays):
+    """K7a against its plain version; raises if the kernel wrote any of
+    its inputs (it is functional, as in JAX)."""
+    args = cuda(arrays)
+    before = [t.clone() for t in args]
+    got = tq.apply_vote_events(*args)
+    want = tq._apply_vote_events_plain(*args)
+    torch.cuda.synchronize()
+    for x, y in zip(args, before):
+        if not torch.equal(x, y):
+            raise AssertionError("K7a wrote one of its inputs")
+    return max_abs_err(list(got), list(want))
+
+
+def parity_k7b(tq, arrays):
+    args = cuda(arrays)
+    return max_abs_err([tq.all_replicated_min(*args)],
+                       [tq._all_replicated_min_plain(*args)])
+
+
+def parity_k7c(tq, arrays, timeout):
+    args = cuda(arrays)
+    return max_abs_err([tq.lease_expiry(*args, timeout)],
+                       [tq._lease_expiry_plain(*args, timeout)])
+
+
+def run_parity_k7(tq, cases, par) -> None:
+    """K7a-c: seeded cases at G = 1024 and 102400 with P = 8, at P = 3,
+    5, 7, 16 with G = 1024, the hand-made vote edges, every lease
+    timeout of ``cases.LEASE_TIMEOUTS``."""
+    shapes = [(1024, P), (102_400, P)] + [(1024, p) for p in K7_PEERS]
+    for seed, (g, p) in enumerate(shapes):
+        rng = np.random.default_rng(seed)
+        for e in (g // 4, 2 * g):
+            par.add("K7a", parity_k7a(tq, cases.vote_events(rng, g, p, e)))
+        par.add("K7b", parity_k7b(tq, cases.replicated_inputs(rng, g, p)))
+        lease = cases.lease_inputs(rng, g, p, NOW)
+        for t in cases.LEASE_TIMEOUTS:
+            par.add("K7c", parity_k7c(tq, lease, t))
+    for g, p in K7_VOTE_EDGES:
+        par.add("K7a", parity_k7a(tq, cases.vote_event_edges(g, p)))
+
+
 class Parity:
     """The largest error and the number of cases, per kernel."""
 
@@ -267,6 +350,7 @@ def run_parity(tq, tl, cases, bench, par: Parity) -> None:
             par.add("K6", parity_k6(tq, cases.step_args(
                 np.random.default_rng(seed), g, p, e, NOW, TIMEOUT_MS)))
             par.add("K6", parity_k6(tq, bench._example_batch(g, p, e, seed)))
+    run_parity_k7(tq, cases, par)
     par.check("fixed shapes")
 
 
@@ -369,9 +453,10 @@ class ShapeRecorder:
 
 
 def counted(kernels: dict, keys, drive, never=()):
-    """Zero the launch counts of ``keys`` and ``never`` just before
+    """Zero the launch counts of ``keys``, ``never`` and K7 just before
     ``drive()``, read them just after; every one of ``keys`` must be > 0,
-    every one of ``never`` 0."""
+    every one of ``never`` and of K7 (no path calls it) 0."""
+    never = (*never, *K7)
     for k in (*keys, *never):
         kernels[k].launches = 0
     res = drive()
@@ -458,6 +543,109 @@ def run_tcp_path(kernels, bench, rec):
                              f"read back")
     if not res["engine_device"].startswith("cuda"):
         raise AssertionError(f"TCP path: engine on {res['engine_device']}")
+    return res, launches
+
+
+def run_durable_path(kernels, bench, groups: int, shared: bool):
+    """The bench's durable rung (``shared``: on the shared log plane) in a
+    fresh temporary directory: 3 servers x ``groups`` groups over TCP,
+    ArithmeticStateMachine, every map held to the fold before and after a
+    full restart from disk."""
+    import tempfile
+    with tempfile.TemporaryDirectory(prefix="ratis-smoke-durable-") as tmp:
+        cluster = bench.durable_cluster("cuda", groups, tmp, shared)
+        res, launches = counted(
+            kernels, ("K1", "K2", "K3", "K4"),
+            lambda: asyncio.run(bench.durable_rung(cluster, DURABLE_WRITES)),
+            never=("K5",))
+    want = groups * (bench.WARMUP_WRITES + DURABLE_WRITES)
+    if res["acked"] != want or res["replicas_read_back"] != [groups * 3] * 2:
+        raise AssertionError(f"durable path: {res['acked']} of {want} "
+                             f"writes acked, replicas read back "
+                             f"{res['replicas_read_back']}")
+    if not res["engine_device"].startswith("cuda") \
+            or res["shared_log"] != shared:
+        raise AssertionError(f"durable path: engine on "
+                             f"{res['engine_device']}, shared log "
+                             f"{res['shared_log']}")
+    return res, launches
+
+
+class JointRecorder:
+    """While active, counts the K1 and K2 calls an engine made while its
+    host mirror had a row it leads (role leader) with a non-empty
+    ``conf_old`` (joint consensus: the only rows where the ``conf_old``
+    branch decides a commit); the wrappers are swapped for counting ones
+    and restored on exit."""
+
+    def __init__(self, tq, cluster):
+        from ratis_tpu_torch.engine.roles import ROLE_LEADER
+        self.tq = tq
+        self.cluster = cluster
+        self.leader = ROLE_LEADER
+        self.joint_calls = {"K1": 0, "K2": 0}
+        # calls on a state no engine held (reported; expected 0)
+        self.unmatched = 0
+
+    def _leads_joint_row(self, state) -> bool:
+        for s in self.cluster.servers:
+            e = s.engine
+            if e._dev is state:
+                m = e.state
+                return bool((m.conf_old.any(axis=1)
+                             & (m.role == self.leader)).any())
+        self.unmatched += 1
+        return False
+
+    def __enter__(self):
+        tq = self.tq
+        self.fast, self.refresh = (tq.engine_step_resident_fast,
+                                   tq.engine_step_resident)
+        fast, refresh = self.fast, self.refresh
+
+        def rec_fast(state, *rest):
+            self.joint_calls["K1"] += self._leads_joint_row(state)
+            return fast(state, *rest)
+
+        def rec_refresh(state, *rest):
+            self.joint_calls["K2"] += self._leads_joint_row(state)
+            return refresh(state, *rest)
+
+        tq.engine_step_resident_fast = rec_fast
+        tq.engine_step_resident = rec_refresh
+        return self
+
+    def __exit__(self, *exc):
+        self.tq.engine_step_resident_fast = self.fast
+        self.tq.engine_step_resident = self.refresh
+
+
+def run_churn_path(tq, kernels, bench):
+    """The bench's churn rung: leadership transfers and joint-consensus
+    rounds under write load, over the simulated transport."""
+    cluster = bench.churn_cluster("cuda", CHURN_GROUPS)
+    with JointRecorder(tq, cluster) as rec:
+        res, launches = counted(
+            kernels, ("K1", "K2", "K3", "K4"),
+            lambda: asyncio.run(bench.churn_rung(cluster, CHURN_WRITES)),
+            never=("K5",))
+    res["joint_calls"] = dict(rec.joint_calls)
+    res["joint_unmatched_calls"] = rec.unmatched
+    if res["transfers_ok"] + res["transfers_failed"] != bench.CHURN_TRANSFERS:
+        raise AssertionError(f"churn path: {res['transfers_ok']} + "
+                             f"{res['transfers_failed']} transfers counted "
+                             f"of {bench.CHURN_TRANSFERS}")
+    if res["commits"] != CHURN_GROUPS * CHURN_WRITES \
+            or res["replicas_read_back"] != CHURN_GROUPS * 3 \
+            or res["final_conf_sizes"] != [3]:
+        raise AssertionError(f"churn path: {res['commits']} writes acked, "
+                             f"{res['replicas_read_back']} replicas read "
+                             f"back, conf sizes {res['final_conf_sizes']}")
+    if rec.joint_calls["K1"] + rec.joint_calls["K2"] == 0:
+        raise AssertionError("churn path: no K1/K2 launch while the engine "
+                             "led a row in joint consensus")
+    if not res["engine_device"].startswith("cuda"):
+        raise AssertionError(f"churn path: engine on {res['engine_device']}")
     return res, launches
 
 
@@ -565,6 +753,36 @@ def k5_timing(tq, st, ev_np, out, key, device_us) -> None:
         lambda: tq.engine_step_resident_fast_sliced(a, ev, meta))
 
 
+def k7_timing(tq, cases, g: int, p: int, out, device_us) -> None:
+    """K7a-c at the main paths' G and P (K7a with two replies per group):
+    each input read once and each output written once (K7a: both [G, P]
+    masks in and out, 10 bytes per event; K7b: the int32 and three bool
+    [G, P] arrays and the flush index in, int32 [G] out; K7c: the int32
+    and three bool [G, P] arrays in, int32 [G] out).  No PyTorch call
+    computes any of the three alone, so there is no library time."""
+    rng = np.random.default_rng(7)
+    e = 2 * g
+    votes = cuda(cases.vote_events(rng, g, p, e))
+    repl = cuda(cases.replicated_inputs(rng, g, p))
+    lease = cuda(cases.lease_inputs(rng, g, p, NOW))
+    timeout = 1000
+    work = (
+        ("K7a", lambda: tq.apply_vote_events(*votes),
+         lambda: tq._apply_vote_events_plain(*votes),
+         4 * g * p + 10 * e, 10 * e, f"G={g} P={p} E={e}"),
+        ("K7b", lambda: tq.all_replicated_min(*repl),
+         lambda: tq._all_replicated_min_plain(*repl),
+         7 * g * p + 8 * g, g * (3 * p + 4), f"G={g} P={p}"),
+        ("K7c", lambda: tq.lease_expiry(*lease, timeout),
+         lambda: tq._lease_expiry_plain(*lease, timeout),
+         7 * g * p + 4 * g, g * (8 * p * p + 16), f"G={g} P={p}"))
+    for key, kernel, plain, nbytes, ops, shape in work:
+        ms = timed(kernel)
+        plain_ms = timed(plain)
+        out[key] = (ms, plain_ms, *bound(nbytes, ops), shape)
+        device_us[key] = device_us_per_call(kernel)
+
+
 def run_timing(tq, tl, cases, bench, main, shapes, mesh_main,
                mesh_shapes) -> dict:
     """K1-K4 at the main paths' most common shape, K5 at the mesh path's
@@ -572,13 +790,16 @@ def run_timing(tq, tl, cases, bench, main, shapes, mesh_main,
     both kernel-rung shapes (key ``K6`` at 10240 groups, ``K6_100k`` at
     102400).  Bytes: every input read once (K2's refresh rows only where
     they are not padding), the state elements a call changes and the
-    outputs written once."""
+    outputs written once.  Device time per call from ``torch.profiler``
+    for every kernel (K1/K2 on a state of their own that the profiled
+    calls keep updating: the same events again, so the same work)."""
     g, p, w = main["capacity"], main["peers"], main["ledger_width"]
     e1 = shapes["K1"].most_common(1)[0][0]
     d2, e2 = shapes["K2"].most_common(1)[0][0]
     rng = np.random.default_rng(99)
     st = cases.resident_state(rng, g, p, NOW)
     out = {}
+    device_us = {}
 
     # K1
     ev, meta = cuda([cases.fast_events(rng, g, p, e1, NOW),
@@ -589,6 +810,9 @@ def run_timing(tq, tl, cases, bench, main, shapes, mesh_main,
     nbytes = state_bytes(g, p) + 28 * e1 + 8 + wrote + 16 * g
     out["K1"] = (ms, plain, *bound(nbytes, g * (4 * p * p + 64) + 10 * e1),
                  f"G={g} P={p} E={e1}")
+    a = tq.device_state_from_numpy(st, "cuda")
+    device_us["K1"] = device_us_per_call(
+        lambda: tq.engine_step_resident_fast(a, ev, meta))
 
     # K2
     rf_idx_np, rf, acks = cases.refresh(rng, g, p, d2, e2, NOW)
@@ -605,6 +829,10 @@ def run_timing(tq, tl, cases, bench, main, shapes, mesh_main,
     out["K2"] = (ms, plain, *bound(nbytes, g * (4 * p * p + 64) + 10 * e2
                                    + d_real * 12 * p),
                  f"G={g} P={p} D={d2} ({d_real} rows) E={e2}")
+    a = tq.device_state_from_numpy(st, "cuda")
+    device_us["K2"] = device_us_per_call(
+        lambda: tq.engine_step_resident(a, rf_idx, *rf, *acks, NOW,
+                                        TIMEOUT_MS))
 
     # K3: four bool and one int32 [G, P] inputs, int32 [G], bool [4, G] out
     args = cuda(cases.tally_inputs(rng, g, p))
@@ -612,6 +840,8 @@ def run_timing(tq, tl, cases, bench, main, shapes, mesh_main,
     plain = timed(lambda: tq._tally_plain(*args))
     out["K3"] = (ms, plain, *bound(g * p * 8 + 4 * g + 4 * g,
                                    g * (8 * p + 40)), f"G={g} P={p}")
+    device_us["K3"] = device_us_per_call(
+        lambda: tq.tally_votes_packed(*args))
 
     # K4: role (int8), commit, applied, prev_commit (int32), prev_valid
     # (bool) per row; match, last_ack, peer_index (int32) and three bool
@@ -623,9 +853,10 @@ def run_timing(tq, tl, cases, bench, main, shapes, mesh_main,
     nbytes = g * (1 + 3 * 4 + 1) + g * p * (3 * 4 + 3) \
         + 4 * tl.packed_size(g, w)
     out["K4"] = (ms, plain, *bound(nbytes, g * p * 45), f"G={g} P={p} W={w}")
+    device_us["K4"] = device_us_per_call(
+        lambda: tl.ledger_pass(*dev, *scalars, num_peers=w))
 
     # K5 at the mesh path's most common (S, E) and at the rung's batch
-    device_us = {}
     s5, e5 = mesh_shapes["K5"].most_common(1)[0][0]
     g5 = mesh_main["capacity"]
     k5_timing(tq, cases.resident_state(rng, g5, p, NOW),
@@ -645,6 +876,8 @@ def run_timing(tq, tl, cases, bench, main, shapes, mesh_main,
                                       g6 * (4 * p6 * p6 + 64) + 10 * e6),
                     f"G={g6} P={p6} E={e6}")
         device_us[key] = device_us_per_call(lambda: tq.engine_step(*args))
+
+    k7_timing(tq, cases, g, p, out, device_us)
     for k, (ms, plain, b_ms, by, shape) in out.items():
         dev = (f", device {device_us[k]:.3f} us/call" if device_us.get(k)
                else "")
@@ -680,7 +913,8 @@ def main(argv=None) -> int:
     from ratis_tpu_torch.ops import quorum as tq
     from ratis_tpu_torch.tools import bench, cases
     kernels = {"K1": tq.K1, "K2": tq.K2, "K3": tq.K3, "K4": tl.K4,
-               "K5": tq.K5, "K6": tq.K6}
+               "K5": tq.K5, "K6": tq.K6, "K7a": tq.K7a, "K7b": tq.K7b,
+               "K7c": tq.K7c}
 
     # 2. build
     t0 = time.monotonic()
@@ -692,9 +926,13 @@ def main(argv=None) -> int:
             if "registers" in line or "spill" in line:
                 log(f"ptxas {s}: {line.strip()}")
 
-    # 3. parity at fixed shapes
+    # 3. parity at fixed shapes (K7's launches here and in phase 5 are its
+    # only ones: no path calls it)
     par = Parity()
+    k7_before = {k: kernels[k].launches for k in K7}
     run_parity(tq, tl, cases, bench, par)
+    k7_launches = {k: {"parity": kernels[k].launches - k7_before[k]}
+                   for k in K7}
 
     # 4a. the main path over the simulated transport
     rec = ShapeRecorder(tq)
@@ -755,29 +993,72 @@ def main(argv=None) -> int:
         f"ms, efficiency {m['efficiency_frac']:.3f} | launches "
         f"{mesh_rung_launches}")
 
+    # 4e/4f. the durable paths: per-group logs at 1024, the shared plane
+    # at 256; 4g. leadership and configuration churn
+    durable = {}
+    for key, groups, shared in (("durable_1024", DURABLE_GROUPS, False),
+                                ("shared_256", SHARED_GROUPS, True)):
+        res, launches = run_durable_path(kernels, bench, groups, shared)
+        durable[key] = (res, launches)
+        log_kind = "shared log plane" if shared else "per-group segments"
+        log(f"{key}: {card} | 3 servers x {groups} groups over TCP, "
+            f"ArithmeticStateMachine, {log_kind} on {res['storage_fs']} | "
+            f"bring-up "
+            f"{res['election_convergence_s']:.3f} s | {res['acked']} writes "
+            f"acked | {res['commits_per_sec']:.1f} commits/s | p50 "
+            f"{res['p50_ms']:.2f} ms | p99 {res['p99_ms']:.2f} ms | "
+            f"fsyncs {res['fsyncs']} ({res['fsyncs_per_commit']:.4f} per "
+            f"commit) | election timeouts (bring-up, warm-up, writes) "
+            f"{res['election_timeouts']} | restart to all leaders "
+            f"{res['restart_s']:.3f} s ({res['restart_election_timeouts']} "
+            f"election timeouts) | replicas equal to the fold before, after "
+            f"restart {res['replicas_read_back']}")
+        log(f"{key} launches: {launches}")
+    churn_res, churn_launches = run_churn_path(tq, kernels, bench)
+    log(f"churn_1024: {card} | 3 servers x {CHURN_GROUPS} groups (sim) | "
+        f"bring-up {churn_res['election_convergence_s']:.3f} s | transfers "
+        f"ok {churn_res['transfers_ok']} failed "
+        f"{churn_res['transfers_failed']} "
+        f"{churn_res.get('transfer_failures', [])} | joint rounds ok "
+        f"{churn_res['joint_ok']} failed {churn_res['joint_failed']} | "
+        f"{churn_res['commits']} writes acked, all replicas read back in "
+        f"the final configuration | {churn_res['commits_per_sec']:.1f} "
+        f"commits/s | p50 {churn_res['p50_ms']:.2f} ms | p99 "
+        f"{churn_res['p99_ms']:.2f} ms | election timeouts (bring-up, "
+        f"writes) {churn_res['election_timeouts']}")
+    log(f"churn_1024 launches: {churn_launches}; K1/K2 launches while "
+        f"the engine led a joint row: {churn_res['joint_calls']} "
+        f"(unmatched calls "
+        f"{churn_res['joint_unmatched_calls']})")
+
     # 5. parity at every shape the main paths gave a kernel, then timing
     run_parity_observed(tq, tl, cases, main_res, shapes, par, "main path")
     run_parity_observed(tq, tl, cases, mesh_res, rec_mesh.shapes, par,
                         "mesh path")
+    k7_before = {k: kernels[k].launches for k in K7}
     timing, device_us = run_timing(tq, tl, cases, bench, main_res, shapes,
                                    mesh_res, rec_mesh.shapes)
+    for k in K7:
+        k7_launches[k]["timing"] = kernels[k].launches - k7_before[k]
 
     # 6. results
-    by_path = {k: {"sim": sim_launches[k], "tcp": tcp_launches[k],
-                   "mesh": mesh_launches[k]}
-               for k in ("K1", "K2", "K3", "K4")}
-    by_path["K5"] = {"sim": sim_launches["K5"], "tcp": tcp_launches["K5"],
-                     "mesh": mesh_launches["K5"]}
-    by_path["K6"] = {"kernel_rungs": rung_launches["K6"]}
-    for k, n in mesh_rung_launches.items():
-        by_path[k]["mesh_rungs"] = n
+    # each kernel's counts as every path's run read them (K7's are all 0,
+    # checked there); K7's comparison launches are listed beside them
+    paths = {"sim": sim_launches, "kernel_rungs": rung_launches,
+             "tcp": tcp_launches, "mesh": mesh_launches,
+             "mesh_rungs": mesh_rung_launches,
+             **{k: launches for k, (_, launches) in durable.items()},
+             "churn_1024": churn_launches}
+    by_path = {k: {p: n[k] for p, n in paths.items() if k in n}
+               for k in kernels}
     rows = []
     for name, key, source, replaces in KERNELS:
         ms, plain, b_ms, by, shape = timing[key]
         rows.append({"name": name, "route": "cuda", "source": source,
                      "replaces": replaces,
                      "launches": sum(by_path[key].values()),
-                     "launches_by_path": by_path[key],
+                     "launches_by_path": {**by_path[key],
+                                          **k7_launches.get(key, {})},
                      "max_abs_err": par.errs[key], "ms": ms, "plain_ms": plain,
                      "bound_ms": b_ms, "bound_by": by, "library_ms": None,
                      "device_us": device_us.get(key)})
@@ -786,6 +1067,9 @@ def main(argv=None) -> int:
             json.dump({"card": card, "main_path": main_res,
                        "tcp_path": tcp_res, "kernel_rungs": rungs,
                        "mesh_path": mesh_res, "mesh_rungs": mesh_rungs,
+                       "durable_paths": {k: r for k, (r, _) in
+                                         durable.items()},
+                       "churn_path": churn_res,
                        "seconds": time.monotonic() - t_start,
                        "shapes": {k: {str(s): n for s, n in v.items()}
                                   for k, v in shapes.items()},

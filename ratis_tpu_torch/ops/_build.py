@@ -7,7 +7,8 @@ not the minutes a ``torch.utils.cpp_extension`` build of the same code
 takes.  All sources compile in parallel, one ``nvcc`` process each, at
 first use, into ``ratis_tpu_torch/_build/`` (git-ignored); a library is
 named by a hash of its source and flags, so an edit rebuilds it and an
-unchanged source is reused.
+unchanged source is reused (the shared headers, ``kernels/*.cuh``, are part
+of every source's hash).
 
 Nothing here runs at import: this module is imported on machines with no
 CUDA toolkit (the CPU tests), where only the kernels' plain versions run.
@@ -26,7 +27,8 @@ import time
 
 KERNEL_DIR = pathlib.Path(__file__).resolve().parent / "kernels"
 BUILD_DIR = KERNEL_DIR.parents[1] / "_build"
-SOURCES = ("resident_step.cu", "tally_votes.cu", "ledger_pass.cu")
+SOURCES = ("resident_step.cu", "tally_votes.cu", "ledger_pass.cu",
+           "vote_lease.cu")
 NVCC_FLAGS = ("-gencode=arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -50,6 +52,9 @@ def _nvcc() -> str:
 
 def _target(source: str) -> pathlib.Path:
     h = hashlib.sha256((KERNEL_DIR / source).read_bytes())
+    # the shared headers too: an edit there rebuilds every source
+    for header in sorted(KERNEL_DIR.glob("*.cuh")):
+        h.update(header.read_bytes())
     h.update(" ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"{pathlib.Path(source).stem}-{h.hexdigest()[:16]}.so"
 

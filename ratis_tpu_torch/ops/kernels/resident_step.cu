@@ -56,71 +56,20 @@
 // - Pass B: one thread per group row, its <= MAXP peer values in
 //   registers.  The majority-min of a row is the member of rank (k-1)/2
 //   in ascending order, found by counting ranks (O(P^2) compares, no
-//   sort, no local memory).  In place (K1, K2, K5) it writes the new
-//   commit and the disarmed deadline back into the state and writes
-//   out[4, G]; K6's instance writes new_commit [G] and the flags [3, G]
-//   only.
+//   sort, no local memory; ``row_math.cuh``, shared with K7c).  In place
+//   (K1, K2, K5) it writes the new commit and the disarmed deadline back
+//   into the state and writes out[4, G]; K6's instance writes new_commit
+//   [G] and the flags [3, G] only.
 // - int32 arithmetic that XLA wraps (now - quorum_ack) is done in uint32:
 //   signed overflow is undefined in C++.
 
-#include <cuda_runtime.h>
-#include <stdint.h>
-
-#define MAXP 16
+#include "row_math.cuh"
 
 namespace {
 
-constexpr int32_t kIntMin = INT32_MIN;
-constexpr int32_t kIntMax = INT32_MAX;
 constexpr int32_t kSentinel = INT32_MIN;  // ops.quorum.PACK_SENTINEL
 constexpr int8_t kRoleFollower = 1;
 constexpr int8_t kRoleLeader = 3;
-constexpr int kThreads = 256;
-
-__device__ __forceinline__ int32_t wrap_sub(int32_t a, int32_t b) {
-  return (int32_t)((uint32_t)a - (uint32_t)b);
-}
-
-// XLA's index normalisation: [-n, -1] -> [0, n); the caller drops the rest
-__device__ __forceinline__ int wrap_index(int32_t i, int n) {
-  return i < 0 ? i + n : i;
-}
-
-__device__ __forceinline__ unsigned row_bits(const uint8_t* m, int P) {
-  unsigned bits = 0;
-#pragma unroll
-  for (int i = 0; i < MAXP; ++i)
-    if (i < P && m[i]) bits |= 1u << i;
-  return bits;
-}
-
-// ascending-sorted member values at position (k-1)/2; INT32_MIN when the
-// mask is empty (ops.quorum.majority_min)
-__device__ __forceinline__ int32_t majority_min(const int32_t (&v)[MAXP],
-                                                unsigned mask) {
-  int k = __popc(mask);
-  if (k == 0) return kIntMin;
-  int pos = (k - 1) / 2;
-  int32_t res = kIntMin;
-#pragma unroll
-  for (int i = 0; i < MAXP; ++i) {
-    if (!((mask >> i) & 1u)) continue;
-    int rank = 0;
-#pragma unroll
-    for (int j = 0; j < MAXP; ++j)
-      if (((mask >> j) & 1u) && (v[j] < v[i] || (v[j] == v[i] && j < i)))
-        ++rank;
-    if (rank == pos) res = v[i];
-  }
-  return res;
-}
-
-__device__ __forceinline__ int32_t combined_majority_min(
-    const int32_t (&v)[MAXP], unsigned cur, unsigned old) {
-  int32_t m = majority_min(v, cur);
-  if (old != 0) m = min(m, majority_min(v, old));
-  return m;
-}
 
 // Pass R: scatter the refreshed rows (K2)
 __global__ void refresh_rows(
@@ -243,8 +192,6 @@ __global__ void row_pass(
     flags[2 * G + g] = stale;
   }
 }
-
-inline int blocks(int n) { return (n + kThreads - 1) / kThreads; }
 
 }  // namespace
 

@@ -11,8 +11,11 @@ masks).  Each function on the engine's path has two bodies:
   by the public wrapper when its tensors are on a CUDA device:
   K1 ``engine_step_resident_fast``, K2 ``engine_step_resident``, K5
   ``engine_step_resident_fast_sliced`` (a mesh engine's fast tick), K6
-  ``engine_step`` (all four in ``resident_step.cu``) and K3
-  ``tally_votes`` (``tally_votes.cu``).
+  ``engine_step`` (all four in ``resident_step.cu``), K3
+  ``tally_votes`` (``tally_votes.cu``), and K7a ``apply_vote_events``,
+  K7b ``all_replicated_min`` and K7c ``lease_expiry``
+  (``vote_lease.cu``; no path of the server calls K7, as none of the JAX
+  package does).
 
 A wrapper takes the plain version only because its tensors lie on the
 CPU; for CUDA tensors it launches the kernel or raises.
@@ -101,6 +104,43 @@ def update_commit(match_index, self_mask, flush_index, conf_cur, conf_old,
     ok = is_leader & (candidate > commit_index) & (
         candidate >= first_leader_index)
     return CommitUpdate(torch.where(ok, candidate, commit_index), ok)
+
+
+def _all_replicated_min_plain(match_index, self_mask, flush_index, conf_cur,
+                              conf_old) -> torch.Tensor:
+    eff = torch.where(self_mask, flush_index[:, None], match_index)
+    union = conf_cur | conf_old
+    m = torch.where(union, eff, torch.full_like(eff, INT32_MAX)).amin(dim=-1)
+    return torch.where(union.any(dim=-1), m, torch.full_like(m, INT32_MIN))
+
+
+K7b = Kernel("vote_lease.cu", "k7b_all_replicated_min",
+             (PTR, PTR, PTR, PTR, PTR, PTR, INT, INT))
+
+
+def all_replicated_min(match_index, self_mask, flush_index, conf_cur,
+                       conf_old) -> torch.Tensor:
+    """[G] int32: per group, the least index replicated on ALL members of
+    ``conf_cur | conf_old`` (watch levels ALL / ALL_COMMITTED), the
+    leader's own slot counted at its flush index; INT32_MIN for an empty
+    union.  match_index: [G, P] int32; masks: [G, P] bool; flush_index:
+    [G] int32.  CPU tensors: plain torch; CUDA tensors: kernel K7b."""
+    dev = _device_of(match_index, self_mask, flush_index, conf_cur,
+                     conf_old)
+    if dev.type == "cpu":
+        return _all_replicated_min_plain(match_index, self_mask,
+                                         flush_index, conf_cur, conf_old)
+    g, p = match_index.shape
+    _check_peers(p)
+    _check(match_index, torch.int32, (g, p))
+    for t in (self_mask, conf_cur, conf_old):
+        _check(t, torch.bool, (g, p))
+    _check(flush_index, torch.int32, (g,))
+    out = torch.empty(g, dtype=torch.int32, device=dev)
+    K7b(dev, match_index.data_ptr(), self_mask.data_ptr(),
+        flush_index.data_ptr(), conf_cur.data_ptr(), conf_old.data_ptr(),
+        out.data_ptr(), g, p)
+    return out
 
 
 class VoteTally(NamedTuple):
@@ -200,6 +240,55 @@ def check_leadership(last_ack_ms, self_mask, conf_cur, conf_old, now_ms,
     return is_leader & stale
 
 
+def _int32_scalar(x) -> int:
+    """A host int32 scalar (int, numpy int32, 0-d tensor) as an int;
+    raises outside the int32 range."""
+    v = int(x)
+    if not INT32_MIN <= v <= INT32_MAX:
+        raise ValueError(f"{v} is not an int32")
+    return v
+
+
+def _lease_expiry_plain(last_ack_ms, self_mask, conf_cur, conf_old,
+                        lease_timeout_ms: int) -> torch.Tensor:
+    eff = torch.where(self_mask, torch.full_like(last_ack_ms, INT32_MAX),
+                      last_ack_ms)
+    quorum_ack = combined_majority_min(eff, conf_cur, conf_old)
+    cap = wrap_i32(torch.tensor(INT32_MAX - lease_timeout_ms))
+    return wrap_i32(torch.minimum(quorum_ack, cap).long() + lease_timeout_ms)
+
+
+K7c = Kernel("vote_lease.cu", "k7c_lease_expiry",
+             (PTR, PTR, PTR, PTR, INT, PTR, INT, INT))
+
+
+def lease_expiry(last_ack_ms, self_mask, conf_cur, conf_old,
+                 lease_timeout_ms) -> torch.Tensor:
+    """[G] int32 lease expiry: the time a majority (of both confs when
+    joint) acked at or after, plus the lease timeout; the leader's own slot
+    counts as INT32_MAX.  Saturating as in JAX:
+    ``min(q, INT32_MAX - t) + t``, each int32 operation wrapping as XLA's
+    does (a single-member conf gives INT32_MAX, an empty one INT32_MIN +
+    t).  last_ack_ms: [G, P] int32; masks: [G, P] bool;
+    ``lease_timeout_ms``: a host int32 scalar.  CPU tensors: plain torch;
+    CUDA tensors: kernel K7c."""
+    dev = _device_of(last_ack_ms, self_mask, conf_cur, conf_old)
+    timeout = _int32_scalar(lease_timeout_ms)
+    if dev.type == "cpu":
+        return _lease_expiry_plain(last_ack_ms, self_mask, conf_cur,
+                                   conf_old, timeout)
+    g, p = last_ack_ms.shape
+    _check_peers(p)
+    _check(last_ack_ms, torch.int32, (g, p))
+    for t in (self_mask, conf_cur, conf_old):
+        _check(t, torch.bool, (g, p))
+    out = torch.empty(g, dtype=torch.int32, device=dev)
+    K7c(dev, last_ack_ms.data_ptr(), self_mask.data_ptr(),
+        conf_cur.data_ptr(), conf_old.data_ptr(), timeout, out.data_ptr(),
+        g, p)
+    return out
+
+
 def wrap_index(idx: torch.Tensor, n: int) -> torch.Tensor:
     """An index in ``[-n, -1]`` counts from the end (``n + idx``), as XLA
     normalises scatter indices; anything else is returned as it is, and
@@ -221,6 +310,61 @@ def apply_ack_events(match_index, last_ack_ms, ev_group, ev_peer, ev_match,
     match_index.view(-1).scatter_reduce_(0, flat, ev_match[keep], "amax")
     last_ack_ms.view(-1).scatter_reduce_(0, flat, ev_time_ms[keep], "amax")
     return match_index, last_ack_ms
+
+
+def _apply_vote_events_plain(grants, rejects, ev_group, ev_peer, ev_granted,
+                             ev_valid) -> tuple[torch.Tensor, torch.Tensor]:
+    g_n, p_n = grants.shape
+    grp, peer = wrap_index(ev_group, g_n), wrap_index(ev_peer, p_n)
+    keep = ev_valid & (grp >= 0) & (grp < g_n) & (peer >= 0) & (peer < p_n)
+    flat = grp[keep].long() * p_n + peer[keep].long()
+    # the gate reads the INPUT masks: two events for one (group, peer) in
+    # a batch both pass it
+    fresh = ~(grants | rejects).reshape(-1)[flat]
+    granted = ev_granted[keep]
+    new_grants = grants.clone(memory_format=torch.contiguous_format)
+    new_rejects = rejects.clone(memory_format=torch.contiguous_format)
+    new_grants.view(-1)[flat[fresh & granted]] = True
+    new_rejects.view(-1)[flat[fresh & ~granted]] = True
+    return new_grants, new_rejects
+
+
+K7a = Kernel("vote_lease.cu", "k7a_apply_vote_events",
+             (PTR,) * 8 + (INT, INT, INT))
+
+
+def apply_vote_events(grants, rejects, ev_group, ev_peer, ev_granted,
+                      ev_valid) -> tuple[torch.Tensor, torch.Tensor]:
+    """Scatter a packed batch of vote replies into NEW grant / reject
+    masks (first reply wins: an event for a (group, peer) that already
+    granted or rejected in ``grants | rejects`` is dropped).  The gate
+    reads the inputs, so two events for one (group, peer) in one batch
+    both pass it, as in JAX (the host packer dedupes a batch).  Group and
+    peer each wrap a negative index by their own extent; invalid events
+    and pairs out of range write nothing; no input is written.
+    grants/rejects: [G, P] bool; ev_group/ev_peer: [E] int32;
+    ev_granted/ev_valid: [E] bool.  CPU tensors: plain torch; CUDA
+    tensors: kernel K7a."""
+    dev = _device_of(grants, rejects, ev_group, ev_peer, ev_granted,
+                     ev_valid)
+    if dev.type == "cpu":
+        return _apply_vote_events_plain(grants, rejects, ev_group, ev_peer,
+                                        ev_granted, ev_valid)
+    g, p = grants.shape
+    _check_peers(p)
+    _check(grants, torch.bool, (g, p))
+    _check(rejects, torch.bool, (g, p))
+    e = ev_group.shape[0]
+    _check(ev_group, torch.int32, (e,))
+    _check(ev_peer, torch.int32, (e,))
+    _check(ev_granted, torch.bool, (e,))
+    _check(ev_valid, torch.bool, (e,))
+    new_grants = torch.empty_like(grants)
+    new_rejects = torch.empty_like(rejects)
+    K7a(dev, grants.data_ptr(), rejects.data_ptr(), ev_group.data_ptr(),
+        ev_peer.data_ptr(), ev_granted.data_ptr(), ev_valid.data_ptr(),
+        new_grants.data_ptr(), new_rejects.data_ptr(), g, p, e)
+    return new_grants, new_rejects
 
 
 class EngineStep(NamedTuple):

@@ -5,6 +5,7 @@ headline end-to-end rung, run on the port.
     python -m ratis_tpu_torch.tools.bench --device cpu    # plain versions
     python -m ratis_tpu_torch.tools.bench --rungs mesh_100k,sim_10240
     python -m ratis_tpu_torch.tools.bench --rungs mesh
+    python -m ratis_tpu_torch.tools.bench --rungs durable    # or shared, churn
 
 Prints exactly one JSON line on stdout, with the key names of ``bench.py``'s
 rungs (the first three by default, the mesh rungs when ``--rungs`` names
@@ -41,7 +42,26 @@ them; at most one rung that brings up a cluster per run):
 - ``mesh`` (``bench.py``'s mesh e2e rung): 3 servers x 10240 groups over
   the simulated transport with ``mesh-devices=8``, no warm-up, 2 writes
   per group at concurrency 128, the e2e rung's metrics; ``sim_10240`` is
-  the same rung without a mesh, its control (the JAX ladder pairs them).
+  the same rung without a mesh, its control (the JAX ladder pairs them);
+- ``durable`` (the log keys and timeout tier of ``bench.py``'s durable
+  rungs, ``child_mixed_durable``): the e2e rung's deployment over TCP on the
+  server's default durable log — per-group segment files in a fresh
+  temporary directory — with ``ArithmeticStateMachine`` and the JAX
+  bench's arithmetic writes (BASELINE config 2), 1 + 8 writes per group;
+  every replica's variable map held to the fold of the acknowledged
+  writes, then a full restart from disk and the same check again:
+  the e2e metrics plus ``fsyncs_per_commit``, ``storage_fs`` and
+  ``restart_s``; ``shared`` is the same on the shared log plane
+  (``raft.tpu.log.shared``);
+- ``churn`` (``child_churn`` -> ``run_churn_bench(1024, 8,
+  transfers=64)``, BASELINE config 4): 3 x 1024 over the simulated
+  transport, 8 writes per group while 64 leadership transfers (seed 17,
+  20 ms apart) move leaders and 8 groups each go through one joint-
+  consensus round (a SET_CONFIGURATION without a follower, then with it
+  again): ``transfers_ok`` / ``transfers_failed``, ``joint_ok`` /
+  ``joint_failed``, commits/s, p50/p99, election timeouts, ``dispatch``,
+  and every counter read back from every replica in the final
+  configuration.
 
 ``dryrun_multichip(n)`` is the counterpart of
 ``__graft_entry__.dryrun_multichip``: the stateless tick through
@@ -60,6 +80,7 @@ import asyncio
 import gc
 import json
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -69,7 +90,8 @@ from ratis_tpu_torch.conf import RaftServerConfigKeys
 from ratis_tpu_torch.ops import quorum
 from ratis_tpu_torch.ops import reference as ref
 
-RUNGS = ("kernel", "kernel_100k", "e2e", "mesh_100k", "mesh", "sim_10240")
+RUNGS = ("kernel", "kernel_100k", "e2e", "mesh_100k", "mesh", "sim_10240",
+         "durable", "shared", "churn")
 # what a run without --rungs measures: the headline and the kernel rungs
 # (the mesh pair's bring-up of 2 x 10240 groups takes minutes)
 DEFAULT_RUNGS = RUNGS[:3]
@@ -84,7 +106,7 @@ MESH_WRITES = 2
 # rungs that bring up a cluster: one per process, as bench.py runs one
 # child per rung (a second cluster in one process inherits the first's
 # sealed heap and was measured churning elections)
-E2E_RUNGS = ("e2e", "sim_10240", "mesh")
+E2E_RUNGS = ("e2e", "sim_10240", "mesh", "durable", "shared", "churn")
 
 
 def _example_batch(num_groups: int, num_peers: int, num_events: int,
@@ -391,6 +413,42 @@ def e2e_cluster(device="cuda", groups: int = 1024, transport: str = "tcp",
     return cluster
 
 
+# bench.py's durable rungs (child_mixed_durable, bench.py:396-410): fsync
+# traffic at 2048+ channels turns the 1 s / 2 s tier into election storms,
+# so the JAX bench runs its durable logs on this tier
+DURABLE_TIER = {"raft.server.rpc.timeout.min": "4s",
+                "raft.server.rpc.timeout.max": "8s",
+                "raft.server.rpc.request.timeout": "8s"}
+
+
+def durable_properties(groups: int, device: str, storage_dir: str,
+                       shared: bool):
+    """A durable rung's properties over TCP: the cluster's
+    (``bench_properties`` key for key) with the default durable log under
+    ``storage_dir``, per group or on the shared plane, and
+    ``DURABLE_TIER``."""
+    from ratis_tpu_torch.tools.cluster import cluster_properties
+    p = cluster_properties(groups, 3, device, "tcp",
+                           storage_dir=storage_dir, shared_log=shared)
+    for k, v in DURABLE_TIER.items():
+        p.set(k, v)
+    return p
+
+
+def durable_cluster(device, groups: int, storage_dir: str, shared: bool):
+    """A durable rung's cluster: 3 servers x ``groups`` groups over TCP
+    with ``ArithmeticStateMachine`` (BASELINE config 2's state machine) on
+    the default durable log under ``storage_dir``, prewarmed, not yet
+    started."""
+    from ratis_tpu_torch.tools.cluster import Cluster
+    dev = str(_device(device))
+    cluster = Cluster(groups, device=dev, transport="tcp",
+                      sm="arithmetic", properties=durable_properties(
+                          groups, dev, storage_dir, shared))
+    cluster.prewarm()
+    return cluster
+
+
 def _fresh_dispatch_timers(engines) -> list:
     """Give each engine fresh ``dispatchLatency`` / ``ackBatchSize``
     reservoirs, so that they hold the measured writes alone; returns the
@@ -446,6 +504,40 @@ def pack_ms(engine, acks: int, reps: int = 200) -> dict:
     return out
 
 
+def _wave(cluster) -> int:
+    """Groups per bring-up wave: a tenth, at least 128.  Election timeouts
+    grow with the channel count (8-16 s at 10240 groups), so a bring-up
+    takes about ten waves at any size."""
+    return max(128, cluster.num_groups // 10)
+
+
+async def _sealed(cluster, bring_up) -> None:
+    """Await ``bring_up`` (``cluster.start(...)`` or ``restart(...)``),
+    then seal the heap.  Bring-up allocates long-lived objects only, so
+    the collector stays off until the servers' one deliberate seal (the
+    JAX bench's scaffold)."""
+    gc.disable()
+    try:
+        await bring_up
+        cluster.servers[0].seal_heap()
+    finally:
+        gc.enable()
+
+
+def _check_engines(engines, dev: torch.device, n_slices: int = 1) -> None:
+    """Every engine ran on ``dev`` in ``n_slices`` slices, its state there
+    too, and made batched dispatches."""
+    for e in engines:
+        on = e._dev.match_index.device if e._dev is not None else None
+        if e.device.type != dev.type or (on and on.type != dev.type) \
+                or e.metrics["batched_dispatches"] == 0 \
+                or e.state.n_slices != n_slices:
+            raise AssertionError(f"engine on {e.device}, state on {on}, "
+                                 f"{e.metrics['batched_dispatches']} "
+                                 f"batched dispatches, "
+                                 f"{e.state.n_slices} slices")
+
+
 async def e2e_rung(cluster, writes: int = 8,
                    warmup: int = WARMUP_WRITES) -> dict:
     """``run_bench`` on an ``e2e_cluster``: bring it up (elections in
@@ -454,15 +546,9 @@ async def e2e_rung(cluster, writes: int = 8,
     counter back from every replica, close it."""
     dev = torch.device(cluster.device)
     groups = cluster.num_groups
-    # bring-up allocates long-lived objects only: the collector stays off
-    # until the servers' one deliberate seal (the JAX bench's scaffold)
-    gc.disable()
     try:
-        # election timeouts grow with the channel count (8-16 s at 10240
-        # groups), so a bring-up takes about ten waves at any size
-        await cluster.start(wave=max(128, groups // 10), timeout=600)
-        cluster.servers[0].seal_heap()
-        gc.enable()
+        await _sealed(cluster, cluster.start(wave=_wave(cluster),
+                                             timeout=600))
         timeouts = [cluster.election_timeouts()]
         acked = 0
         if warmup:
@@ -488,15 +574,7 @@ async def e2e_rung(cluster, writes: int = 8,
                 raise AssertionError("no ledger sample on some server")
             await asyncio.sleep(0.1)
         mesh_n = RaftServerConfigKeys.Engine.mesh_devices(cluster.properties)
-        for e in engines:
-            on = e._dev.match_index.device if e._dev is not None else None
-            if e.device.type != dev.type or (on and on.type != dev.type) \
-                    or e.metrics["batched_dispatches"] == 0 \
-                    or e.state.n_slices != max(1, mesh_n):
-                raise AssertionError(f"engine on {e.device}, state on {on}, "
-                                     f"{e.metrics['batched_dispatches']} "
-                                     f"batched dispatches, "
-                                     f"{e.state.n_slices} slices")
+        _check_engines(engines, dev, max(1, mesh_n))
         return {"groups": groups, "servers": len(cluster.servers),
                 "transport": cluster.transport, "writes": writes,
                 "warmup": warmup, "concurrency": CONCURRENCY,
@@ -526,7 +604,228 @@ async def e2e_rung(cluster, writes: int = 8,
                 "ledger_samples": [e.ledger.samples.count for e in engines],
                 "engine_device": str(engines[0].device)}
     finally:
-        gc.enable()
+        await cluster.close()
+
+
+async def durable_rung(cluster, writes: int = 8) -> dict:
+    """A durable rung on a ``durable_cluster``: bring it up, warm up with
+    ``WARMUP_WRITES`` writes per group, measure ``writes`` arithmetic
+    writes per group at concurrency 128, hold every replica's variable map
+    to the fold of the acknowledged writes, restart every server from its
+    storage (same addresses), hold every map to the fold again, close.
+    Reports the e2e rung's metrics, the fsyncs the log workers issued per
+    measured commit, the storage's filesystem type (on tmpfs an fsync
+    writes nothing to a device) and ``restart_s``: new servers started ->
+    every group has a ready leader."""
+    from ratis_tpu_torch.tools.cluster import fs_type, log_fsyncs
+    dev = torch.device(cluster.device)
+    groups = cluster.num_groups
+    storage = RaftServerConfigKeys.storage_dirs(cluster.properties)[0]
+    try:
+        await _sealed(cluster, cluster.start(wave=_wave(cluster),
+                                             timeout=600))
+        timeouts = [cluster.election_timeouts()]
+        acked = (await cluster.write_all(WARMUP_WRITES,
+                                         CONCURRENCY))["commits"]
+        timeouts.append(cluster.election_timeouts())
+        engines = [s.engine for s in cluster.servers]
+        saved = _fresh_dispatch_timers(engines)
+        fsyncs = log_fsyncs()
+        stats = await cluster.write_all(writes, CONCURRENCY)
+        fsyncs = log_fsyncs() - fsyncs
+        timeouts.append(cluster.election_timeouts())
+        dispatch = _dispatch_summary(engines, saved, stats["elapsed_s"])
+        acked += stats["commits"]
+        read_back = [await cluster.check_variables(timeout=300)]
+        _check_engines(engines, dev)
+        await _sealed(cluster, cluster.restart(timeout=600))
+        restart_timeouts = cluster.election_timeouts()
+        read_back.append(await cluster.check_variables(timeout=300))
+        return {"groups": groups, "servers": len(cluster.servers),
+                "transport": cluster.transport, "writes": writes,
+                "warmup": WARMUP_WRITES, "concurrency": CONCURRENCY,
+                "shared_log": RaftServerConfigKeys.TpuLog.shared(
+                    cluster.properties),
+                "commits": stats["commits"], "acked": acked,
+                "elapsed_s": stats["elapsed_s"],
+                "commits_per_sec": stats["commits_per_sec"],
+                "p50_ms": stats["p50_ms"], "p99_ms": stats["p99_ms"],
+                "election_convergence_s": cluster.bring_up_s,
+                "election_timeouts": [timeouts[0],
+                                      timeouts[1] - timeouts[0],
+                                      timeouts[2] - timeouts[1]],
+                "fsyncs": fsyncs,
+                "fsyncs_per_commit": fsyncs / max(1, stats["commits"]),
+                "storage_fs": fs_type(storage),
+                "restart_s": cluster.restart_s,
+                "restart_election_timeouts": restart_timeouts,
+                # replicas whose map equalled the fold: before, after restart
+                "replicas_read_back": read_back,
+                "dispatch": dispatch,
+                "engine_device": str(engines[0].device)}
+    finally:
+        await cluster.close()
+
+
+# the churn rung (bench.py's child_churn -> run_churn_bench(1024, 8,
+# transfers=64)): leadership transfers while the writes run, seeded as the
+# JAX bench seeds them and 20 ms apart; plus one joint-consensus round
+# (remove a follower, add it back) on this many groups
+CHURN_TRANSFERS = 64
+CHURN_SEED = 17
+CHURN_JOINT_GROUPS = 8
+
+
+async def _transfer_churn(cluster, groups, stats: dict) -> None:
+    """``run_churn_bench``'s churn task over the port: ``CHURN_TRANSFERS``
+    TRANSFER_LEADERSHIP requests on seeded random ``groups``, each to a
+    random other member, following NotLeader suggestions (bounded by the
+    peer count) and waiting out LeaderNotReady, as an admin client does."""
+    import itertools
+    import random
+
+    from ratis_tpu_torch.protocol.admin import TransferLeadershipArguments
+    from ratis_tpu_torch.protocol.exceptions import (LeaderNotReadyException,
+                                                     NotLeaderException)
+    from ratis_tpu_torch.protocol.ids import ClientId
+    from ratis_tpu_torch.protocol.message import Message
+    from ratis_tpu_torch.protocol.requests import (RaftClientRequest,
+                                                   RequestType,
+                                                   admin_request_type)
+    rng = random.Random(CHURN_SEED)
+    client = cluster.factory.new_client_transport()
+    client_id = ClientId.random_id()
+    call_ids = itertools.count(1)
+    by_id = {s.peer_id: s for s in cluster.servers}
+    failures = stats.setdefault("transfer_failures", [])
+    try:
+        for _ in range(CHURN_TRANSFERS):
+            g = rng.choice(groups)
+            leader_srv = cluster.leader_of(g) or cluster.servers[0]
+            target = rng.choice([p.id for p in g.peers
+                                 if p.id != leader_srv.peer_id])
+            args = TransferLeadershipArguments(str(target), 3000.0)
+            reply = None
+            try:
+                for _attempt in range(2 * len(g.peers)):
+                    req = RaftClientRequest(
+                        client_id, leader_srv.peer_id, g.group_id,
+                        next(call_ids), Message(args.to_payload()),
+                        type=admin_request_type(
+                            RequestType.TRANSFER_LEADERSHIP),
+                        timeout_ms=5000.0)
+                    reply = await client.send_request(
+                        leader_srv.transport.address, req)
+                    exc = reply.exception
+                    if reply.success:
+                        break
+                    if isinstance(exc, LeaderNotReadyException):
+                        await asyncio.sleep(0.1)
+                        continue
+                    if not isinstance(exc, NotLeaderException) \
+                            or exc.suggested_leader is None:
+                        break
+                    leader_srv = by_id.get(exc.suggested_leader.id,
+                                           leader_srv)
+                    if target == leader_srv.peer_id:
+                        target = rng.choice([p.id for p in g.peers
+                                             if p.id != leader_srv.peer_id])
+                        args = TransferLeadershipArguments(str(target),
+                                                           3000.0)
+                if reply is not None and reply.success:
+                    stats["transfers_ok"] += 1
+                else:
+                    stats["transfers_failed"] += 1
+                    exc = reply.exception if reply is not None else None
+                    failures.append(type(exc).__name__ if exc
+                                    else "no-exception")
+            except Exception as e:  # a failed transfer is counted, not fatal
+                stats["transfers_failed"] += 1
+                failures.append(type(e).__name__)
+                print(f"bench: transfer {g.group_id} -> {target} failed: "
+                      f"{type(e).__name__}: {e}", file=sys.stderr, flush=True)
+            await asyncio.sleep(0.02)
+    finally:
+        await client.close()
+
+
+async def _joint_round(cluster, g, stats: dict) -> None:
+    """One joint-consensus round on ``g``: a SET_CONFIGURATION without one
+    follower (the leader appends the joint entry, old and new confs, then
+    the new one), then one with every peer again (the follower is staged
+    back in through a second joint entry)."""
+    leader = cluster.leader_of(g)
+    follower = next(p for p in g.peers
+                    if leader is None or p.id != leader.peer_id)
+    admin = cluster.client(g).admin()
+    for peers in ([p for p in g.peers if p.id != follower.id],
+                  list(g.peers)):
+        reply = await admin.set_configuration(peers)
+        if not reply.success:
+            stats["joint_failed"] += 1
+            stats.setdefault("joint_failures", []).append(
+                type(reply.exception).__name__)
+            return
+    stats["joint_ok"] += 1
+
+
+def churn_cluster(device="cuda", groups: int = 1024):
+    """The churn rung's cluster: ``run_churn_bench``'s 3 servers x
+    ``groups`` groups over the simulated transport, prewarmed, not yet
+    started."""
+    return e2e_cluster(device, groups, "sim")
+
+
+async def churn_rung(cluster, writes: int = 8) -> dict:
+    """``run_churn_bench`` on a ``churn_cluster`` (BASELINE config 4's
+    "setConfiguration churn + leader transfer"): bring it up, then run
+    ``writes`` writes per group at concurrency 128 while
+    ``CHURN_TRANSFERS`` leadership transfers move leaders (on the groups
+    outside the joint rounds) and the first ``CHURN_JOINT_GROUPS`` groups
+    each go through one joint-consensus round; read every counter back
+    from every replica in the final configuration, close."""
+    dev = torch.device(cluster.device)
+    groups = cluster.num_groups
+    try:
+        await _sealed(cluster, cluster.start(wave=_wave(cluster),
+                                             timeout=600))
+        timeouts = [cluster.election_timeouts()]
+        engines = [s.engine for s in cluster.servers]
+        saved = _fresh_dispatch_timers(engines)
+        stats = {"transfers_ok": 0, "transfers_failed": 0, "joint_ok": 0,
+                 "joint_failed": 0}
+        joint = cluster.groups[:CHURN_JOINT_GROUPS]
+        moved = cluster.groups[CHURN_JOINT_GROUPS:] or cluster.groups
+        res, *_ = await asyncio.gather(
+            cluster.write_all(writes, CONCURRENCY),
+            _transfer_churn(cluster, moved, stats),
+            *(_joint_round(cluster, g, stats) for g in joint))
+        timeouts.append(cluster.election_timeouts())
+        dispatch = _dispatch_summary(engines, saved, res["elapsed_s"])
+        counters = await cluster.read_counters(timeout=300)
+        want = [writes] * len(cluster.servers)
+        bad = {str(gid): v for gid, v in counters.items() if v != want}
+        if len(counters) != groups or bad:
+            raise AssertionError(f"counters differ from {want} in "
+                                 f"{len(bad)} groups: {list(bad.items())[:4]}")
+        confs = {len(s.divisions[g.group_id].state.configuration.conf.peers)
+                 for s in cluster.servers for g in cluster.groups}
+        _check_engines(engines, dev)
+        return {"groups": groups, "servers": len(cluster.servers),
+                "transport": cluster.transport, "writes": writes,
+                "concurrency": CONCURRENCY, "transfers": CHURN_TRANSFERS,
+                **stats, "joint_groups": len(joint),
+                "commits": res["commits"], "elapsed_s": res["elapsed_s"],
+                "commits_per_sec": res["commits_per_sec"],
+                "p50_ms": res["p50_ms"], "p99_ms": res["p99_ms"],
+                "election_convergence_s": cluster.bring_up_s,
+                "election_timeouts": [timeouts[0],
+                                      timeouts[1] - timeouts[0]],
+                "replicas_read_back": len(counters) * len(cluster.servers),
+                "final_conf_sizes": sorted(confs),
+                "dispatch": dispatch,
+                "engine_device": str(engines[0].device)}
+    finally:
         await cluster.close()
 
 
@@ -551,7 +850,8 @@ def main(argv=None) -> int:
     ap.add_argument("--scalar-groups", type=int, default=2048)
     ap.add_argument("--mesh-100k", type=_shape, default=(102_400, 8, 8192),
                     metavar="G,P,E", help="mesh_100k rung shape")
-    ap.add_argument("--groups", type=int, default=1024)
+    ap.add_argument("--groups", type=int, default=1024,
+                    help="groups of the e2e, durable, shared and churn rungs")
     ap.add_argument("--writes", type=int, default=8)
     ap.add_argument("--mesh-groups", type=int, default=10_240,
                     help="groups of the mesh and sim_10240 rungs")
@@ -586,6 +886,16 @@ def main(argv=None) -> int:
             out[rung] = asyncio.run(e2e_rung(
                 e2e_cluster(args.device, args.mesh_groups, "sim", mesh_n),
                 MESH_WRITES, warmup=0))
+    # the durable rungs: per-group segment files, the shared log plane
+    for rung, shared in (("durable", False), ("shared", True)):
+        if rung in rungs:
+            with tempfile.TemporaryDirectory(prefix=f"ratis-{rung}-") as tmp:
+                out[rung] = asyncio.run(durable_rung(
+                    durable_cluster(args.device, args.groups, tmp, shared),
+                    args.writes))
+    if "churn" in rungs:
+        out["churn"] = asyncio.run(churn_rung(
+            churn_cluster(args.device, args.groups), args.writes))
     print(json.dumps(out), flush=True)
     return 0
 

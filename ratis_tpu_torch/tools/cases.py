@@ -22,6 +22,12 @@ versions on the card), so both hold the kernels to the same cases:
 - the stateless tick (``engine_step``): the resident state's arrays with
   unpacked acks that mix valid, invalid (garbage values), duplicate,
   in-range negative and out-of-range (positive and negative) indices;
+- K7: vote-reply batches (peers that already replied, a grant and a
+  reject for one (group, peer) in one batch, invalid events, indices in
+  ``[-n, -1]``, below ``-n`` and at or past ``n``), the hand-made edge
+  batches of ``vote_event_edges``, replicated-index and lease inputs with
+  joint, single-member and empty confs, and lease timeouts that wrap
+  (``LEASE_TIMEOUTS``);
 - ledger: duplicate dense peer ids in a row, unmapped columns (-1), ids
   past the table width, argmax ties, and optionally one (peer, bucket)
   cell holding more than 2048 links.
@@ -256,3 +262,90 @@ def ledger_inputs(rng, g: int, p: int, width: int, now: int = 100_000,
     arrays = [role, match, commit, applied, conf_cur, conf_old, self_mask,
               last_ack, peer_index, prev_commit, prev_valid]
     return arrays, (now, 64, 3000)
+
+
+# lease timeouts the K7c cases take: ordinary, zero, negative (the cap
+# INT32_MAX - t wraps) and the int32 extremes
+LEASE_TIMEOUTS = (1000, 0, -5, 150, INT32_MAX, INT32_MIN)
+
+
+def vote_events(rng, g: int, p: int, e: int) -> list:
+    """grants, rejects ([g, p] bool: about a third of the peers already
+    replied) and the four event arrays [e] of ``apply_vote_events``:
+    group, peer (int32), granted, valid (bool).  A fifth of the events
+    repeat an earlier (group, peer), some with the opposite answer (both
+    pass the gate in one batch); a tenth are invalid; group and peer
+    indices in ``[-n, -1]``, below ``-n`` and at or past ``n``."""
+    replied = rng.random((g, p)) < 0.3
+    granted = rng.random((g, p)) < 0.6
+    grants, rejects = replied & granted, replied & ~granted
+    grp = rng.integers(0, g, size=e).astype(np.int32)
+    peer = rng.integers(0, p, size=e).astype(np.int32)
+    dup = rng.random(e) < 0.2
+    src = rng.integers(0, max(1, e), size=e)
+    grp[dup] = grp[src[dup]]
+    peer[dup] = peer[src[dup]]
+    _negate(rng, grp, g, 0.15)
+    _negate(rng, peer, p, 0.15)
+    past = rng.random(e) < 0.03
+    grp[past] = g + rng.integers(0, 3, size=int(past.sum()))
+    past = rng.random(e) < 0.03
+    peer[past] = p + rng.integers(0, 3, size=int(past.sum()))
+    ev_granted = rng.random(e) < 0.6
+    ev_valid = rng.random(e) < 0.9
+    return [grants, rejects, grp, peer, ev_granted, ev_valid]
+
+
+def vote_event_edges(g: int, p: int) -> list:
+    """One hand-made batch for ``apply_vote_events`` over empty masks
+    (``g`` >= 2, ``p`` >= 3), one event per edge: a grant and then a
+    reject for (1, 2) in the same batch (both masks set), a grant at
+    group -1 (row g - 1), groups g, g + 1, -g - 1 and -2g (dropped), peer
+    -1 (slot p - 1) and peer p (dropped), and an invalid event at (0, 0)
+    (writes nothing)."""
+    ev = [(1, 2, True, True), (1, 2, False, True), (-1, 0, True, True),
+          (g, 0, True, True), (g + 1, 1, False, True),
+          (-g - 1, 0, True, True), (-2 * g, 1, False, True),
+          (0, -1, False, True), (0, p, True, True), (0, 0, True, False)]
+    grp, peer, granted, valid = (np.array(c) for c in zip(*ev))
+    return [np.zeros((g, p), bool), np.zeros((g, p), bool),
+            grp.astype(np.int32), peer.astype(np.int32), granted, valid]
+
+
+def _quorum_confs(rng, g: int, p: int) -> tuple:
+    """(self_mask, conf_cur, conf_old) [g, p]: joint confs on a fifth of
+    the rows, empty current confs on a twentieth (a few of those empty in
+    both), single-member confs on a tenth (the leader's own slot alone)."""
+    conf_cur = _mask(rng, g, p, 0.05)
+    conf_old = _mask(rng, g, p, 0.0) & (rng.random(g) < 0.2)[:, None]
+    conf_old[rng.random(g) < 0.02] = False
+    conf_cur[rng.random(g) < 0.02] = False
+    self_slot = rng.integers(0, p, size=g)
+    self_mask = np.zeros((g, p), bool)
+    self_mask[np.arange(g), self_slot] = True
+    single = rng.random(g) < 0.1
+    conf_cur[single] = self_mask[single]
+    conf_old[single] = False
+    return self_mask, conf_cur, conf_old
+
+
+def replicated_inputs(rng, g: int, p: int) -> list:
+    """match_index, self_mask, flush_index, conf_cur, conf_old for
+    ``all_replicated_min``: extreme indices included (INT32_MIN matches,
+    INT32_MAX flushes), empty unions on some rows."""
+    self_mask, conf_cur, conf_old = _quorum_confs(rng, g, p)
+    match = rng.integers(-1, 2000, size=(g, p)).astype(np.int32)
+    match[rng.random((g, p)) < 0.01] = INT32_MIN
+    flush = rng.integers(-1, 2000, size=g).astype(np.int32)
+    flush[rng.random(g) < 0.01] = INT32_MAX
+    return [match, self_mask, flush, conf_cur, conf_old]
+
+
+def lease_inputs(rng, g: int, p: int, now: int = 100_000) -> list:
+    """last_ack_ms, self_mask, conf_cur, conf_old for ``lease_expiry``
+    (times around ``now``, a few near INT32_MAX so the sum wraps)."""
+    self_mask, conf_cur, conf_old = _quorum_confs(rng, g, p)
+    ack = rng.integers(now - 5000, now + 1, size=(g, p)).astype(np.int32)
+    big = rng.random((g, p)) < 0.02
+    ack[big] = INT32_MAX - rng.integers(0, 2000, size=int(big.sum()))
+    return [ack, self_mask, conf_cur, conf_old]

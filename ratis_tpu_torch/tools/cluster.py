@@ -5,8 +5,15 @@
 (``transport="tcp"``, the framed transport of ``transport/tcp.py``, each
 server on a port the kernel picks when it binds, the groups made from the
 ports the servers got), each hosting the same ``num_groups`` sibling
-groups with a ``CounterStateMachine``, every group's consensus
-ticked by one ``QuorumEngine`` per server on ``device``.  The properties
+groups with a ``CounterStateMachine`` (``sm="counter"``) or an
+``ArithmeticStateMachine`` (``sm="arithmetic"``), every group's consensus
+ticked by one ``QuorumEngine`` per server on ``device``.  Without a
+storage dir the groups keep the in-memory log, as the JAX bench does;
+with ``cluster_properties(..., storage_dir=, shared_log=)`` they take the
+server's default durable log (per-group segment files under
+``<storage_dir>/<peer>``, or the shared log plane), and ``restart()``
+closes every server and starts new ones on the same storage and
+addresses, recovering the groups from disk.  The properties
 are the batched multi-Raft deployment of the JAX package's bench harness
 (``ratis_tpu/tools/bench_cluster.py``, ``bench_properties`` with
 ``batched=True``): the batched engine on every tick
@@ -17,7 +24,10 @@ count, the default stall watchdog (so the ledger pass runs).
 Leaders come from ordinary randomized-timeout elections (every round goes
 through the batched vote tally), group by group in waves; writes go
 through the port's ``RaftClient``; counters are read back from every
-replica through stale reads.
+replica through stale reads.  Arithmetic writes are the JAX bench's
+(``arithmetic_message``); the harness keeps every acknowledged write's
+``(log index, message)``, and ``check_variables()`` holds every replica's
+variable map to the fold of those writes in log order.
 
     cluster = Cluster(num_groups=1024, device="cuda", transport="tcp")
     cluster.prewarm()             # optional: start() prewarms otherwise
@@ -25,17 +35,30 @@ replica through stale reads.
     stats = await cluster.write_all(writes_per_group=4)
     counters = await cluster.read_counters()
     await cluster.close()
+
+    cluster = Cluster(16, device="cpu", transport="tcp", sm="arithmetic",
+                      properties=cluster_properties(16, 3, "cpu", "tcp",
+                                                    storage_dir=tmp))
+    await cluster.start()
+    await cluster.write_all(4)
+    await cluster.check_variables()
+    await cluster.restart()       # recovery from disk, same addresses
+    await cluster.check_variables()
+    await cluster.close()
 """
 
 from __future__ import annotations
 
 import asyncio
+import os
 import time
 
 from ratis_tpu_torch.client.client import RaftClient
 from ratis_tpu_torch.conf import RaftProperties, RaftServerConfigKeys
 from ratis_tpu_torch.conf.keys import WireConfigKeys
 from ratis_tpu_torch.engine.engine import QuorumEngine
+from ratis_tpu_torch.models.arithmetic import (ArithmeticStateMachine,
+                                               evaluate)
 from ratis_tpu_torch.models.counter import CounterStateMachine
 from ratis_tpu_torch.protocol.group import RaftGroup
 from ratis_tpu_torch.protocol.ids import RaftGroupId, RaftPeerId
@@ -46,16 +69,66 @@ from ratis_tpu_torch.transport.simulated import (SimulatedNetwork,
                                                  SimulatedTransportFactory)
 
 TRANSPORTS = ("sim", "tcp")
+STATE_MACHINES = {"counter": CounterStateMachine,
+                  "arithmetic": ArithmeticStateMachine}
+
+
+def arithmetic_message(k: int) -> bytes:
+    """The k-th write of the JAX bench's arithmetic workload (BASELINE
+    config 2's ``var = expression`` shape): its factory draws two values
+    of one global counter per message, ``v{a % 7}={b % 97}+1``."""
+    return f"v{2 * k % 7}={(2 * k + 1) % 97}+1".encode()
+
+
+def fold_writes(writes) -> dict:
+    """The plain reference of the arithmetic state machine: the variable
+    map that ``(log index, message)`` writes give, applied in log
+    order."""
+    variables: dict = {}
+    for _, msg in sorted(writes):
+        var, _, expression = msg.decode().partition("=")
+        variables[var.strip()] = evaluate(expression.strip(), variables)
+    return variables
+
+
+def fs_type(path: str) -> str:
+    """The filesystem type ``/proc/mounts`` gives the mount holding
+    ``path`` (on tmpfs an fsync writes nothing to a device)."""
+    path = os.path.realpath(path)
+    best, kind = "", "unknown"
+    try:
+        with open("/proc/mounts") as f:
+            for line in f:
+                parts = line.split()
+                mnt = parts[1]
+                if (path == mnt or path.startswith(mnt.rstrip("/") + "/")) \
+                        and len(mnt) >= len(best):
+                    best, kind = mnt, parts[2]
+    except OSError:
+        pass
+    return kind
+
+
+def log_fsyncs() -> int:
+    """fsyncs issued so far by the process's live log workers (per open
+    segment file with per-group logs, per shard on the shared plane)."""
+    from ratis_tpu_torch.server.log.segmented import LogWorker
+    return sum(w.sync_count for w in LogWorker._instances.values())
 
 
 def cluster_properties(num_groups: int, num_servers: int = 3,
                        device: str = "cuda", transport: str = "sim",
-                       mesh_devices: int = 0) -> RaftProperties:
+                       mesh_devices: int = 0, storage_dir: str = None,
+                       shared_log: bool = False) -> RaftProperties:
     """The batched deployment of ``num_groups`` groups on ``num_servers``
     servers: the JAX bench's ``bench_properties(batched=True, num_groups,
     num_servers=..., transport=..., mesh_devices=...)`` key for key, plus
     the port's engine device.  ``mesh_devices`` > 0 runs every engine as
-    that many slices of its group batch (``parallel/mesh.py``)."""
+    that many slices of its group batch (``parallel/mesh.py``).  With
+    ``storage_dir`` the log is the server's default durable one there
+    (``raft.server.log.use.memory=false``), per group or, with
+    ``shared_log``, the shared plane (``raft.tpu.log.shared``), as the
+    JAX bench's durable rungs set it."""
     if transport not in TRANSPORTS:
         raise ValueError(f"transport {transport!r}: one of {TRANSPORTS}")
     p = RaftProperties()
@@ -81,7 +154,10 @@ def cluster_properties(num_groups: int, num_servers: int = 3,
     p.set(RaftServerConfigKeys.Engine.DEVICE_KEY, device)
     if mesh_devices:
         p.set(RaftServerConfigKeys.Engine.MESH_DEVICES_KEY, str(mesh_devices))
-    RaftServerConfigKeys.Log.set_use_memory(p, True)
+    RaftServerConfigKeys.Log.set_use_memory(p, storage_dir is None)
+    if storage_dir is not None:
+        RaftServerConfigKeys.set_storage_dir(p, storage_dir)
+        RaftServerConfigKeys.TpuLog.set_shared(p, shared_log)
     # heap discipline: tuned collector thresholds, one seal after bring-up,
     # a steady-state re-freeze every 15s (the memory log never purges)
     p.set(RaftServerConfigKeys.Gc.DISCIPLINE_KEY, "true")
@@ -101,10 +177,14 @@ def cluster_properties(num_groups: int, num_servers: int = 3,
 class Cluster:
     def __init__(self, num_groups: int, num_servers: int = 3,
                  device: str = "cuda", properties=None,
-                 transport: str = "sim", mesh_devices: int = 0):
+                 transport: str = "sim", mesh_devices: int = 0,
+                 sm: str = "counter"):
+        if sm not in STATE_MACHINES:
+            raise ValueError(f"sm {sm!r}: one of {sorted(STATE_MACHINES)}")
         self.num_groups = num_groups
         self.device = device
         self.transport = transport
+        self.sm = sm
         self.properties = properties or cluster_properties(
             num_groups, num_servers, device, transport, mesh_devices)
         if transport == "tcp":
@@ -124,20 +204,28 @@ class Cluster:
             addresses = [f"sim:s{i}" for i in range(num_servers)]
         else:
             raise ValueError(f"transport {transport!r}: one of {TRANSPORTS}")
-        self.servers = [
-            RaftServer(RaftPeerId.value_of(f"s{i}"), a,
-                       state_machine_registry=lambda gid: CounterStateMachine(),
-                       properties=self.properties,
-                       transport_factory=self.factory)
-            for i, a in enumerate(addresses)]
+        self.servers = self._new_servers(addresses)
         # made by start(), from the addresses the servers listen on
         self.groups: list[RaftGroup] = []
         self._client_transport = None
         self._clients: dict = {}
         # group id -> log index of its last acknowledged write
         self.last_index: dict = {}
+        # group id -> [(log index, message)] of its acknowledged writes
+        self.acked_writes: dict = {}
+        # arithmetic messages drawn so far (arithmetic_message's k)
+        self._messages = 0
         self.prewarm_s = None
         self.bring_up_s = 0.0
+        self.restart_s = None
+
+    def _new_servers(self, addresses) -> list[RaftServer]:
+        sm = STATE_MACHINES[self.sm]
+        return [RaftServer(RaftPeerId.value_of(f"s{i}"), a,
+                           state_machine_registry=lambda gid: sm(),
+                           properties=self.properties,
+                           transport_factory=self.factory)
+                for i, a in enumerate(addresses)]
 
     def prewarm(self) -> None:
         """Build the kernels and launch each once (the build is process
@@ -214,29 +302,40 @@ class Cluster:
 
     async def write_all(self, writes_per_group: int,
                         concurrency: int = 256) -> dict:
-        """``writes_per_group`` sequential INCREMENTs per group, groups
-        concurrent under ``concurrency`` writes in flight.  Returns the
+        """``writes_per_group`` sequential writes per group, groups
+        concurrent under ``concurrency`` writes in flight: INCREMENTs, or
+        the arithmetic workload's messages, drawn from one counter group
+        by group within each round of writes (so every group's sequence,
+        and its variable map, is the same from run to run).  Returns the
         acknowledged count per group, commits/s and commit latency
         percentiles."""
         sem = asyncio.Semaphore(concurrency)
         latencies: list[float] = []
         acked = {g.group_id: 0 for g in self.groups}
+        base, n_groups = self._messages, len(self.groups)
+        if self.sm == "arithmetic":
+            self._messages += writes_per_group * n_groups
 
-        async def group_load(g: RaftGroup) -> None:
+        async def group_load(i: int, g: RaftGroup) -> None:
             c = self.client(g)
-            for _ in range(writes_per_group):
+            writes = self.acked_writes.setdefault(g.group_id, [])
+            for w in range(writes_per_group):
+                msg = (arithmetic_message(base + w * n_groups + i)
+                       if self.sm == "arithmetic" else b"INCREMENT")
                 async with sem:
                     t0 = time.monotonic()
-                    reply = await c.io().send(b"INCREMENT")
+                    reply = await c.io().send(msg)
                     if not reply.success:
                         raise RuntimeError(
                             f"write to {g.group_id} failed: {reply.exception}")
                     latencies.append(time.monotonic() - t0)
                     acked[g.group_id] += 1
                     self.last_index[g.group_id] = reply.log_index
+                    writes.append((reply.log_index, msg))
 
         t0 = time.monotonic()
-        await asyncio.gather(*(group_load(g) for g in self.groups))
+        await asyncio.gather(*(group_load(i, g)
+                               for i, g in enumerate(self.groups)))
         elapsed = time.monotonic() - t0
         latencies.sort()
         n = len(latencies)
@@ -275,8 +374,73 @@ class Cluster:
                 out[g.group_id] = list(vals[j * k:(j + 1) * k])
         return out
 
-    async def close(self) -> None:
+    async def check_variables(self, timeout: float = 60.0) -> int:
+        """Hold every replica's variable map to the plain reference: once
+        each replica has applied its group up to the last acknowledged
+        write, its ``ArithmeticStateMachine.variables`` must equal the fold
+        of the group's acknowledged writes in log order.  An acknowledged
+        write that is missing fails.  Returns the replicas checked."""
+        if self.sm != "arithmetic":
+            raise ValueError("check_variables needs sm='arithmetic'")
+        deadline = time.monotonic() + timeout
+        checked = 0
+        for g in self.groups:
+            want = fold_writes(self.acked_writes.get(g.group_id, ()))
+            last = self.last_index.get(g.group_id, -1)
+            for s in self.servers:
+                d = s.divisions.get(g.group_id)
+                if d is None:
+                    raise AssertionError(f"{s.peer_id} does not host "
+                                         f"{g.group_id}")
+                sm = d.state_machine
+                while sm.get_last_applied_term_index().index < last:
+                    if time.monotonic() > deadline:
+                        raise TimeoutError(
+                            f"{s.peer_id} applied {g.group_id} only up to "
+                            f"{sm.get_last_applied_term_index().index} of "
+                            f"{last}")
+                    await asyncio.sleep(0.02)
+                if sm.variables != want:
+                    raise AssertionError(
+                        f"{s.peer_id} {g.group_id}: variables "
+                        f"{sm.variables} != the fold of its acknowledged "
+                        f"writes {want}")
+                checked += 1
+        return checked
+
+    async def restart(self, timeout: float = 120.0) -> None:
+        """Close every server, then build and start new ones on the same
+        storage and the same addresses (a TCP server rebinds the port it
+        had: the recovered confs name it) and wait for a ready leader in
+        every group.  The groups come back from the servers' boot scan of
+        their storage, not from the harness; ``restart_s`` is the time
+        from the new servers' start to every group having a leader."""
+        if RaftServerConfigKeys.Log.use_memory(self.properties):
+            raise ValueError("restart needs durable storage (a storage "
+                             "dir in cluster_properties)")
+        addresses = [s.transport.address for s in self.servers]
+        await self._close_clients()
+        await asyncio.gather(*(s.close() for s in self.servers))
+        # the kernels stay built and loaded in the process: no prewarm
+        self.servers = self._new_servers(addresses)
+        t0 = time.monotonic()
+        await asyncio.gather(*(s.start() for s in self.servers))
+        want = {g.group_id for g in self.groups}
+        for s in self.servers:
+            if set(s.divisions) != want:
+                raise AssertionError(
+                    f"{s.peer_id} recovered {len(s.divisions)} of "
+                    f"{len(want)} groups from its storage")
+        await self.wait_leaders(self.groups, timeout)
+        self.restart_s = time.monotonic() - t0
+
+    async def _close_clients(self) -> None:
         if self._client_transport is not None:
             await self._client_transport.close()
+        self._client_transport = None
+        self._clients = {}
+
+    async def close(self) -> None:
+        await self._close_clients()
         await asyncio.gather(*(s.close() for s in self.servers),
                              return_exceptions=True)

@@ -31,20 +31,22 @@ VERBATIM = (
     "engine/__init__.py", "engine/roles.py", "engine/state.py",
     "metrics/__init__.py", "metrics/hops.py", "metrics/registry.py",
     "metrics/server_metrics.py",
-    "models/__init__.py", "models/counter.py",
+    "models/__init__.py", "models/arithmetic.py", "models/counter.py",
     "ops/__init__.py", "ops/reference.py", "ops/upkeep.py",
     "protocol/__init__.py", "protocol/admin.py", "protocol/exceptions.py",
     "protocol/group.py", "protocol/ids.py", "protocol/logentry.py",
     "protocol/message.py", "protocol/peer.py", "protocol/raftrpc.py",
     "protocol/requests.py", "protocol/routing.py", "protocol/termindex.py",
     "retry/__init__.py", "retry/policies.py",
-    "server/__init__.py", "server/config.py", "server/datastream.py",
+    "server/__init__.py", "server/admin.py", "server/config.py",
+    "server/datastream.py",
     "server/division.py", "server/election.py", "server/leader.py",
     "server/messagestream.py", "server/pause_monitor.py", "server/read.py",
     "server/replication.py", "server/retrycache.py", "server/snapshot.py",
-    "server/state.py", "server/statemachine.py", "server/watch.py",
-    "server/watchdog.py",
+    "server/state.py", "server/statemachine.py", "server/storage.py",
+    "server/watch.py", "server/watchdog.py",
     "server/log/__init__.py", "server/log/base.py", "server/log/memory.py",
+    "server/log/segmented.py", "server/log/shared.py",
     "server/serving/__init__.py", "server/serving/admission.py",
     "server/serving/readbatch.py",
     "trace/__init__.py", "trace/tracer.py",

@@ -157,6 +157,51 @@ def test_ledger_kernel_matches_plain(card, big_cell):
     assert torch.equal(got, tl._ledger_plain(*dev, *scalars, 8))
 
 
+@pytest.mark.parametrize("p", [3, 5, 7, 8, 16])
+@pytest.mark.parametrize("g", [1024, 102400])
+def test_vote_events_kernel_matches_plain(card, g, p):
+    args = _cuda(cases.vote_events(np.random.default_rng(g + p), g, p,
+                                   g // 4))
+    before = [t.clone() for t in args]
+    n = tq.K7a.launches
+    got = tq.apply_vote_events(*args)
+    assert tq.K7a.launches == n + 1
+    want = tq._apply_vote_events_plain(*args)
+    for x, y in zip(got, want):
+        assert torch.equal(x, y)
+    for x, y in zip(args, before):  # functional: no input written
+        assert torch.equal(x, y)
+
+
+@pytest.mark.parametrize("g,p", [(4, 3), (2, 3), (16, 8), (8, 16)])
+def test_vote_event_edges_kernel_matches_plain(card, g, p):
+    args = _cuda(cases.vote_event_edges(g, p))
+    got = tq.apply_vote_events(*args)
+    want = tq._apply_vote_events_plain(*args)
+    for x, y in zip(got, want):
+        assert torch.equal(x, y)
+
+
+@pytest.mark.parametrize("p", [3, 5, 7, 8, 16])
+@pytest.mark.parametrize("g", [1024, 102400])
+def test_replicated_min_kernel_matches_plain(card, g, p):
+    args = _cuda(cases.replicated_inputs(np.random.default_rng(g + p), g, p))
+    n = tq.K7b.launches
+    got = tq.all_replicated_min(*args)
+    assert tq.K7b.launches == n + 1
+    assert torch.equal(got, tq._all_replicated_min_plain(*args))
+
+
+@pytest.mark.parametrize("timeout", cases.LEASE_TIMEOUTS)
+@pytest.mark.parametrize("p", [3, 5, 7, 8, 16])
+def test_lease_kernel_matches_plain(card, p, timeout):
+    args = _cuda(cases.lease_inputs(np.random.default_rng(p), 1024, p))
+    n = tq.K7c.launches
+    got = tq.lease_expiry(*args, timeout)
+    assert tq.K7c.launches == n + 1
+    assert torch.equal(got, tq._lease_expiry_plain(*args, timeout))
+
+
 @pytest.mark.parametrize("transport", ["sim", "tcp"])
 def test_cluster_runs_on_the_card(card, transport):
     from ratis_tpu_torch.tools.cluster import Cluster
@@ -168,6 +213,31 @@ def test_cluster_runs_on_the_card(card, transport):
             await cluster.write_all(3)
             read = await cluster.read_counters(timeout=60)
             assert all(v == [3, 3, 3] for v in read.values())
+            for s in cluster.servers:
+                assert s.engine._dev.match_index.is_cuda
+        finally:
+            await cluster.close()
+    asyncio.run(run())
+
+
+@pytest.mark.parametrize("shared", [False, True])
+def test_durable_cluster_restarts_on_the_card(card, tmp_path, shared):
+    """3 x 32 over TCP on the default durable log (per group, or the
+    shared plane), ArithmeticStateMachine: every map equal to the fold of
+    the acknowledged writes before and after a full restart from disk."""
+    from ratis_tpu_torch.tools.cluster import Cluster, cluster_properties
+
+    async def run():
+        cluster = Cluster(32, device="cuda", transport="tcp",
+                          sm="arithmetic", properties=cluster_properties(
+                              32, 3, "cuda", "tcp", storage_dir=str(tmp_path),
+                              shared_log=shared))
+        try:
+            await cluster.start(timeout=60)
+            await cluster.write_all(3)
+            assert await cluster.check_variables(60) == 96
+            await cluster.restart(60)
+            assert await cluster.check_variables(60) == 96
             for s in cluster.servers:
                 assert s.engine._dev.match_index.is_cuda
         finally:
