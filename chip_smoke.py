@@ -15,10 +15,16 @@ result line:
    on the bench's own batches at its three shapes, its inputs unchanged;
    K5 at 1, 2 and 8 slices with rows past and before the slice and padding
    columns, equal to K1 at one slice, and on the mesh100k rung's batch
-   (also equal to K1 on the same acks unrouted); K7a-c (the vote-reply
-   scatter, the all-members replicated index, the lease expiry) at G =
-   1024 and 102400 with P = 8 and at P = 3, 5, 7 and 16, with the edge
-   cases of ``cases.vote_event_edges`` and the wrapping lease timeouts;
+   (also equal to K1 on the same acks unrouted); the redesigned K2 (one
+   launch) at 3, 5, 8 and 16 peers, G = 1 to 102400, every tile size,
+   each case also through the engine's prepared call, and K3 (the row
+   entry the engine runs) on gathered rows at every peer count, padded to
+   the engine's bucket with stale rows, through the prepared call and on
+   the packed tensors; K3's public [G, P] entry (``K3_public``); K7a-c
+   (the vote-reply scatter, the all-members replicated index, the lease
+   expiry) at G = 1024 and 102400 with P = 8 and at P = 3, 5, 7 and 16,
+   with the edge cases of ``cases.vote_event_edges`` and the wrapping
+   lease timeouts;
    the bar is exact equality;
 4. the main paths, each with its kernels' launch counts zeroed just
    before and read just after (each must be > 0; K5 must stay 0 on the
@@ -57,15 +63,33 @@ result line:
       configuration (K1-K4 > 0, K5 0, and K1/K2 launched while the
       calling engine led a row with a non-empty ``conf_old`` more than 0
       times);
-5. kernel parity again at every shape the main paths gave K1-K5, then
-   timing: K1-K5 at their most common shape (K5 also at the mesh100k
-   rung's), K6 at both rung shapes;
-   CUDA events, warm-up, median of 60 calls (K1/K2/K5 each on the same
-   fresh state), beside the plain version's time and the card's bound for
-   the same work, and each one's device time per call from
-   ``torch.profiler``; K7a-c at G = 1024, P = 8 (K7a with 2048 events;
-   no path calls K7: every path's run checks that it launched 0 times,
-   so phases 3 and 5 make all of its launches);
+   Before the paths, one K2 call captured in a CUDA graph, which must
+   hold exactly one node, the kernel ``refresh_tick``;
+5. kernel parity again at every shape the main paths gave K1-K5 (K3 at
+   every padded row count of the vote passes); the
+   engine's own routes on one card engine of 1024 rows, host clock,
+   median of 200: the refresh dispatch (K2's prepared call, D = E = 64),
+   the fast dispatch (K1) as the control, the vote pass at R = 1, 64,
+   1024 open rounds and its tally alone (K3's prepared call) beside the
+   earlier tally of all G rows; one refresh tick and one vote pass must
+   each make exactly one call into the kernel library, and the refresh
+   tick one kernel launch; then timing: K1-K5 at their most common shape
+   (K3 at the vote passes' most common padded R, ``K3_public`` at G; K5
+   also at the mesh100k rung's), K6 at both rung shapes; CUDA events, warm-up,
+   median of 200 calls (K1/K2/K5 each on the same fresh state), beside
+   the plain version's time and the card's bound for the same work, each
+   one's device time per call from ``torch.profiler`` (on the card hosts
+   the profiler sometimes drops the records of kernels launched from the
+   kernel libraries, so these may read low or be missing) and from 20
+   calls captured in a CUDA graph and replayed between CUDA events, and
+   its host time per call issued back to back; K7a-c at G = 1024, P = 8
+   (K7a with 2048 events; no path calls K7 or ``K3_public``: every path's
+   run checks that they launched 0 times, so phases 3 and 5 make all of
+   their launches); K2 also with each
+   tile size at G = 1024, 10240, 102400 and (D, E) = (64, 64), (1024,
+   16384); K1 and K2 once more, each call after the state restore, a
+   synchronisation and a 1 ms idle gap, event ms beside the call's host
+   ms;
 6. one JSON line of kernels, then the result line
    ``{"ok": true, "device": {...}}`` last.
 
@@ -111,6 +135,9 @@ KERNELS = (
      "ratis_tpu/ops/quorum.py:325"),
     ("tally_votes", "K3", "ratis_tpu_torch/ops/kernels/tally_votes.cu",
      "ratis_tpu/ops/quorum.py:144"),
+    ("tally_votes_public", "K3_public",
+     "ratis_tpu_torch/ops/kernels/tally_votes.cu",
+     "ratis_tpu/ops/quorum.py:144"),
     ("ledger_pass", "K4", "ratis_tpu_torch/ops/kernels/ledger_pass.cu",
      "ratis_tpu/ops/ledger.py:68"),
     ("engine_step_resident_fast_sliced", "K5",
@@ -126,10 +153,22 @@ KERNELS = (
     ("lease_expiry", "K7c", "ratis_tpu_torch/ops/kernels/vote_lease.cu",
      "ratis_tpu/ops/quorum.py:208"),
 )
-# K7: no path of the server calls them (none of the JAX package does)
+# kernels no path of the server launches: K7 (none of the JAX package's
+# paths calls it) and K3's public [G, P] entry (the engine's vote pass
+# runs K3's row entry); every path checks that they launched 0 times
 K7 = ("K7a", "K7b", "K7c")
+OFF_PATH = ("K3_public", *K7)
 K7_PEERS = (3, 5, 7, 16)
 K7_VOTE_EDGES = ((4, 3), (2, 3), (16, 8), (8, 16), (1024, 8))
+# the redesigned K2 (one launch per tick) and K3 (gathered rows): peers
+# and tile sizes held against the plain versions
+K2_PEERS = (3, 5, 8, 16)
+K2_TILES = (32, 128)
+REDESIGNED = {
+    "K2": "redesigned: one launch per tick (row tiles in shared memory); the "
+          "engine's refresh tick is one prepared call",
+    "K3": "redesigned: the engine's vote pass tallies only the open rounds' "
+          "rows, packed as bit words, in one prepared call"}
 # the durable paths: 3 x 1024 per-group logs, 3 x 256 on the shared plane,
 # 1 warm-up + 8 measured writes per group; the churn path: 3 x 1024
 DURABLE_GROUPS = 1024
@@ -182,17 +221,26 @@ def parity_k1(tq, cases, g, p, e, seed, negative=False):
     return max_abs_err([k.out, *a], [want, *b])
 
 
-def parity_k2(tq, cases, g, p, d, e, seed, negative=False):
+def parity_k2(tq, cases, g, p, d, e, seed, negative=False, plan=False):
+    """K2's public wrapper (one launch) against its plain version; with
+    ``plan``, also the engine's prepared call on the same tick packed into
+    a plan's buffer, against the wrapper."""
     rng = np.random.default_rng(seed)
     st = cases.resident_state(rng, g, p, NOW)
-    rf_idx, rf, acks = cases.refresh(rng, g, p, d, e, NOW, negative)
-    rf_idx, *rf = cuda([rf_idx, *rf])
-    acks = cuda(acks)
+    rf_idx_np, rf_np, acks_np = cases.refresh(rng, g, p, d, e, NOW, negative)
+    rf_idx, *rf = cuda([rf_idx_np, *rf_np])
+    acks = cuda(acks_np)
     a = tq.device_state_from_numpy(st, "cuda")
     b = tq.device_state_from_numpy(st, "cuda")
     k = tq.engine_step_resident(a, rf_idx, *rf, *acks, NOW, TIMEOUT_MS)
     want = tq._resident_refresh_plain(b, rf_idx, rf, acks, NOW, TIMEOUT_MS)
-    return max_abs_err([torch.stack(k[1:]), *a], [want, *b])
+    err = max_abs_err([torch.stack(k[1:]), *a], [want, *b])
+    if plan:
+        c = tq.device_state_from_numpy(st, "cuda")
+        pl = cases.refresh_plan(c, rf_idx_np, rf_np, acks_np)
+        out = torch.from_numpy(pl.run(d, e, NOW, TIMEOUT_MS).copy()).cuda()
+        err = max(err, max_abs_err([out, *c], [torch.stack(k[1:]), *a]))
+    return err
 
 
 def parity_k5(tq, cases, g, p, s, e, seed, negative=False):
@@ -245,6 +293,23 @@ def parity_k3(tq, cases, g, p, seed):
     args = cuda(cases.tally_inputs(np.random.default_rng(seed), g, p))
     return max_abs_err([tq.tally_votes_packed(*args)],
                        [tq._tally_plain(*args)])
+
+
+def parity_k3_rows(tq, cases, g, p, r, cap, seed):
+    """K3 (the row entry) on ``r`` gathered rows packed as the engine's
+    vote pass packs them, padded to ``cap`` rows with stale rows: through
+    the engine's prepared call and launched on the packed tensors, each
+    against the plain tally of the same ``cap`` rows."""
+    rng = np.random.default_rng(seed)
+    arrays = cases.tally_inputs(rng, g, p)
+    rows = np.sort(rng.permutation(g)[:r])
+    plan = cases.tally_plan(arrays, rows, "cuda", cap)
+    got = torch.from_numpy(plan.run(cap).copy()).cuda()
+    v = plan.views(cap)
+    k = tq.tally_rows(*cuda([v.masks, v.priority, v.self_priority]))
+    full = cases.padded_rows(rows, cap, g)
+    want = tq._tally_plain(*cuda([a[full] for a in arrays]))
+    return max_abs_err([got, k], [want, want])
 
 
 def parity_k4(tl, cases, g, p, width, seed, big_cell=False):
@@ -333,7 +398,9 @@ def run_parity(tq, tl, cases, bench, par: Parity) -> None:
                 par.add("K2", parity_k2(tq, cases, g, P, d, e, seed))
             par.add("K2", parity_k2(tq, cases, g, P, d, e, 2, negative=True))
         for seed in (0, 1, 2):
-            par.add("K3", parity_k3(tq, cases, g, P, seed))
+            par.add("K3_public", parity_k3(tq, cases, g, P, seed))
+    run_parity_redesigned(tq, cases, par)
+    for g in (1024, 10240):
         for width in (8, 16):
             for seed in (0, 1):
                 par.add("K4", parity_k4(tl, cases, g, P, width, seed))
@@ -354,9 +421,39 @@ def run_parity(tq, tl, cases, bench, par: Parity) -> None:
     par.check("fixed shapes")
 
 
+def run_parity_redesigned(tq, cases, par) -> None:
+    """The redesigned K2 and K3: K2 at P = 3, 5, 8, 16, G = 1,
+    100, 1024, 10240 (G not a multiple of the tile), D and E from 64 to
+    16384, negative and padding indices, each case also through the
+    engine's prepared call; every tile size; K2 at G = 102400; K3's row
+    entry at R = 1, 64, 1024 for every P, padded to the engine's bucket
+    with stale rows."""
+    for p in K2_PEERS:
+        for g in (1, 100, 1024, 10240):
+            for d, e in ((64, 64), (1024, 16384), (16384, 1024)):
+                for negative in (False, True):
+                    par.add("K2", parity_k2(tq, cases, g, p, d, e,
+                                            p + g + d + negative, negative,
+                                            plan=True))
+        for r, cap in ((1, 64), (64, 64), (100, 256), (1024, 1024)):
+            par.add("K3", parity_k3_rows(tq, cases, 2048, p, r, cap, p + r))
+    tile = tq.refresh_tile
+    try:
+        for t in K2_TILES:
+            tq.refresh_tile = lambda g, t=t: t
+            for g in (100, 1024, 10240):
+                par.add("K2", parity_k2(tq, cases, g, P, 1024, 1024, g, True,
+                                        plan=True))
+    finally:
+        tq.refresh_tile = tile
+    par.add("K2", parity_k2(tq, cases, 102_400, P, 1024, 16384, 5, True))
+
+
 def run_parity_observed(tq, tl, cases, main, shapes, par: Parity,
                         what: str) -> None:
-    """Every shape a main path gave a kernel, after the main path."""
+    """Every shape a main path gave a kernel, after the main path (K3: at
+    every padded row count R the vote passes ran, with a quarter and all
+    of the rows real, the rest stale padding)."""
     g, p, w = main["capacity"], main["peers"], main["ledger_width"]
     for seed in (10, 11):
         for e in shapes["K1"]:
@@ -365,7 +462,10 @@ def run_parity_observed(tq, tl, cases, main, shapes, par: Parity,
             par.add("K2", parity_k2(tq, cases, g, p, d, e, seed))
         for s, e in shapes["K5"]:
             par.add("K5", parity_k5(tq, cases, g, p, s, e, seed))
-        par.add("K3", parity_k3(tq, cases, g, p, seed))
+        for cap in shapes["K3"]:
+            for r in (max(1, cap // 4), cap):
+                par.add("K3", parity_k3_rows(tq, cases, max(g, cap), p, r,
+                                             cap, seed))
         par.add("K4", parity_k4(tl, cases, g, p, w, seed))
     par.check(f"{what} shapes")
 
@@ -413,50 +513,61 @@ async def drive(cluster, writes: int) -> dict:
 
 
 class ShapeRecorder:
-    """Records the shapes the engine hands K1, K2 and K5 while active (the
-    wrappers are swapped for counting ones and restored on exit)."""
+    """Records the shapes the engine hands K1, K2 (D, E of the refresh
+    plan's runs), K3 (the rows R of the tally plan's runs, padding
+    included) and K5 while active (the wrappers are swapped for counting
+    ones and restored on exit)."""
 
     def __init__(self, tq):
         self.tq = tq
         self.shapes = {"K1": collections.Counter(),
                        "K2": collections.Counter(),
+                       "K3": collections.Counter(),
                        "K5": collections.Counter()}
 
     def __enter__(self):
         tq, shapes = self.tq, self.shapes
-        self.fast, self.refresh, self.sliced = (
-            tq.engine_step_resident_fast, tq.engine_step_resident,
-            tq.engine_step_resident_fast_sliced)
-        fast, refresh, sliced = self.fast, self.refresh, self.sliced
+        self.fast, self.refresh, self.tally, self.sliced = (
+            tq.engine_step_resident_fast, tq.RefreshPlan.run,
+            tq.TallyPlan.run, tq.engine_step_resident_fast_sliced)
+        fast, refresh, tally, sliced = (self.fast, self.refresh, self.tally,
+                                        self.sliced)
 
         def rec_fast(state, ev, meta):
             shapes["K1"][ev.shape[1]] += 1
             return fast(state, ev, meta)
 
-        def rec_refresh(state, rf_idx, *rest):
-            shapes["K2"][(rf_idx.shape[0], rest[10].shape[0])] += 1
-            return refresh(state, rf_idx, *rest)
+        def rec_refresh(plan, d, e, *rest):
+            shapes["K2"][(d, e)] += 1
+            return refresh(plan, d, e, *rest)
+
+        def rec_tally(plan, r):
+            shapes["K3"][r] += 1
+            return tally(plan, r)
 
         def rec_sliced(state, ev, meta):
             shapes["K5"][(ev.shape[1], ev.shape[2])] += 1
             return sliced(state, ev, meta)
 
         tq.engine_step_resident_fast = rec_fast
-        tq.engine_step_resident = rec_refresh
+        tq.RefreshPlan.run = rec_refresh
+        tq.TallyPlan.run = rec_tally
         tq.engine_step_resident_fast_sliced = rec_sliced
         return self
 
     def __exit__(self, *exc):
         self.tq.engine_step_resident_fast = self.fast
-        self.tq.engine_step_resident = self.refresh
+        self.tq.RefreshPlan.run = self.refresh
+        self.tq.TallyPlan.run = self.tally
         self.tq.engine_step_resident_fast_sliced = self.sliced
 
 
 def counted(kernels: dict, keys, drive, never=()):
-    """Zero the launch counts of ``keys``, ``never`` and K7 just before
-    ``drive()``, read them just after; every one of ``keys`` must be > 0,
-    every one of ``never`` and of K7 (no path calls it) 0."""
-    never = (*never, *K7)
+    """Zero the launch counts of ``keys``, ``never`` and OFF_PATH just
+    before ``drive()``, read them just after; every one of ``keys`` must
+    be > 0, every one of ``never`` and of OFF_PATH (no path launches
+    them) 0."""
+    never = (*never, *OFF_PATH)
     for k in (*keys, *never):
         kernels[k].launches = 0
     res = drive()
@@ -469,6 +580,241 @@ def counted(kernels: dict, keys, drive, never=()):
             raise AssertionError(f"{k} launched {launches[k]} times on a "
                                  f"path that must not take it")
     return res, launches
+
+
+# -- phase 5: the engine's routes ------------------------------------------
+
+ROUTE_GROUPS = 1024
+ROUTE_ROWS = 64     # dirty rows and acks of a timed refresh / fast tick
+ROUTE_ROUNDS = (1, 64, 1024)
+
+
+class _Listener:
+    async def on_commit_advance(self, c):
+        pass
+
+    async def on_election_timeout(self):
+        pass
+
+    async def on_leadership_stale(self):
+        pass
+
+
+def route_engine(tq):
+    """A card engine of ``ROUTE_GROUPS`` leader rows (3 of 8 peers), built
+    and prewarmed as a server builds one, its state uploaded."""
+    from ratis_tpu_torch.engine.engine import QuorumEngine
+    from ratis_tpu_torch.engine.state import ROLE_LEADER
+    eng = QuorumEngine(max_groups=ROUTE_GROUPS, max_peers=P,
+                       scalar_fallback_threshold=0, use_device=True,
+                       device="cuda")
+    cur = np.arange(P) < 3
+    for _ in range(ROUTE_GROUPS):
+        slot = eng.attach(_Listener())
+        eng.state.set_conf(slot, 0, cur, np.zeros(P, bool),
+                           np.zeros(P, np.int32), 0)
+        eng.state.role[slot] = ROLE_LEADER
+    eng.prewarm()
+    eng._tick_batched([], eng.clock.now_ms())  # the full upload
+    return eng
+
+
+def timed_host(fn, setup=None, n: int = 200, warm: int = 10) -> float:
+    """Median host wall ms of ``fn`` (each call ends synchronised: the
+    engine's routes wait for their results); ``setup`` runs before each
+    call, outside the clock."""
+    times = []
+    for i in range(warm + n):
+        if setup:
+            setup()
+        t0 = time.perf_counter()
+        fn()
+        t1 = time.perf_counter()
+        if i >= warm:
+            times.append((t1 - t0) * 1e3)
+    return statistics.median(times)
+
+
+class CallCounter:
+    """Counts the calls into one C function of a plan (its ``_tick``)."""
+
+    def __init__(self, plan):
+        self.plan, self.fn, self.calls = plan, plan._tick, 0
+
+    def __enter__(self):
+        def counting(*a):
+            self.calls += 1
+            return self.fn(*a)
+        self.plan._tick = counting
+        return self
+
+    def __exit__(self, *exc):
+        self.plan._tick = self.fn
+
+
+def run_route_timing(tq, log_card) -> dict:
+    """Host time of the engine's own routes on one card engine: the
+    refresh dispatch (K2's prepared call: pack, one C call, the changed
+    list) at D = E = ROUTE_ROWS, the fast dispatch (K1, the flat route:
+    pack, upload, launch, download) as the same-run control, the vote pass
+    at R = 1, 64, 1024 open rounds (the whole pass, and its tally alone:
+    K3's prepared call on the open rounds' rows) beside the earlier tally
+    (all G rows of six mirrors uploaded, the public K3, the download).
+    Checks
+    that one refresh tick and one vote pass each make exactly ONE call
+    into the kernel library (and launch K2 / K3 once).  The refresh
+    tick's device operations come from a profiler trace, reported and
+    failed only on a trace that shows another kernel (on the card hosts
+    a trace sometimes records nothing); the tick synchronises, so it
+    cannot be captured in a graph, but its kernel comes from the C
+    launcher of the wrapper's, which phase 3 holds to one kernel in a
+    graph."""
+    from ratis_tpu_torch.tools.profile_main_path import device_ops, is_copy
+    eng = route_engine(tq)
+    s = eng.state
+    rng = np.random.default_rng(17)
+    now = eng.clock.now_ms()
+    rows = [int(r) for r in rng.permutation(ROUTE_GROUPS)[:ROUTE_ROWS]]
+    acks = [(int(g), int(rng.integers(0, 3)), int(rng.integers(0, 99)), now)
+            for g in rng.integers(0, ROUTE_GROUPS, size=ROUTE_ROWS)]
+
+    def dirty():
+        s.dirty.update(rows)
+
+    def refresh():
+        eng._tick_batched_pass(acks, now)
+
+    out = {}
+    plan = eng._refresh_plan
+    n1, n2 = tq.K1.launches, tq.K2.launches
+    dirty()
+    with CallCounter(plan) as calls:
+        refresh()
+    if calls.calls != 1 or tq.K2.launches != n2 + 1 \
+            or tq.K1.launches != n1:
+        raise AssertionError(f"refresh tick: {calls.calls} calls into the "
+                             f"library, K2 +{tq.K2.launches - n2}, K1 "
+                             f"+{tq.K1.launches - n1}")
+    ops = device_ops(lambda: (dirty(), refresh()))
+    kernels = [op for op in ops if not is_copy(op)]
+    if ops and (len(kernels) != 1 or "refresh_tick" not in kernels[0]):
+        raise AssertionError(f"refresh tick put {ops} on the card")
+    out["refresh_dispatch"] = {
+        "ms": timed_host(refresh, dirty), "rows": ROUTE_ROWS,
+        "acks": ROUTE_ROWS, "library_calls": calls.calls,
+        "device_ops": ops or None}
+    out["refresh_plan_run"] = {"ms": timed_host(
+        lambda: plan.run(64, 64, now, eng.leadership_timeout_ms))}
+    n1 = tq.K1.launches
+    out["fast_dispatch"] = {"ms": timed_host(
+        lambda: eng._tick_batched_pass(acks, now)), "acks": ROUTE_ROWS,
+        "device_ops": device_ops(lambda: eng._tick_batched_pass(acks, now))}
+    if tq.K1.launches == n1:
+        raise AssertionError("the fast dispatch did not launch K1")
+
+    async def votes():
+        for r in ROUTE_ROUNDS:
+            # only the self grant of 3 members: every round stays open
+            for slot in range(r):
+                eng.begin_vote_round(slot, now + 10 ** 6)
+            n3 = tq.K3.launches
+            with CallCounter(eng._tally_plan) as calls:
+                if eng._vote_pass(now):
+                    raise AssertionError("a timed vote round resolved")
+            if calls.calls != 1 or tq.K3.launches != n3 + 1:
+                raise AssertionError(f"vote pass: {calls.calls} calls into "
+                                     f"the library, K3 "
+                                     f"+{tq.K3.launches - n3}")
+            slots = np.fromiter(eng._vote_rounds, np.int64, r)
+            out[f"vote_pass_R{r}"] = {
+                "ms": timed_host(lambda: eng._vote_pass(now)), "rounds": r,
+                "library_calls": calls.calls}
+            out[f"vote_tally_R{r}"] = {"ms": timed_host(
+                lambda: eng._tally_rounds(slots)), "rounds": r}
+            out[f"vote_all_rows_tally_R{r}"] = {"ms": timed_host(
+                lambda: tq.tally_votes_packed(*tq.upload(
+                    (s.vote_grants, s.vote_rejects, s.conf_cur, s.conf_old,
+                     s.priority, s.self_priority), "cuda")).cpu().numpy())}
+            for slot in range(r):
+                eng.end_vote_round(slot)
+    asyncio.run(votes())
+    for k, v in out.items():
+        log(f"route: {log_card} | {k}: host {v['ms']:.4f} ms (median)")
+    return out
+
+
+IDLE_GAP_S = 0.001
+
+
+def k1_k2_split(tq, cases, main, n: int = 200) -> dict:
+    """K1's and K2's wrappers at the main shape (E = D = 64), each call
+    after the same state restore as ``timed``'s, a synchronisation and
+    an idle gap of ``IDLE_GAP_S``, so the restore's copies are over and
+    the card idles when the call starts: the median CUDA-event ms of the
+    call (the events bracket the wrapper's host work too, since the
+    stream waits for its launch) and the median host ms of the call, in
+    the same loop.  Where the event ms follows the host ms, the wrapper's
+    host work bounds the timed call, not the restore or the kernel."""
+    g, p = main["capacity"], main["peers"]
+    rng = np.random.default_rng(31)
+    st = cases.resident_state(rng, g, p, NOW)
+    ev, meta = cuda([cases.fast_events(rng, g, p, 64, NOW),
+                     np.array([NOW, TIMEOUT_MS], np.int32)])
+    rf_idx, rf, acks = cases.refresh(rng, g, p, 64, 64, NOW)
+    rf_idx, *rf = cuda([rf_idx, *rf])
+    acks = cuda(acks)
+    fresh = tq.device_state_from_numpy(st, "cuda")
+    a = tq.device_state_from_numpy(st, "cuda")
+    calls = {"K1": lambda: tq.engine_step_resident_fast(a, ev, meta),
+             "K2": lambda: tq.engine_step_resident(a, rf_idx, *rf, *acks,
+                                                   NOW, TIMEOUT_MS)}
+    out = {}
+    for key, fn in calls.items():
+        ev_ms, host_ms = [], []
+        for i in range(n + 5):
+            for x, y in zip(a, fresh):
+                x.copy_(y)
+            torch.cuda.synchronize()
+            time.sleep(IDLE_GAP_S)
+            e0 = torch.cuda.Event(enable_timing=True)
+            e1 = torch.cuda.Event(enable_timing=True)
+            e0.record()
+            t0 = time.perf_counter()
+            fn()
+            t1 = time.perf_counter()
+            e1.record()
+            e1.synchronize()
+            if i >= 5:
+                ev_ms.append(e0.elapsed_time(e1))
+                host_ms.append((t1 - t0) * 1e3)
+        out[key] = {"event_ms": statistics.median(ev_ms),
+                    "host_ms": statistics.median(host_ms)}
+    log(f"K1/K2 after restore, sync and a {IDLE_GAP_S * 1e3:.0f} ms idle "
+        f"gap: " + "; ".join(f"{k} event {v['event_ms']:.4f} ms, host "
+                             f"{v['host_ms']:.4f} ms" for k, v in out.items()))
+    return out
+
+
+def k2_one_launch(tq, cases) -> list[str]:
+    """One K2 public-wrapper call at the main shape, captured in a CUDA
+    graph: the graph must hold exactly one node, the kernel
+    ``refresh_tick`` (the earlier design put three kernels).  Returns the
+    nodes' first lines."""
+    from ratis_tpu_torch.tools.profile_main_path import (graph_nodes,
+                                                         is_kernel_node)
+    rng = np.random.default_rng(23)
+    st = cases.resident_state(rng, ROUTE_GROUPS, P, NOW)
+    rf_idx, rf, acks = cases.refresh(rng, ROUTE_GROUPS, P, 64, 64, NOW)
+    rf_idx, *rf = cuda([rf_idx, *rf])
+    acks = cuda(acks)
+    a = tq.device_state_from_numpy(st, "cuda")
+    nodes = graph_nodes(lambda: tq.engine_step_resident(
+        a, rf_idx, *rf, *acks, NOW, TIMEOUT_MS))
+    if len(nodes) != 1 or not is_kernel_node(nodes[0]) \
+            or "refresh_tick" not in nodes[0]:
+        raise AssertionError(f"one K2 call put {len(nodes)} graph nodes on "
+                             f"the card: {nodes}")
+    return [" ".join(n.split())[:160] for n in nodes]
 
 
 def run_main_path(tq, kernels, groups: int, writes: int, rec):
@@ -546,7 +892,7 @@ def run_tcp_path(kernels, bench, rec):
     return res, launches
 
 
-def run_durable_path(kernels, bench, groups: int, shared: bool):
+def run_durable_path(kernels, bench, groups: int, shared: bool, rec):
     """The bench's durable rung (``shared``: on the shared log plane) in a
     fresh temporary directory: 3 servers x ``groups`` groups over TCP,
     ArithmeticStateMachine, every map held to the fold before and after a
@@ -554,10 +900,12 @@ def run_durable_path(kernels, bench, groups: int, shared: bool):
     import tempfile
     with tempfile.TemporaryDirectory(prefix="ratis-smoke-durable-") as tmp:
         cluster = bench.durable_cluster("cuda", groups, tmp, shared)
-        res, launches = counted(
-            kernels, ("K1", "K2", "K3", "K4"),
-            lambda: asyncio.run(bench.durable_rung(cluster, DURABLE_WRITES)),
-            never=("K5",))
+        with rec:
+            res, launches = counted(
+                kernels, ("K1", "K2", "K3", "K4"),
+                lambda: asyncio.run(bench.durable_rung(cluster,
+                                                       DURABLE_WRITES)),
+                never=("K5",))
     want = groups * (bench.WARMUP_WRITES + DURABLE_WRITES)
     if res["acked"] != want or res["replicas_read_back"] != [groups * 3] * 2:
         raise AssertionError(f"durable path: {res['acked']} of {want} "
@@ -600,31 +948,31 @@ class JointRecorder:
     def __enter__(self):
         tq = self.tq
         self.fast, self.refresh = (tq.engine_step_resident_fast,
-                                   tq.engine_step_resident)
+                                   tq.RefreshPlan.run)
         fast, refresh = self.fast, self.refresh
 
         def rec_fast(state, *rest):
             self.joint_calls["K1"] += self._leads_joint_row(state)
             return fast(state, *rest)
 
-        def rec_refresh(state, *rest):
-            self.joint_calls["K2"] += self._leads_joint_row(state)
-            return refresh(state, *rest)
+        def rec_refresh(plan, *rest):
+            self.joint_calls["K2"] += self._leads_joint_row(plan.state)
+            return refresh(plan, *rest)
 
         tq.engine_step_resident_fast = rec_fast
-        tq.engine_step_resident = rec_refresh
+        tq.RefreshPlan.run = rec_refresh
         return self
 
     def __exit__(self, *exc):
         self.tq.engine_step_resident_fast = self.fast
-        self.tq.engine_step_resident = self.refresh
+        self.tq.RefreshPlan.run = self.refresh
 
 
-def run_churn_path(tq, kernels, bench):
+def run_churn_path(tq, kernels, bench, shapes):
     """The bench's churn rung: leadership transfers and joint-consensus
     rounds under write load, over the simulated transport."""
     cluster = bench.churn_cluster("cuda", CHURN_GROUPS)
-    with JointRecorder(tq, cluster) as rec:
+    with shapes, JointRecorder(tq, cluster) as rec:
         res, launches = counted(
             kernels, ("K1", "K2", "K3", "K4"),
             lambda: asyncio.run(bench.churn_rung(cluster, CHURN_WRITES)),
@@ -651,7 +999,7 @@ def run_churn_path(tq, kernels, bench):
 
 # -- phase 5: timing ---------------------------------------------------------
 
-def timed(fn, setup=None, n: int = 60, warm: int = 5) -> float:
+def timed(fn, setup=None, n: int = 200, warm: int = 5) -> float:
     """Median CUDA-event time of ``fn``; ``setup`` runs before each call,
     outside the events."""
     for _ in range(warm):
@@ -718,6 +1066,64 @@ def k6_bytes(g: int, p: int, e: int) -> int:
     return g * p * (8 + 3) + 17 * e + 17 * g + g * p * 8 + 7 * g
 
 
+def host_us_per_call(fn, n: int = 200, warm: int = 10) -> float:
+    """Host time per call of ``fn`` issued back to back: the wrapper's own
+    cost (checks, allocation, the call into the library); the card keeps
+    up, as every kernel here takes far less on the device."""
+    for _ in range(warm):
+        fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(n):
+        fn()
+    t1 = time.perf_counter()
+    torch.cuda.synchronize()
+    return (t1 - t0) / n * 1e6
+
+
+# host us per call of each timed wrapper, and its device us per call from
+# a CUDA graph (keys as in device_us)
+HOST_US: dict = {}
+GRAPH_US: dict = {}
+
+
+def per_call(key: str, fn):
+    """Device us per call of ``fn`` from the profiler (returned), its host
+    us per call (HOST_US[key]) and its device us per call from a CUDA
+    graph (GRAPH_US[key])."""
+    HOST_US[key] = host_us_per_call(fn)
+    GRAPH_US[key] = graph_us_per_call(fn)
+    return device_us_per_call(fn)
+
+
+def graph_us_per_call(fn, n: int = 20):
+    """Device us per call of ``fn``, without the profiler: ``n`` calls
+    captured in one CUDA graph, the graph replayed between two CUDA
+    events, so the card runs the calls back to back with the host out of
+    the loop (each call's kernels and copies plus the graph's gap between
+    its nodes, ~1 us).  None, and a log line, where a call cannot be
+    captured."""
+    try:
+        fn()
+        torch.cuda.synchronize()
+        g = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(g):
+            for _ in range(n):
+                fn()
+        g.replay()
+        torch.cuda.synchronize()
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        g.replay()
+        b.record()
+        b.synchronize()
+        return a.elapsed_time(b) * 1e3 / n
+    except RuntimeError as exc:
+        log(f"graph timing: not measured ({exc})")
+        return None
+
+
 def device_us_per_call(fn, n: int = 20):
     """Device time per call of ``fn`` (every kernel and copy the profiler
     traced, summed), or None when the trace shows no device time."""
@@ -735,6 +1141,48 @@ def device_us_per_call(fn, n: int = 20):
     return total / n if total > 0 else None
 
 
+def k2_timing(tq, cases, rng, g, p, d, e, out, key, device_us) -> None:
+    """K2's public wrapper at one shape: each input read once (the state,
+    the refresh indices and the rows that are not padding, 17 bytes per
+    ack), the state bytes it changes and the int32 [4, G] output written
+    once."""
+    st = cases.resident_state(rng, g, p, NOW)
+    rf_idx_np, rf, acks = cases.refresh(rng, g, p, d, e, NOW)
+    d_real = int((rf_idx_np < g).sum())
+    rf_idx, *rf = cuda([rf_idx_np, *rf])
+    acks = cuda(acks)
+    ms, plain, wrote = time_inplace(
+        tq, st, lambda s: tq.engine_step_resident(s, rf_idx, *rf, *acks, NOW,
+                                                  TIMEOUT_MS),
+        lambda s: tq._resident_refresh_plain(s, rf_idx, rf, acks, NOW,
+                                             TIMEOUT_MS))
+    nbytes = (state_bytes(g, p) + 4 * d + state_bytes(d_real, p) + 17 * e
+              + wrote + 16 * g)
+    out[key] = (ms, plain, *bound(nbytes, g * (4 * p * p + 64) + 10 * e
+                                  + d_real * 12 * p),
+                f"G={g} P={p} D={d} ({d_real} rows) E={e} "
+                f"tile={tq.refresh_tile(g)}")
+    a = tq.device_state_from_numpy(st, "cuda")
+    device_us[key] = per_call(key, lambda: tq.engine_step_resident(
+        a, rf_idx, *rf, *acks, NOW, TIMEOUT_MS))
+
+
+def k2_extra_timing(tq, cases, rng, p, out, device_us) -> None:
+    """K2 with each tile size at G = 1024, 10240 and 102400, at the main
+    paths' most common (D, E) = (64, 64) and at the acks' cap (E = 16384,
+    where every block scans 64 KB of ack rows)."""
+    tile = tq.refresh_tile
+    try:
+        for gx in (1024, 10_240, 102_400):
+            for d, e in ((64, 64), (1024, 16384)):
+                for t in K2_TILES:
+                    tq.refresh_tile = lambda g, t=t: t
+                    k2_timing(tq, cases, rng, gx, p, d, e, out,
+                              f"K2_G{gx}_D{d}_E{e}_tile{t}", device_us)
+    finally:
+        tq.refresh_tile = tile
+
+
 def k5_timing(tq, st, ev_np, out, key, device_us) -> None:
     """K5 on ``ev_np`` ([7, S, E]) over the state ``st``: each input read
     once (the state, the S x E event columns, meta), the state it changes
@@ -749,8 +1197,8 @@ def k5_timing(tq, st, ev_np, out, key, device_us) -> None:
     out[key] = (ms, plain, *bound(nbytes, g * (4 * p * p + 64) + 10 * s * e),
                 f"G={g} P={p} S={s} E={e}")
     a = tq.device_state_from_numpy(st, "cuda")
-    device_us[key] = device_us_per_call(
-        lambda: tq.engine_step_resident_fast_sliced(a, ev, meta))
+    device_us[key] = per_call(
+        key, lambda: tq.engine_step_resident_fast_sliced(a, ev, meta))
 
 
 def k7_timing(tq, cases, g: int, p: int, out, device_us) -> None:
@@ -780,12 +1228,14 @@ def k7_timing(tq, cases, g: int, p: int, out, device_us) -> None:
         ms = timed(kernel)
         plain_ms = timed(plain)
         out[key] = (ms, plain_ms, *bound(nbytes, ops), shape)
-        device_us[key] = device_us_per_call(kernel)
+        device_us[key] = per_call(key, kernel)
 
 
 def run_timing(tq, tl, cases, bench, main, shapes, mesh_main,
                mesh_shapes) -> dict:
-    """K1-K4 at the main paths' most common shape, K5 at the mesh path's
+    """K1-K4 at the main paths' most common shape (K3's row entry at the
+    vote passes' most common padded R; its public entry ``K3_public`` at
+    G), K5 at the mesh path's
     (key ``K5``) and on the mesh100k rung's batch (``K5_100k``), K6 at
     both kernel-rung shapes (key ``K6`` at 10240 groups, ``K6_100k`` at
     102400).  Bytes: every input read once (K2's refresh rows only where
@@ -811,8 +1261,8 @@ def run_timing(tq, tl, cases, bench, main, shapes, mesh_main,
     out["K1"] = (ms, plain, *bound(nbytes, g * (4 * p * p + 64) + 10 * e1),
                  f"G={g} P={p} E={e1}")
     a = tq.device_state_from_numpy(st, "cuda")
-    device_us["K1"] = device_us_per_call(
-        lambda: tq.engine_step_resident_fast(a, ev, meta))
+    device_us["K1"] = per_call(
+        "K1", lambda: tq.engine_step_resident_fast(a, ev, meta))
 
     # K2
     rf_idx_np, rf, acks = cases.refresh(rng, g, p, d2, e2, NOW)
@@ -830,18 +1280,34 @@ def run_timing(tq, tl, cases, bench, main, shapes, mesh_main,
                                    + d_real * 12 * p),
                  f"G={g} P={p} D={d2} ({d_real} rows) E={e2}")
     a = tq.device_state_from_numpy(st, "cuda")
-    device_us["K2"] = device_us_per_call(
-        lambda: tq.engine_step_resident(a, rf_idx, *rf, *acks, NOW,
-                                        TIMEOUT_MS))
+    device_us["K2"] = per_call("K2", lambda: tq.engine_step_resident(
+        a, rf_idx, *rf, *acks, NOW, TIMEOUT_MS))
+    k2_extra_timing(tq, cases, rng, p, out, device_us)
 
-    # K3: four bool and one int32 [G, P] inputs, int32 [G], bool [4, G] out
+    # K3, the row entry the engine runs, at the vote passes' most common
+    # padded R, packed as the engine packs it: uint16 [4, R] mask words,
+    # int32 [R, P] priority and [R] self priority in, bool [4, R] out
+    r3 = shapes["K3"].most_common(1)[0][0]
+    arrays = cases.tally_inputs(rng, max(g, r3), p)
+    rows = np.sort(rng.permutation(max(g, r3))[:max(1, r3 // 4)])
+    v = cases.tally_plan(arrays, rows, "cpu", r3).views(r3)
+    packed = cuda([v.masks, v.priority, v.self_priority])
+    ms = timed(lambda: tq.tally_rows(*packed))
+    plain = timed(lambda: tq._tally_rows_plain(*packed))
+    out["K3"] = (ms, plain, *bound(8 * r3 + 4 * r3 * p + 4 * r3 + 4 * r3,
+                                   r3 * (8 * p + 40)),
+                 f"R={r3} ({len(rows)} open rounds) P={p}")
+    device_us["K3"] = per_call("K3", lambda: tq.tally_rows(*packed))
+
+    # K3's public [G, P] entry (no path launches it): four bool and one
+    # int32 [G, P] inputs, int32 [G], bool [4, G] out
     args = cuda(cases.tally_inputs(rng, g, p))
     ms = timed(lambda: tq.tally_votes_packed(*args))
     plain = timed(lambda: tq._tally_plain(*args))
-    out["K3"] = (ms, plain, *bound(g * p * 8 + 4 * g + 4 * g,
-                                   g * (8 * p + 40)), f"G={g} P={p}")
-    device_us["K3"] = device_us_per_call(
-        lambda: tq.tally_votes_packed(*args))
+    out["K3_public"] = (ms, plain, *bound(g * p * 8 + 4 * g + 4 * g,
+                                          g * (8 * p + 40)), f"G={g} P={p}")
+    device_us["K3_public"] = per_call(
+        "K3_public", lambda: tq.tally_votes_packed(*args))
 
     # K4: role (int8), commit, applied, prev_commit (int32), prev_valid
     # (bool) per row; match, last_ack, peer_index (int32) and three bool
@@ -853,8 +1319,8 @@ def run_timing(tq, tl, cases, bench, main, shapes, mesh_main,
     nbytes = g * (1 + 3 * 4 + 1) + g * p * (3 * 4 + 3) \
         + 4 * tl.packed_size(g, w)
     out["K4"] = (ms, plain, *bound(nbytes, g * p * 45), f"G={g} P={p} W={w}")
-    device_us["K4"] = device_us_per_call(
-        lambda: tl.ledger_pass(*dev, *scalars, num_peers=w))
+    device_us["K4"] = per_call(
+        "K4", lambda: tl.ledger_pass(*dev, *scalars, num_peers=w))
 
     # K5 at the mesh path's most common (S, E) and at the rung's batch
     s5, e5 = mesh_shapes["K5"].most_common(1)[0][0]
@@ -875,12 +1341,14 @@ def run_timing(tq, tl, cases, bench, main, shapes, mesh_main,
         out[key] = (ms, plain, *bound(k6_bytes(g6, p6, e6),
                                       g6 * (4 * p6 * p6 + 64) + 10 * e6),
                     f"G={g6} P={p6} E={e6}")
-        device_us[key] = device_us_per_call(lambda: tq.engine_step(*args))
+        device_us[key] = per_call(key, lambda: tq.engine_step(*args))
 
     k7_timing(tq, cases, g, p, out, device_us)
     for k, (ms, plain, b_ms, by, shape) in out.items():
         dev = (f", device {device_us[k]:.3f} us/call" if device_us.get(k)
-               else "")
+               else ", device not measured") + (
+            f", graph {GRAPH_US[k]:.3f} us/call" if GRAPH_US.get(k)
+            else "") + f", host {HOST_US[k]:.2f} us/call"
         log(f"timing: {k} [{shape}] kernel {ms:.4f} ms, plain {plain:.4f} "
             f"ms, bound {b_ms:.6f} ms ({by}){dev}")
     return out, device_us
@@ -912,9 +1380,9 @@ def main(argv=None) -> int:
     from ratis_tpu_torch.ops import ledger as tl
     from ratis_tpu_torch.ops import quorum as tq
     from ratis_tpu_torch.tools import bench, cases
-    kernels = {"K1": tq.K1, "K2": tq.K2, "K3": tq.K3, "K4": tl.K4,
-               "K5": tq.K5, "K6": tq.K6, "K7a": tq.K7a, "K7b": tq.K7b,
-               "K7c": tq.K7c}
+    kernels = {"K1": tq.K1, "K2": tq.K2, "K3": tq.K3,
+               "K3_public": tq.K3_PUBLIC, "K4": tl.K4, "K5": tq.K5,
+               "K6": tq.K6, "K7a": tq.K7a, "K7b": tq.K7b, "K7c": tq.K7c}
 
     # 2. build
     t0 = time.monotonic()
@@ -926,18 +1394,24 @@ def main(argv=None) -> int:
             if "registers" in line or "spill" in line:
                 log(f"ptxas {s}: {line.strip()}")
 
-    # 3. parity at fixed shapes (K7's launches here and in phase 5 are its
-    # only ones: no path calls it)
+    # 3. parity at fixed shapes (the off-path kernels' launches here and
+    # in phase 5 are their only ones: every path checks they made none)
     par = Parity()
-    k7_before = {k: kernels[k].launches for k in K7}
+    off_before = {k: kernels[k].launches for k in OFF_PATH}
     run_parity(tq, tl, cases, bench, par)
-    k7_launches = {k: {"parity": kernels[k].launches - k7_before[k]}
-                   for k in K7}
+    k2_nodes = k2_one_launch(tq, cases)
+    log(f"K2: one public-wrapper call captured in a CUDA graph: "
+        f"{len(k2_nodes)} node, {k2_nodes[0]}")
+    off_launches = {k: {"parity": kernels[k].launches - off_before[k]}
+                    for k in OFF_PATH}
+    off_before = {k: kernels[k].launches for k in OFF_PATH}
 
     # 4a. the main path over the simulated transport
-    rec = ShapeRecorder(tq)
+    recs = {k: ShapeRecorder(tq) for k in ("sim", "tcp", "mesh",
+                                           "durable_1024", "shared_256",
+                                           "churn_1024")}
     main_res, sim_launches = run_main_path(tq, kernels, args.groups,
-                                           args.writes, rec)
+                                           args.writes, recs["sim"])
     log(f"main path (sim): {card} | 3 servers x {args.groups} groups | "
         f"bring-up {main_res['bring_up_s']:.3f} s | "
         f"{main_res['commits']} writes acked, all replicas read back | "
@@ -957,7 +1431,7 @@ def main(argv=None) -> int:
         f"updates/s | launches {rung_launches}")
 
     # 4c. the headline e2e rung over localhost TCP
-    tcp_res, tcp_launches = run_tcp_path(kernels, bench, rec)
+    tcp_res, tcp_launches = run_tcp_path(kernels, bench, recs["tcp"])
     log(f"main path (tcp): {card} | 3 servers x {TCP_GROUPS} groups | "
         f"bring-up {tcp_res['election_convergence_s']:.3f} s | "
         f"{tcp_res['acked']} writes acked, all replicas read back | "
@@ -966,11 +1440,12 @@ def main(argv=None) -> int:
         f"election timeouts (bring-up, warm-up, writes) "
         f"{tcp_res['election_timeouts']}")
     log(f"main path (tcp) launches: {tcp_launches}")
-    shapes = rec.shapes
+    shapes = {k: recs["sim"].shapes[k] + recs["tcp"].shapes[k]
+              for k in recs["sim"].shapes}
     log(f"K1 E {dict(shapes['K1'])}; K2 (D, E) {dict(shapes['K2'])}")
 
     # 4d. the mesh path, then dryrun_multichip and the mesh100k rung
-    rec_mesh = ShapeRecorder(tq)
+    rec_mesh = recs["mesh"]
     mesh_res, mesh_launches = run_mesh_path(kernels, rec_mesh)
     log(f"main path (mesh): {card} | 3 servers x {MESH_GROUPS} groups in "
         f"{MESH_SLICES} slices, slices per server {mesh_res['n_slices']} | "
@@ -998,7 +1473,8 @@ def main(argv=None) -> int:
     durable = {}
     for key, groups, shared in (("durable_1024", DURABLE_GROUPS, False),
                                 ("shared_256", SHARED_GROUPS, True)):
-        res, launches = run_durable_path(kernels, bench, groups, shared)
+        res, launches = run_durable_path(kernels, bench, groups, shared,
+                                         recs[key])
         durable[key] = (res, launches)
         log_kind = "shared log plane" if shared else "per-group segments"
         log(f"{key}: {card} | 3 servers x {groups} groups over TCP, "
@@ -1014,7 +1490,8 @@ def main(argv=None) -> int:
             f"election timeouts) | replicas equal to the fold before, after "
             f"restart {res['replicas_read_back']}")
         log(f"{key} launches: {launches}")
-    churn_res, churn_launches = run_churn_path(tq, kernels, bench)
+    churn_res, churn_launches = run_churn_path(tq, kernels, bench,
+                                               recs["churn_1024"])
     log(f"churn_1024: {card} | 3 servers x {CHURN_GROUPS} groups (sim) | "
         f"bring-up {churn_res['election_convergence_s']:.3f} s | transfers "
         f"ok {churn_res['transfers_ok']} failed "
@@ -1035,15 +1512,33 @@ def main(argv=None) -> int:
     run_parity_observed(tq, tl, cases, main_res, shapes, par, "main path")
     run_parity_observed(tq, tl, cases, mesh_res, rec_mesh.shapes, par,
                         "mesh path")
-    k7_before = {k: kernels[k].launches for k in K7}
+    routes = run_route_timing(tq, card)
     timing, device_us = run_timing(tq, tl, cases, bench, main_res, shapes,
                                    mesh_res, rec_mesh.shapes)
-    for k in K7:
-        k7_launches[k]["timing"] = kernels[k].launches - k7_before[k]
+    split = k1_k2_split(tq, cases, main_res)
+    for k in OFF_PATH:
+        # every path in between checked 0: these are phase 5's comparisons
+        off_launches[k]["timing"] = kernels[k].launches - off_before[k]
+    k2_shapes = {path: {str(k): n for k, n in r.shapes["K2"].items()}
+                 for path, r in recs.items()}
+    log(f"K2 (D, E) by path: {k2_shapes}")
+    k3_shapes = {path: dict(r.shapes["K3"]) for path, r in recs.items()}
+    log(f"K3 R (padded) by path: {k3_shapes}")
+    for key, control in (("K2", "K1"), ("refresh_dispatch", "fast_dispatch")):
+        a = routes[key]["ms"] if key in routes else timing[key][0]
+        b = routes[control]["ms"] if control in routes else timing[control][0]
+        log(f"{key} {a:.4f} ms vs {control} {b:.4f} ms: "
+            f"{'below' if a < b else 'NOT below'}")
+    for name, us in (("graph", GRAPH_US), ("profiler", device_us)):
+        if us.get("K2") and us.get("K1"):
+            log(f"K2 device ({name}) {us['K2']:.3f} us vs K1 "
+                f"{us['K1']:.3f} us: "
+                f"{'below' if us['K2'] < us['K1'] else 'NOT below'}")
 
     # 6. results
-    # each kernel's counts as every path's run read them (K7's are all 0,
-    # checked there); K7's comparison launches are listed beside them
+    # each kernel's counts as every path's run read them (the off-path
+    # kernels' are all 0, checked there); their comparison launches are
+    # listed beside them
     paths = {"sim": sim_launches, "kernel_rungs": rung_launches,
              "tcp": tcp_launches, "mesh": mesh_launches,
              "mesh_rungs": mesh_rung_launches,
@@ -1058,10 +1553,18 @@ def main(argv=None) -> int:
                      "replaces": replaces,
                      "launches": sum(by_path[key].values()),
                      "launches_by_path": {**by_path[key],
-                                          **k7_launches.get(key, {})},
+                                          **off_launches.get(key, {})},
                      "max_abs_err": par.errs[key], "ms": ms, "plain_ms": plain,
                      "bound_ms": b_ms, "bound_by": by, "library_ms": None,
-                     "device_us": device_us.get(key)})
+                     "device_us": GRAPH_US.get(key),
+                     "profiler_device_us": device_us.get(key),
+                     "host_us": HOST_US.get(key)})
+        if key in REDESIGNED:
+            rows[-1]["redesigned"] = REDESIGNED[key]
+    by_key = {key: row for (_, key, _, _), row in zip(KERNELS, rows)}
+    by_key["K2"]["engine_route_ms"] = routes["refresh_dispatch"]["ms"]
+    by_key["K3"]["engine_route_ms"] = {r: routes[f"vote_pass_R{r}"]["ms"]
+                                       for r in ROUTE_ROUNDS}
     if args.out:
         with open(args.out, "w") as f:
             json.dump({"card": card, "main_path": main_res,
@@ -1078,7 +1581,12 @@ def main(argv=None) -> int:
                        "timing": {k: dict(zip(("ms", "plain_ms", "bound_ms",
                                                "bound_by", "shape"), v))
                                   for k, v in timing.items()},
-                       "device_us": device_us,
+                       "device_us": GRAPH_US,
+                       "profiler_device_us": device_us, "host_us": HOST_US,
+                       "k1_k2_after_idle_gap": split,
+                       "routes": routes, "k2_graph_nodes": k2_nodes,
+                       "k2_shapes_by_path": k2_shapes,
+                       "k3_rows_by_path": k3_shapes,
                        "parity_cases": dict(par.n),
                        "kernels": rows}, f, indent=1, default=str)
     log(f"smoke: {time.monotonic() - t_start:.1f} s")

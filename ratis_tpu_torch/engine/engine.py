@@ -21,6 +21,7 @@ from __future__ import annotations
 
 import asyncio
 import functools
+import itertools
 import logging
 import threading
 import time
@@ -39,8 +40,7 @@ from ratis_tpu_torch.ops import quorum as q
 from ratis_tpu_torch.ops import reference as ref
 from ratis_tpu_torch.parallel.mesh import (pad_to_mesh, same_card,
                                            shard_device_state,
-                                           sharded_resident_fast_step_sliced,
-                                           sharded_resident_step)
+                                           sharded_resident_fast_step_sliced)
 from ratis_tpu_torch.trace.tracer import STAGE_ENGINE, TRACER
 
 _PACK_SENTINEL = q.PACK_SENTINEL
@@ -257,6 +257,11 @@ class QuorumEngine:
         # updated in place by the kernels);
         # None until the first batched tick, invalidated on rebase/regrow.
         self._dev = None
+        # The prepared calls of the refresh tick (K2, bound to ``_dev``)
+        # and of the vote pass (K3): pinned staging buffers and their device
+        # copies, built at first use and again when capacity regrows.
+        self._refresh_plan: Optional[q.RefreshPlan] = None
+        self._tally_plan: Optional[q.TallyPlan] = None
         # Next time the scalar path sweeps leaders for staleness; the batched
         # kernel checks every tick for free, the scalar path throttles the
         # O(leaders) python sweep to timeout/4.
@@ -622,8 +627,8 @@ class QuorumEngine:
 
     def _vote_pass(self, now: int) -> list[tuple[asyncio.Future, str]]:
         """Apply queued vote replies and tally EVERY open round in one
-        kernel launch (one upload, one download); returns (future, result)
-        pairs to resolve."""
+        prepared call (the open rounds' rows up, one launch, the tally
+        down); returns (future, result) pairs to resolve."""
         s = self.state
         events, self._vote_ring = self._vote_ring, []
         for slot, peer, granted in events:
@@ -637,32 +642,49 @@ class QuorumEngine:
                 s.vote_rejects[slot, peer] = True
         if not self._vote_rounds:
             return []
-        passed, passed_on_timeout, rejected, _ = self._tally_mirror()
+        rounds = list(self._vote_rounds.items())
+        slots = np.fromiter(self._vote_rounds, np.int64, len(rounds))
+        passed, passed_on_timeout, rejected, _ = self._tally_rounds(slots)
+        # a round is decided on a reject, a strict pass or its deadline
+        decided = (rejected | passed
+                   | (now >= s.vote_deadline_ms[slots])).tolist()
         out: list[tuple[asyncio.Future, str]] = []
-        for slot, fut in list(self._vote_rounds.items()):
+        for i, (slot, fut) in enumerate(rounds):
             if fut.done():
                 self._vote_rounds.pop(slot)
                 continue
-            if rejected[slot]:
-                result = "REJECTED"
-            elif passed[slot]:
-                result = "PASSED"
-            elif now >= s.vote_deadline_ms[slot]:
-                result = ("PASSED" if passed_on_timeout[slot] else "TIMEOUT")
-            else:
+            if not decided[i]:
                 continue  # round still open
+            if rejected[i]:
+                result = "REJECTED"
+            elif passed[i]:
+                result = "PASSED"
+            else:
+                result = ("PASSED" if passed_on_timeout[i] else "TIMEOUT")
             self._vote_rounds.pop(slot)
             s.vote_deadline_ms[slot] = NO_DEADLINE
             out.append((fut, result))
         return out
 
-    def _tally_mirror(self) -> np.ndarray:
-        """The vote tally over the host mirror on the engine's device:
-        bool [4, G] (ops.quorum.VoteTally rows)."""
+    def _tally_rounds(self, slots: np.ndarray) -> np.ndarray:
+        """The vote tally of the mirror rows ``slots`` on the engine's
+        device (the tally is row-local): bool [4, R]
+        (ops.quorum.VoteTally rows), R = len(slots).  The rows travel as
+        bit words (kernel K3's row entry), padded to a bucket."""
         s = self.state
-        return q.tally_votes_packed(*q.upload(
-            (s.vote_grants, s.vote_rejects, s.conf_cur, s.conf_old,
-             s.priority, s.self_priority), self.device)).cpu().numpy()
+        r = len(slots)
+        rcap = self._bucket(r)
+        plan = self._tally_plan
+        if plan is None or plan.max_rows < self._bucket(s.capacity):
+            plan = self._tally_plan = q.TallyPlan(
+                s.max_peers, self._bucket(s.capacity), self.device)
+        v = plan.views(rcap)
+        s.priority.take(slots, axis=0, out=v.priority[:r])
+        s.self_priority.take(slots, out=v.self_priority[:r])
+        for words, mask in zip(v.masks, (s.vote_grants, s.vote_rejects,
+                                         s.conf_cur, s.conf_old)):
+            q.pack_mask_bits(mask.take(slots, axis=0), words[:r])
+        return plan.run(rcap)[:, :r]
 
     def regress_match(self, slot: int, peer_slot: int, match_index: int) -> None:
         """A follower provably lost acked entries (volatile-log restart):
@@ -947,27 +969,31 @@ class QuorumEngine:
 
     # -- batched path --------------------------------------------------------
 
-    def _kernels(self):
-        # The refresh step (K2); its wrapper launches the CUDA kernel for
-        # a CUDA-resident state and the plain version for a CPU one.  A
-        # mesh engine's steps are checked against its mesh (same kernels;
-        # its fast tick is the sliced K5).
-        if self.mesh is not None:
-            return self._mesh_steps[0]
-        return q.engine_step_resident
-
     def _fast_kernel(self):
+        # The fast step (K1); its wrapper launches the CUDA kernel for a
+        # CUDA-resident state and the plain version for a CPU one.  A mesh
+        # engine's fast tick is the SLICED variant (K5): events pre-routed
+        # per slice ([7, S, E]), checked against its mesh.
         if self.mesh is not None:
-            return self._mesh_steps[1]
+            return self._mesh_fast_step
         return q.engine_step_resident_fast
 
     @functools.cached_property
-    def _mesh_steps(self):
-        # fast path: the SLICED variant — events pre-routed per slice
-        # ([7, S, E]); the refresh path keeps global rows (dirty rows are
-        # rare and whole-row)
-        return (sharded_resident_step(self.mesh),
-                sharded_resident_fast_step_sliced(self.mesh))
+    def _mesh_fast_step(self):
+        return sharded_resident_fast_step_sliced(self.mesh)
+
+    def _refresh_plan_for(self, dev) -> q.RefreshPlan:
+        """The refresh tick's prepared call (K2) bound to ``dev``: built
+        once per state shape, re-bound when the state was re-uploaded.  A
+        mesh engine's refresh runs on the flat state with global rows."""
+        plan = self._refresh_plan
+        if plan is None or plan.capacity != dev.match_index.shape[0]:
+            plan = self._refresh_plan = q.RefreshPlan(
+                dev, self._bucket(self.state.capacity),
+                self._MAX_EVENT_BUCKET)
+        elif plan.state is not dev:
+            plan.bind(dev)
+        return plan
 
     def prewarm(self) -> None:
         """Build and load the kernels, and launch each of them once.
@@ -990,7 +1016,7 @@ class QuorumEngine:
         self._tick_batched([(0, 0, -1, now)], now)
         s.dirty = {0}
         self._tick_batched([(0, 0, -1, now)], now)   # K2
-        self._tally_mirror()                         # K3
+        self._tally_rounds(np.zeros(1, np.int64))    # K3
         width = self.ledger._table_width()
         ops_ledger.ledger_pass(*q.upload(
             (s.role, s.match_index, s.commit_index, s.applied_index,
@@ -1185,38 +1211,28 @@ class QuorumEngine:
         self._slot_updates.clear()
         s.dirty.clear()
         self._m.refresh_rows.inc(len(dirty))
-        dcap = self._bucket(len(dirty))
-        # padded entries point one past the end -> dropped by the scatter
-        rf_idx = np.full(dcap, s.capacity, np.int32)
-        rf_idx[:len(dirty)] = dirty
-        gi = np.minimum(rf_idx, s.capacity - 1)  # in-range gather indices
-
-        # packed ack events: O(events) host->device
-        ecap = self._bucket(len(acks))
-        self._last_event_rows, self._last_event_cap = len(acks), ecap
-        evg = np.zeros(ecap, np.int32)
-        evp = np.zeros(ecap, np.int32)
-        evm = np.zeros(ecap, np.int32)
-        evt = np.zeros(ecap, np.int32)
-        evv = np.zeros(ecap, bool)
-        for i, (slot, peer, match, t) in enumerate(acks):
-            evg[i], evp[i], evm[i], evt[i], evv[i] = slot, peer, match, t, True
-
-        step = self._kernels()
-        # one upload carries every refreshed row and the packed acks
-        res = step(
-            self._dev,
-            *q.upload((rf_idx, s.match_index[gi], s.last_ack_ms[gi],
-                       s.self_mask[gi], s.conf_cur[gi], s.conf_old[gi],
-                       s.role[gi], s.flush_index[gi], s.commit_index[gi],
-                       s.first_leader_index[gi], s.election_deadline_ms[gi],
-                       evg, evp, evm, evt, evv), self.device),
-            now, self.leadership_timeout_ms)
-        self._dev = res.state
-
-        # one download: only the [4, G] outputs (masks + commit values),
-        # never the [G, P] state
-        out = torch.stack(res[1:]).cpu().numpy()
+        n, k = len(dirty), len(acks)
+        dcap, ecap = self._bucket(n), self._bucket(k)
+        self._last_event_rows, self._last_event_cap = k, ecap
+        # the rows and the acks are packed straight into the plan's pinned
+        # buffer; padding rows point one past the end (dropped by the
+        # scatter), padding acks are invalid
+        plan = self._refresh_plan_for(self._dev)
+        v = plan.views(dcap, ecap)
+        v.idx[:n] = dirty
+        v.idx[n:] = s.capacity
+        rows = v.idx[:n]
+        for name in q.DeviceState._fields:  # the mirror's names
+            getattr(s, name).take(rows, axis=0, out=getattr(v, name)[:n])
+        if k:
+            v.events[:, :k] = np.fromiter(
+                itertools.chain.from_iterable(acks), np.int32,
+                4 * k).reshape(k, 4).T
+        v.valid[:k] = True
+        v.valid[k:] = False
+        # one prepared call: the packed bytes up, one launch, the [4, G]
+        # outputs (masks + commit values) down, never the [G, P] state
+        out = plan.run(dcap, ecap, now, self.leadership_timeout_ms)
         changed = self._collect_changed(out[0], out[1] != 0, out[2] != 0,
                                         out[3] != 0)
         if trace_t0:

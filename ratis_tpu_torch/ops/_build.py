@@ -103,7 +103,22 @@ def _lib(source: str) -> ctypes.CDLL:
 
 
 # ctypes argument codes used by Kernel signatures
-PTR, INT = ctypes.c_void_p, ctypes.c_int
+PTR, INT, I64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+
+
+def c_function(source: str, symbol: str, argtypes: tuple, restype=INT):
+    """A C function of a kernel library with its types set (the library
+    is built at first use)."""
+    fn = getattr(_lib(source), symbol)
+    fn.argtypes = list(argtypes)
+    fn.restype = restype
+    return fn
+
+
+def raise_on_error(source: str, symbol: str, err: int) -> None:
+    if err != 0:
+        msg = _lib(source).k_error_string(err).decode()
+        raise RuntimeError(f"{symbol}: CUDA launch failed: {msg}")
 
 
 class Kernel:
@@ -119,17 +134,20 @@ class Kernel:
         self.launches = 0
         self._fn = None
 
+    def _load(self):
+        if self._fn is None:
+            self._fn = c_function(self.source, self.symbol,
+                                  (*self.argtypes, PTR))
+        return self._fn
+
     def __call__(self, device, *args) -> None:
         import torch
-        if self._fn is None:
-            fn = getattr(_lib(self.source), self.symbol)
-            fn.argtypes = [*self.argtypes, PTR]
-            fn.restype = ctypes.c_int
-            self._fn = fn
-        with torch.cuda.device(device):
-            stream = torch.cuda.current_stream(device).cuda_stream
-            err = self._fn(*args, stream)
-        if err != 0:
-            msg = _lib(self.source).k_error_string(err).decode()
-            raise RuntimeError(f"{self.symbol}: CUDA launch failed: {msg}")
+        fn = self._load()
+        if device.index == torch.cuda.current_device():
+            # the common case: no device switch
+            err = fn(*args, torch.cuda.current_stream().cuda_stream)
+        else:
+            with torch.cuda.device(device):
+                err = fn(*args, torch.cuda.current_stream().cuda_stream)
+        raise_on_error(self.source, self.symbol, err)
         self.launches += 1

@@ -1,5 +1,5 @@
 // Row math shared by the kernel sources that reduce a group row: the
-// majority-min of K1, K2, K5 and K6's row pass (resident_step.cu) and of
+// majority-min of K1, K5 and K6's row pass (resident_step.cu) and of
 // K7c (vote_lease.cu), the bitmask of a bool peer row, XLA's index
 // normalisation and int32 arithmetic that wraps as XLA's does.
 //

@@ -20,6 +20,14 @@ masks).  Each function on the engine's path has two bodies:
 A wrapper takes the plain version only because its tensors lie on the
 CPU; for CUDA tensors it launches the kernel or raises.
 
+The engine reaches K2 and K3 through prepared calls instead of the
+wrappers: :class:`RefreshPlan` (the refresh tick) and :class:`TallyPlan`
+(the vote pass over the open rounds' rows) hold a pinned host buffer the
+engine packs each tick into, its device copy and the output on both
+sides, and ``run`` is one call into the kernel library (copy up, one
+launch, copy down, synchronise).  On the CPU the same buffers feed the
+plain versions.
+
 Where the JAX functions return new arrays from donated buffers, the
 resident steps here update the ``DeviceState`` tensors IN PLACE and
 return the same tensors in the result's ``state``.  The stateless tick
@@ -34,6 +42,7 @@ are wrapped here explicitly.
 
 from __future__ import annotations
 
+import functools
 from typing import NamedTuple, Sequence
 
 import numpy as np
@@ -42,7 +51,8 @@ import torch
 from ratis_tpu_torch.engine.roles import (ROLE_CANDIDATE, ROLE_FOLLOWER,  # noqa: F401
                                           ROLE_LEADER, ROLE_LISTENER,
                                           ROLE_UNUSED)
-from ratis_tpu_torch.ops._build import INT, PTR, Kernel
+from ratis_tpu_torch.ops._build import (I64, INT, PTR, Kernel, c_function,
+                                        raise_on_error)
 
 INT32_MIN = -(2 ** 31)
 INT32_MAX = 2 ** 31 - 1
@@ -182,15 +192,17 @@ def _tally_plain(grants, rejects, conf_cur, conf_old, priority,
                         passed | rejected])
 
 
-K3 = Kernel("tally_votes.cu", "k3_tally_votes",
-            (PTR, PTR, PTR, PTR, PTR, PTR, PTR, INT, INT))
+# the public [G, P] tally (``tally`` in tally_votes.cu); no path of the
+# server launches it: the engine's vote pass runs K3 below
+K3_PUBLIC = Kernel("tally_votes.cu", "k3_tally_votes",
+                   (PTR, PTR, PTR, PTR, PTR, PTR, PTR, INT, INT))
 
 
 def tally_votes_packed(grants, rejects, conf_cur, conf_old, priority,
                        self_priority) -> torch.Tensor:
     """The tally as one bool [4, G] tensor (rows in VoteTally order), so
     the engine downloads it in one copy.  CPU tensors: plain torch; CUDA
-    tensors: kernel K3."""
+    tensors: the kernel ``tally`` (K3_PUBLIC)."""
     dev = _device_of(grants, rejects, conf_cur, conf_old, priority,
                      self_priority)
     if dev.type == "cpu":
@@ -203,9 +215,9 @@ def tally_votes_packed(grants, rejects, conf_cur, conf_old, priority,
     _check(self_priority, torch.int32, (g,))
     _check_peers(p)
     out = torch.empty((4, g), dtype=torch.bool, device=dev)
-    K3(dev, grants.data_ptr(), rejects.data_ptr(), conf_cur.data_ptr(),
-       conf_old.data_ptr(), priority.data_ptr(), self_priority.data_ptr(),
-       out.data_ptr(), g, p)
+    K3_PUBLIC(dev, grants.data_ptr(), rejects.data_ptr(), conf_cur.data_ptr(),
+              conf_old.data_ptr(), priority.data_ptr(),
+              self_priority.data_ptr(), out.data_ptr(), g, p)
     return out
 
 
@@ -220,6 +232,183 @@ def tally_votes(grants, rejects, conf_cur, conf_old, priority,
     [G, P] int32; self_priority: [G] int32."""
     return VoteTally(*tally_votes_packed(grants, rejects, conf_cur, conf_old,
                                          priority, self_priority))
+
+
+# bit p of a row's mask word is peer p (K3's row entry packs P <= 16 peers
+# into one uint16)
+_BIT_WEIGHTS = (1 << np.arange(MAX_KERNEL_PEERS)).astype(np.uint16)
+
+
+def pack_mask_bits(rows: np.ndarray, out: np.ndarray) -> None:
+    """bool [R, P] peer masks -> uint16 [R] bit words (bit p = peer p),
+    written into ``out``."""
+    np.dot(rows, _BIT_WEIGHTS[:rows.shape[1]], out=out)
+
+
+def _tally_rows_plain(masks, priority, self_priority) -> torch.Tensor:
+    """K3's row entry in plain torch: ``masks`` holds the bit words of R
+    gathered rows ([4, R]: grants, rejects, conf_cur, conf_old; any
+    integer dtype), ``priority`` int32 [R, P], ``self_priority`` int32
+    [R]; returns bool [4, R] in VoteTally order."""
+    p = priority.shape[1]
+    bits = ((masks.to(torch.int32)[:, :, None]
+             >> torch.arange(p, dtype=torch.int32, device=masks.device))
+            & 1) != 0
+    return _tally_plain(bits[0], bits[1], bits[2], bits[3], priority,
+                        self_priority)
+
+
+# K3, the tally the engine runs (``tally_rows`` in tally_votes.cu): on R
+# gathered rows, the masks as bit words
+K3 = Kernel("tally_votes.cu", "k3_tally_rows",
+            (PTR, PTR, PTR, PTR, INT, INT))
+
+
+def tally_rows(masks, priority, self_priority) -> torch.Tensor:
+    """The vote tally of R gathered rows: ``masks`` uint16 [4, R] bit
+    words (grants, rejects, conf_cur, conf_old; bit p = peer p),
+    ``priority`` int32 [R, P], ``self_priority`` int32 [R]; returns bool
+    [4, R] in VoteTally order.  CPU tensors: plain torch; CUDA tensors:
+    kernel K3 (the engine's vote pass runs it through :class:`TallyPlan`)."""
+    dev = _device_of(masks, priority, self_priority)
+    if dev.type == "cpu":
+        return _tally_rows_plain(masks, priority, self_priority)
+    r, p = priority.shape
+    _check(masks, torch.uint16, (4, r))
+    _check(priority, torch.int32, (r, p))
+    _check(self_priority, torch.int32, (r,))
+    _check_peers(p)
+    out = torch.empty((4, r), dtype=torch.bool, device=dev)
+    K3(dev, masks.data_ptr(), priority.data_ptr(), self_priority.data_ptr(),
+       out.data_ptr(), r, p)
+    return out
+
+
+def _layout_views(buf: np.ndarray, layout, shapes: dict) -> list:
+    """Typed views of one packed byte buffer: the ``(name, dtype, shape
+    code)`` sections of ``layout`` back to back, shapes from ``shapes``."""
+    views, off = [], 0
+    for _, dt, code in layout:
+        shape = shapes[code]
+        n = int(np.prod(shape)) * np.dtype(dt).itemsize
+        views.append(buf[off:off + n].view(dt).reshape(shape))
+        off += n
+    return views
+
+
+def layout_offsets(layout, shapes: dict) -> list[int]:
+    """Each section's byte offset in a packed buffer, then the total."""
+    out, off = [], 0
+    for _, dt, code in layout:
+        out.append(off)
+        off += int(np.prod(shapes[code])) * np.dtype(dt).itemsize
+    return out + [off]
+
+
+def tick_offsets(layout, shapes: dict, sections: tuple):
+    """The packed buffer's layout as a prepared call's C entry takes it:
+    the byte offsets of ``sections`` (section names, in the entry's
+    order), then the total, as an int64 array.  The layout is the host's
+    alone; every section must sit at a multiple of its item size."""
+    offs = layout_offsets(layout, shapes)
+    where = {}
+    for (name, dt, _), off in zip(layout, offs):
+        if off % np.dtype(dt).itemsize:
+            raise ValueError(f"section {name} at byte {off} is misaligned")
+        where[name] = off
+    return (I64 * (len(sections) + 1))(*(where[n] for n in sections),
+                                         offs[-1])
+
+
+# the vote pass's packed rows: int32 sections first, so each is aligned;
+# ``k3_tick`` takes the sections' offsets in the order of _K3_TICK
+TALLY_LAYOUT = (("priority", np.int32, "RP"),
+                ("self_priority", np.int32, "R"),
+                ("masks", np.uint16, "4R"))
+_K3_TICK = ("masks", "priority", "self_priority")
+
+
+def tally_shapes(r: int, p: int) -> dict:
+    return {"RP": (r, p), "R": (r,), "4R": (4, r)}
+
+
+class TallyViews(NamedTuple):
+    priority: np.ndarray       # int32 [R, P]
+    self_priority: np.ndarray  # int32 [R]
+    masks: np.ndarray          # uint16 [4, R]: grants, rejects, cur, old
+
+
+class TallyPlan:
+    """K3's prepared call (the engine's vote pass): the tally of R
+    gathered rows, not of all G.  Built once per engine capacity: a host
+    buffer the caller packs the rows of the open rounds into (``views``;
+    pinned on a card), its device copy, and bool [4, R] on both sides.
+    ``run`` is ONE call into the kernel library (copy in, launch, copy
+    out, synchronise).  On the CPU the same buffer feeds the plain
+    version."""
+
+    def __init__(self, peers: int, max_rows: int, device):
+        _check_peers(peers)
+        self.peers, self.max_rows = peers, max_rows
+        self.device = torch.device(device)
+        nbytes = layout_offsets(TALLY_LAYOUT,
+                                tally_shapes(max_rows, peers))[-1]
+        cuda = self.device.type == "cuda"
+        self._host = torch.zeros(nbytes, dtype=torch.uint8, pin_memory=cuda)
+        self._host_out = torch.zeros(4 * max_rows, dtype=torch.bool,
+                                     pin_memory=cuda)
+        self._out = self._host_out.numpy()
+        self._views: dict[int, tuple] = {}
+        self._plan = None
+        if cuda:
+            self._dev_in = torch.empty(nbytes, dtype=torch.uint8,
+                                       device=self.device)
+            self._dev_out = torch.empty(4 * max_rows, dtype=torch.bool,
+                                        device=self.device)
+            index = self._dev_in.device.index
+            self._tick = c_function("tally_votes.cu", "k3_tick",
+                                    (PTR, INT, PTR, PTR))
+            self._plan_free = c_function("tally_votes.cu", "k3_plan_free",
+                                         (PTR,), None)
+            self._plan = c_function(
+                "tally_votes.cu", "k3_plan_new", (PTR,) * 4 + (INT, INT),
+                PTR)(self._host.data_ptr(), self._dev_in.data_ptr(),
+                     self._dev_out.data_ptr(), self._host_out.data_ptr(),
+                     peers, index)
+            self._stream = torch.cuda.current_stream(index).cuda_stream
+
+    def views(self, r: int) -> TallyViews:
+        """The packed rows of a pass of ``r`` rows, as numpy views of the
+        host buffer."""
+        v = self._views.get(r)
+        if v is None:
+            if not 0 <= r <= self.max_rows:
+                raise ValueError(f"{r} rows; the plan holds {self.max_rows}")
+            shapes = tally_shapes(r, self.peers)
+            v = self._views[r] = (
+                TallyViews(*_layout_views(self._host.numpy(), TALLY_LAYOUT,
+                                          shapes)),
+                tick_offsets(TALLY_LAYOUT, shapes, _K3_TICK))
+        return v[0]
+
+    def run(self, r: int) -> np.ndarray:
+        """Tally the ``r`` packed rows: bool [4, r] (VoteTally rows), a
+        view of the plan's output buffer, valid until the next run."""
+        v = self.views(r)
+        out = self._out[:4 * r].reshape(4, r)
+        if self._plan is not None:
+            raise_on_error("tally_votes.cu", "k3_tick", self._tick(
+                self._plan, r, self._views[r][1], self._stream))
+            K3.launches += 1
+        else:
+            out[...] = tally_rows(*(torch.from_numpy(x) for x in (
+                v.masks, v.priority, v.self_priority))).numpy()
+        return out
+
+    def __del__(self):
+        if self._plan:
+            self._plan_free(self._plan)
+            self._plan = None
 
 
 def election_timeout(now_ms, next_deadline_ms, is_follower):
@@ -519,8 +708,9 @@ def upload(arrays: Sequence[np.ndarray], device) -> list[torch.Tensor]:
     """Copy host arrays to ``device`` in ONE transfer: their bytes are
     packed (4-byte aligned) into one buffer, copied once, and returned as
     typed views of the copy, one per array, with the arrays' shapes and
-    dtypes.  The per-tick uploads of the engine and the ledger go through
-    here, so a tick pays one host-to-device copy, not one per array."""
+    dtypes.  The fast tick's upload and the ledger's go through here, so
+    a tick pays one host-to-device copy, not one per array (the refresh
+    tick and the vote pass pack into their plans' pinned buffers)."""
     arrays = [np.ascontiguousarray(a) for a in arrays]
     offs, off = [], 0
     for a in arrays:
@@ -583,7 +773,16 @@ def _scatter_rows(dst: torch.Tensor, idx: torch.Tensor,
 K1 = Kernel("resident_step.cu", "k1_resident_fast",
             (PTR,) * 13 + (INT, INT, INT))
 K2 = Kernel("resident_step.cu", "k2_resident",
-            (PTR,) * 26 + (INT, INT, PTR, INT, INT, INT, INT))
+            (PTR,) * 26 + (INT, INT, PTR, INT, INT, INT, INT, INT))
+
+
+def refresh_tile(g: int) -> int:
+    """Rows per block of K2's kernel for a batch of ``g`` rows
+    (``refresh_tick`` in resident_step.cu takes 32 or 128): every block
+    scans all of a tick's refresh indices and ack rows, so above 16384
+    rows fewer, larger tiles win (measured on an H100 by chip_smoke.py's
+    K2 tile rows)."""
+    return 32 if g <= 16384 else 128
 
 
 def _resident_refresh_plain(state, rf_idx, rf, ev, now_ms, timeout_ms):
@@ -591,6 +790,18 @@ def _resident_refresh_plain(state, rf_idx, rf, ev, now_ms, timeout_ms):
         _scatter_rows(dst, rf_idx, rows)
     apply_ack_events(state.match_index, state.last_ack_ms, *ev)
     return _row_pass_plain(state, now_ms, timeout_ms)
+
+
+@functools.lru_cache(maxsize=256)
+def _refresh_specs(g: int, p: int, d: int, e: int) -> tuple:
+    """(dtype, shape) of each of engine_step_resident's 26 tensors, in
+    its order."""
+    def rows(n):
+        return tuple((dt, torch.Size((n, p) if i < 5 else (n,)))
+                     for i, dt in enumerate(_STATE_TORCH_DTYPES))
+    col = torch.Size((e,))
+    return (*rows(g), (torch.int32, torch.Size((d,))), *rows(d),
+            *((torch.int32, col),) * 4, (torch.bool, col))
 
 
 def engine_step_resident(state: DeviceState, rf_idx, rf_match, rf_ack,
@@ -601,32 +812,180 @@ def engine_step_resident(state: DeviceState, rf_idx, rf_match, rf_ack,
                          ) -> ResidentStep:
     """Device-resident refresh tick (K2): scatter the host's dirty rows
     into the state (``rf_idx`` entries outside ``[0, G)`` are padding and
-    dropped), then scatter the acks, advance commits, fire timeouts and
-    find stale leaders — the refresh lands first so an ack packed in the
-    same tick lands on top of the refreshed row, as in the host mirror.
-    Updates ``state`` in place."""
+    dropped; the rows are unique once wrapped), then scatter the acks,
+    advance commits, fire timeouts and find stale leaders — the refresh
+    lands first so an ack packed in the same tick lands on top of the
+    refreshed row, as in the host mirror.  Updates ``state`` in place.
+    CUDA tensors: one launch of the kernel (the engine's ticks go through
+    :class:`RefreshPlan` instead)."""
     rf = (rf_match, rf_ack, rf_self_mask, rf_conf_cur, rf_conf_old, rf_role,
           rf_flush, rf_commit, rf_first_leader, rf_deadline)
     ev = (ev_group, ev_peer, ev_match, ev_time_ms, ev_valid)
-    dev = _device_of(*state, rf_idx, *rf, *ev)
+    tensors = (*state, rf_idx, *rf, *ev)
+    dev = _device_of(*tensors)
     if dev.type == "cpu":
         out = _resident_refresh_plain(state, rf_idx, rf, ev, int(now_ms),
                                       int(leadership_timeout_ms))
         return ResidentStep(state, *out)
-    g, p = _check_state(state)
-    d = rf_idx.shape[0]
-    _check(rf_idx, torch.int32, (d,))
-    for t, like in zip(rf, state):
-        _check(t, like.dtype, (d,) + tuple(like.shape[1:]))
-    e = ev_group.shape[0]
-    for t in ev[:4]:
-        _check(t, torch.int32, (e,))
-    _check(ev_valid, torch.bool, (e,))
+    g, p = state.match_index.shape
+    _check_peers(p)
+    d, e = rf_idx.shape[0], ev_group.shape[0]
+    for t, (dt, shape) in zip(tensors, _refresh_specs(g, p, d, e)):
+        if t.dtype != dt or t.shape != shape or not t.is_contiguous():
+            _check(t, dt, shape)
     out = torch.empty((4, g), dtype=torch.int32, device=dev)
-    K2(dev, *(t.data_ptr() for t in state), rf_idx.data_ptr(),
-       *(t.data_ptr() for t in rf), *(t.data_ptr() for t in ev),
-       int(now_ms), int(leadership_timeout_ms), out.data_ptr(), g, p, d, e)
+    K2(dev, *(t.data_ptr() for t in tensors), int(now_ms),
+       int(leadership_timeout_ms), out.data_ptr(), g, p, d, e,
+       refresh_tile(g))
     return ResidentStep(state, *out)
+
+
+# K2's packed tick: the refresh indices, the refreshed rows by DeviceState
+# field, the ack columns [4, E] (group, peer, match, time) and their valid
+# flags; int32 sections first, so each is aligned.  ``k2_tick`` takes the
+# sections' offsets in the order of _K2_TICK
+REFRESH_LAYOUT = (
+    ("idx", np.int32, "D"), ("match_index", np.int32, "DP"),
+    ("last_ack_ms", np.int32, "DP"), ("flush_index", np.int32, "D"),
+    ("commit_index", np.int32, "D"), ("first_leader_index", np.int32, "D"),
+    ("election_deadline_ms", np.int32, "D"), ("events", np.int32, "4E"),
+    ("self_mask", np.bool_, "DP"), ("conf_cur", np.bool_, "DP"),
+    ("conf_old", np.bool_, "DP"), ("role", np.int8, "D"),
+    ("valid", np.bool_, "E"))
+_K2_TICK = ("idx", "match_index", "last_ack_ms", "self_mask", "conf_cur",
+            "conf_old", "role", "flush_index", "commit_index",
+            "first_leader_index", "election_deadline_ms", "events", "valid")
+
+
+def refresh_shapes(d: int, e: int, p: int) -> dict:
+    return {"D": (d,), "DP": (d, p), "4E": (4, e), "E": (e,)}
+
+
+class RefreshViews(NamedTuple):
+    """A packed refresh tick: ``idx`` [D] and the refreshed rows' fields
+    (DeviceState names), the acks as ``events`` [4, E] (group, peer,
+    match, time) and ``valid`` [E]."""
+
+    idx: np.ndarray
+    match_index: np.ndarray
+    last_ack_ms: np.ndarray
+    flush_index: np.ndarray
+    commit_index: np.ndarray
+    first_leader_index: np.ndarray
+    election_deadline_ms: np.ndarray
+    events: np.ndarray
+    self_mask: np.ndarray
+    conf_cur: np.ndarray
+    conf_old: np.ndarray
+    role: np.ndarray
+    valid: np.ndarray
+
+
+class RefreshPlan:
+    """K2's prepared call on one resident state (the engine's refresh
+    route).  Built once per state shape: a host buffer the caller packs
+    each tick's refresh rows and acks into (``views``; pinned on a card),
+    its device copy, and out[4, G] on both sides.  ``run`` is ONE call
+    into the kernel library: the copy to the card, the launch, the copy of
+    out back, the stream synchronised; the checks ran once, when the plan
+    was built or bound.  On the CPU the same buffer feeds the plain
+    version, so the packing is exercised there too.  ``bind`` points the
+    plan at another state of the same shape (a re-upload) without
+    reallocating."""
+
+    def __init__(self, state: DeviceState, max_rows: int, max_events: int):
+        g, p = _check_state(state)
+        self.capacity, self.peers = g, p
+        self.max_rows, self.max_events = max_rows, max_events
+        self.device = state.match_index.device
+        nbytes = layout_offsets(REFRESH_LAYOUT, refresh_shapes(
+            max_rows, max_events, p))[-1]
+        cuda = self.device.type == "cuda"
+        self._host = torch.zeros(nbytes, dtype=torch.uint8, pin_memory=cuda)
+        self._host_out = torch.zeros((4, g), dtype=torch.int32,
+                                     pin_memory=cuda)
+        self.out = self._host_out.numpy()
+        self._views: dict[tuple, tuple] = {}
+        self._plan = None
+        if cuda:
+            self._dev_in = torch.empty(nbytes, dtype=torch.uint8,
+                                       device=self.device)
+            self._dev_out = torch.empty((4, g), dtype=torch.int32,
+                                        device=self.device)
+            self._tick = c_function("resident_step.cu", "k2_tick",
+                                    (PTR, INT, INT, INT, INT, PTR, PTR))
+            self._plan_new = c_function("resident_step.cu", "k2_plan_new",
+                                        (PTR,) * 14 + (INT,) * 4, PTR)
+            self._plan_free = c_function("resident_step.cu", "k2_plan_free",
+                                         (PTR,), None)
+        self.bind(state)
+
+    def bind(self, state: DeviceState) -> None:
+        """Point the plan at ``state`` (same shape and device)."""
+        if tuple(state.match_index.shape) != (self.capacity, self.peers) \
+                or state.match_index.device != self.device:
+            raise ValueError(f"state {tuple(state.match_index.shape)} on "
+                             f"{state.match_index.device}; the plan is for "
+                             f"{(self.capacity, self.peers)} on "
+                             f"{self.device}")
+        _check_state(state)
+        self.state = state
+        if self.device.type == "cuda":
+            plan = self._plan_new(
+                *(t.data_ptr() for t in state), self._host.data_ptr(),
+                self._dev_in.data_ptr(), self._dev_out.data_ptr(),
+                self._host_out.data_ptr(), self.capacity, self.peers,
+                refresh_tile(self.capacity), self.device.index)
+            self._free()
+            self._plan = plan
+            self._stream = torch.cuda.current_stream(
+                self.device).cuda_stream
+
+    def views(self, d: int, e: int) -> RefreshViews:
+        """The packed tick of ``d`` refresh rows and ``e`` ack columns, as
+        numpy views of the host buffer."""
+        v = self._views.get((d, e))
+        if v is None:
+            if not (0 <= d <= self.max_rows and 0 <= e <= self.max_events):
+                raise ValueError(f"{d} rows, {e} acks; the plan holds "
+                                 f"{self.max_rows}, {self.max_events}")
+            shapes = refresh_shapes(d, e, self.peers)
+            arrays = RefreshViews(*_layout_views(
+                self._host.numpy(), REFRESH_LAYOUT, shapes))
+            tensors = RefreshViews(*map(torch.from_numpy, arrays))
+            v = self._views[(d, e)] = (
+                arrays, tensors, tick_offsets(REFRESH_LAYOUT, shapes,
+                                              _K2_TICK))
+        return v[0]
+
+    def run(self, d: int, e: int, now_ms: int, timeout_ms: int
+            ) -> np.ndarray:
+        """The refresh tick on the packed ``views(d, e)``: int32 [4, G]
+        (new_commit, commit_changed, timeouts, stale), the plan's output
+        buffer, valid until the next run.  Updates the state in place."""
+        self.views(d, e)
+        if self._plan is not None:
+            raise_on_error("resident_step.cu", "k2_tick", self._tick(
+                self._plan, d, e, now_ms, timeout_ms, self._views[(d, e)][2],
+                self._stream))
+            K2.launches += 1
+        else:
+            t = self._views[(d, e)][1]
+            ev = t.events
+            self.out[...] = _resident_refresh_plain(
+                self.state, t.idx,
+                tuple(getattr(t, f) for f in DeviceState._fields),
+                (ev[0], ev[1], ev[2], ev[3], t.valid), now_ms,
+                timeout_ms).numpy()
+        return self.out
+
+    def _free(self) -> None:
+        if self._plan:
+            self._plan_free(self._plan)
+            self._plan = None
+
+    def __del__(self):
+        self._free()
 
 
 def _resident_fast_plain(state: DeviceState, ev_packed, meta):

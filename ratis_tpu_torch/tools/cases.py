@@ -28,6 +28,8 @@ versions on the card), so both hold the kernels to the same cases:
   batches of ``vote_event_edges``, replicated-index and lease inputs with
   joint, single-member and empty confs, and lease timeouts that wrap
   (``LEASE_TIMEOUTS``);
+- the engine's prepared calls: a refresh tick or a vote pass's rows
+  packed into a ``RefreshPlan`` / ``TallyPlan`` as the engine packs them;
 - ledger: duplicate dense peer ids in a row, unmapped columns (-1), ids
   past the table width, argmax ties, and optionally one (peer, bucket)
   cell holding more than 2048 links.
@@ -38,6 +40,8 @@ Every array comes back with the engine's host-mirror dtypes.
 from __future__ import annotations
 
 import numpy as np
+
+from ratis_tpu_torch.ops import quorum as q
 
 INT32_MIN = np.iinfo(np.int32).min
 INT32_MAX = np.iinfo(np.int32).max
@@ -349,3 +353,43 @@ def lease_inputs(rng, g: int, p: int, now: int = 100_000) -> list:
     big = rng.random((g, p)) < 0.02
     ack[big] = INT32_MAX - rng.integers(0, 2000, size=int(big.sum()))
     return [ack, self_mask, conf_cur, conf_old]
+
+
+def refresh_plan(state, rf_idx, rf, acks):
+    """A ``RefreshPlan`` on ``state`` (a DeviceState) holding one refresh
+    tick, ``refresh``'s arrays, packed into its views as the engine packs
+    one: ``plan.run(len(rf_idx), len(acks[0]), ...)`` runs it."""
+    d, e = len(rf_idx), len(acks[0])
+    plan = q.RefreshPlan(state, d, e)
+    v = plan.views(d, e)
+    v.idx[:] = rf_idx
+    for name, rows in zip(q.DeviceState._fields, rf):
+        getattr(v, name)[:] = rows
+    v.events[:] = np.stack(acks[:4])
+    v.valid[:] = acks[4]
+    return plan
+
+
+def padded_rows(rows, cap: int, g: int) -> np.ndarray:
+    """``rows`` then ``cap - len(rows)`` padding rows as the engine's vote
+    pass leaves them: other groups' rows, packed by an earlier, larger
+    pass (the engine never clears them; their tallies are dropped)."""
+    return np.concatenate([rows, np.arange(cap - len(rows)) % g])
+
+
+def tally_plan(arrays, rows, device, cap=None):
+    """A ``TallyPlan`` on ``device`` holding the rows ``rows`` of
+    ``tally_inputs``' arrays as the engine's vote pass packs them (mask
+    bit words, priority rows), padded to ``cap`` rows (default: none)
+    with the stale rows of ``padded_rows``: ``plan.run(cap)`` is the
+    tally of ``padded_rows(rows, cap, G)``, its first ``len(rows)``
+    columns the rows' own."""
+    cap = len(rows) if cap is None else cap
+    full = padded_rows(rows, cap, arrays[0].shape[0])
+    plan = q.TallyPlan(arrays[0].shape[1], cap, device)
+    v = plan.views(cap)
+    arrays[4].take(full, axis=0, out=v.priority)
+    arrays[5].take(full, out=v.self_priority)
+    for words, mask in zip(v.masks, arrays[:4]):
+        q.pack_mask_bits(mask.take(full, axis=0), words)
+    return plan

@@ -37,6 +37,69 @@ def _device_us(evt) -> float:
     return float(t if t is not None else evt.self_cuda_time_total)
 
 
+def device_ops(fn, tries: int = 3) -> list[str]:
+    """The device operations (kernel and copy names, in order) that one
+    call of ``fn`` puts on the card, from a ``torch.profiler`` trace (a
+    warm-up call first, outside the trace).  A trace that recorded no
+    device activity at all is taken again, up to ``tries`` traces: it
+    shows that the profiler saw nothing, not that ``fn`` launched
+    nothing."""
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    evts = []
+    for _ in range(tries):
+        fn()
+        torch.cuda.synchronize()
+        with torch.profiler.profile(activities=acts) as prof:
+            fn()
+            torch.cuda.synchronize()
+        evts = [e for e in prof.events()
+                if e.device_type == torch.autograd.DeviceType.CUDA]
+        if evts:
+            break
+    return [e.name for e in sorted(evts, key=lambda e: e.time_range.start)]
+
+
+def is_copy(op: str) -> bool:
+    """A copy or fill in a ``device_ops`` list (not a kernel)."""
+    return op.lower().startswith(("memcpy", "memset"))
+
+
+def graph_nodes(fn) -> list[str]:
+    """What one call of ``fn`` puts on the card, without the profiler:
+    the call captured in a CUDA graph (after a warm-up call), each node
+    of the graph as the CUDA runtime's DOT dump describes it, in order.
+    Unlike a profiler trace it cannot come back empty for a call that
+    launched something: a graph with no node means no work, and a dump
+    that was not written raises."""
+    import os
+    import re
+    import tempfile
+    import warnings
+    fn()
+    torch.cuda.synchronize()
+    g = torch.cuda.CUDAGraph(keep_graph=True)  # kept for the dump
+    with torch.cuda.graph(g):
+        fn()
+    with tempfile.TemporaryDirectory() as d:
+        path = os.path.join(d, "call.dot")
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore")  # the dump warns that it runs
+            g.debug_dump(path)
+        with open(path) as f:
+            text = f.read()
+    # a node's record starts a line ("graph_1_node_0"[style=...); an
+    # edge's line starts with its source node and an arrow
+    starts = [m.start() for m in
+              re.finditer(r'^"graph_\d+_node_\d+"\[style=', text, re.M)]
+    return [text[a:b] for a, b in zip(starts, starts[1:] + [len(text)])]
+
+
+def is_kernel_node(node: str) -> bool:
+    """A kernel node in a ``graph_nodes`` list."""
+    return "KERNEL" in node
+
+
 async def _run(groups: int, writes: int, transport: str) -> dict:
     from ratis_tpu_torch.tools.cluster import Cluster
     cluster = Cluster(groups, device="cuda", transport=transport)

@@ -113,6 +113,253 @@ def test_refresh_step_kernel_matches_plain(card, negative):
         assert torch.equal(x, y)
 
 
+# -- K2 in one launch, and its prepared call ---------------------------------
+
+def _refresh_case(seed, g, p, d, e, negative):
+    rng = np.random.default_rng(seed)
+    st = cases.resident_state(rng, g, p, NOW)
+    rf_idx, rf, acks = cases.refresh(rng, g, p, d, e, NOW, negative)
+    return st, rf_idx, rf, acks
+
+
+def _refresh_kernel_and_plain(card, st, rf_idx, rf, acks):
+    """The public wrapper (one launch) and the plain version on the same
+    card tensors: equal outputs and equal states."""
+    rf_idx_t, *rf_t = _cuda([rf_idx, *rf])
+    acks_t = _cuda(acks)
+    a = tq.device_state_from_numpy(st, card)
+    b = tq.device_state_from_numpy(st, card)
+    n = tq.K2.launches
+    k = tq.engine_step_resident(a, rf_idx_t, *rf_t, *acks_t, NOW, 300)
+    assert tq.K2.launches == n + 1
+    want = tq._resident_refresh_plain(b, rf_idx_t, rf_t, acks_t, NOW, 300)
+    assert torch.equal(torch.stack(k[1:]), want)
+    for x, y in zip(a, b):
+        assert torch.equal(x, y)
+    return torch.stack(k[1:]), a
+
+
+@pytest.mark.parametrize("negative", [False, True])
+@pytest.mark.parametrize("d,e", [(64, 64), (64, 16384), (16384, 1024)])
+@pytest.mark.parametrize("g", [1, 100, 1024, 10240])
+@pytest.mark.parametrize("p", [3, 5, 8, 16])
+def test_refresh_kernel_matches_plain_at_every_shape(card, p, g, d, e,
+                                                     negative):
+    _refresh_kernel_and_plain(card, *_refresh_case(
+        p + g + d + e, g, p, d, e, negative))
+
+
+@pytest.mark.parametrize("tile", [32, 128])
+@pytest.mark.parametrize("g,p", [(100, 5), (1024, 8), (10240, 16)])
+def test_refresh_kernel_tiles_agree(card, monkeypatch, tile, g, p):
+    monkeypatch.setattr(tq, "refresh_tile", lambda g: tile)
+    _refresh_kernel_and_plain(card, *_refresh_case(tile + g, g, p, 1024,
+                                                   1024, True))
+
+
+@pytest.mark.parametrize("g,p,d,e", [(1024, 8, 64, 64), (100, 3, 256, 4096),
+                                     (10240, 16, 1024, 16384)])
+def test_refresh_plan_matches_the_public_wrapper(card, g, p, d, e):
+    """The engine's route (the packed buffer, one C call) against the
+    public wrapper on the same inputs."""
+    case = _refresh_case(g + d, g, p, d, e, True)
+    want_out, want_state = _refresh_kernel_and_plain(card, *case)
+    st, rf_idx, rf, acks = case
+    state = tq.device_state_from_numpy(st, card)
+    plan = cases.refresh_plan(state, rf_idx, rf, acks)
+    n = tq.K2.launches
+    out = plan.run(d, e, NOW, 300)
+    assert tq.K2.launches == n + 1
+    assert np.array_equal(out, want_out.cpu().numpy())
+    for x, y in zip(state, want_state):
+        assert torch.equal(x, y)
+
+
+def test_refresh_is_one_kernel_launch(card):
+    """One K2 call counts one launch and puts exactly one kernel on the
+    card: the call captured in a CUDA graph holds one node, the kernel
+    ``refresh_tick`` (the earlier design put three).  The plan's tick is one
+    call into the library that counts one launch; its kernel comes from
+    the same C launcher as the wrapper's."""
+    from ratis_tpu_torch.tools.profile_main_path import (graph_nodes,
+                                                         is_kernel_node)
+    st, rf_idx, rf, acks = _refresh_case(3, 1024, P, 64, 64, False)
+    rf_idx_t, *rf_t = _cuda([rf_idx, *rf])
+    acks_t = _cuda(acks)
+    a = tq.device_state_from_numpy(st, card)
+    n = tq.K2.launches
+    tq.engine_step_resident(a, rf_idx_t, *rf_t, *acks_t, NOW, 300)
+    assert tq.K2.launches == n + 1
+    nodes = graph_nodes(lambda: tq.engine_step_resident(
+        a, rf_idx_t, *rf_t, *acks_t, NOW, 300))
+    assert len(nodes) == 1 and is_kernel_node(nodes[0]), nodes
+    assert "refresh_tick" in nodes[0], nodes
+    plan = cases.refresh_plan(tq.device_state_from_numpy(st, card), rf_idx,
+                              rf, acks)
+    calls = []
+    tick = plan._tick
+    plan._tick = lambda *a: calls.append(a) or tick(*a)
+    n = tq.K2.launches
+    plan.run(64, 64, NOW, 300)
+    assert len(calls) == 1 and tq.K2.launches == n + 1
+
+
+def test_graph_nodes_lists_every_kernel_and_copy(card):
+    """The graph listing behind the one-kernel checks, on a call known to
+    put four operations on the card: K6's two copies and two kernels."""
+    from ratis_tpu_torch.tools.profile_main_path import (graph_nodes,
+                                                         is_kernel_node)
+    fn, args = bench.entry(card)
+    nodes = graph_nodes(lambda: fn(*args))
+    assert [is_kernel_node(n) for n in nodes] == [False, False, True,
+                                                  True], nodes
+    assert "apply_events" in nodes[2] and "row_pass" in nodes[3]
+
+
+def test_public_tally_counts_apart_from_the_engines(card):
+    args = _cuda(cases.tally_inputs(np.random.default_rng(4), 100, P))
+    n3, n3p = tq.K3.launches, tq.K3_PUBLIC.launches
+    tq.tally_votes_packed(*args)
+    assert (tq.K3.launches, tq.K3_PUBLIC.launches) == (n3, n3p + 1)
+
+
+@pytest.mark.parametrize("r", [1, 64, 1000])
+@pytest.mark.parametrize("p", [3, 5, 8, 16])
+def test_tally_plan_matches_plain(card, p, r):
+    """K3's row entry through the engine's prepared call, padded to the
+    engine's bucket with stale rows, against the plain tally of the same
+    rows and against the kernel launched on separate tensors."""
+    rng = np.random.default_rng(p + r)
+    g = 2048
+    arrays = cases.tally_inputs(rng, g, p)
+    rows = np.sort(rng.permutation(g)[:r])
+    rcap = 64 if r <= 64 else 1024
+    plan = cases.tally_plan(arrays, rows, card, rcap)
+    n = tq.K3.launches
+    got = plan.run(rcap).copy()
+    assert tq.K3.launches == n + 1
+    full = cases.padded_rows(rows, rcap, g)
+    want = tq._tally_plain(*(torch.from_numpy(np.ascontiguousarray(a[full]))
+                             for a in arrays))
+    assert np.array_equal(got, want.numpy())
+    v = plan.views(rcap)
+    packed = _cuda([v.masks, v.priority, v.self_priority])
+    k = tq.tally_rows(*packed)
+    assert tq.K3.launches == n + 2
+    assert np.array_equal(k.cpu().numpy(), got)
+    assert torch.equal(k, tq._tally_rows_plain(*packed))
+
+
+def test_card_engine_matches_the_cpu_engine_across_a_regrow(card):
+    """A card engine against a CPU engine under one seeded script of acks,
+    dirty rows and vote rounds, its capacity regrown midway (the refresh
+    plan is rebuilt): mirrors, device state, callbacks and vote results
+    equal after every tick."""
+    import random
+
+    from ratis_tpu_torch.engine.engine import QuorumEngine
+    from ratis_tpu_torch.engine.state import ROLE_FOLLOWER, ROLE_LEADER
+
+    class Clock:
+        t = 0
+
+        def now_ms(self):
+            return self.t
+
+    class Rec:
+        def __init__(self):
+            self.events = []
+
+        async def on_election_timeout(self):
+            self.events.append("timeout")
+
+        async def on_commit_advance(self, c):
+            self.events.append(("commit", c))
+
+        async def on_leadership_stale(self):
+            self.events.append("stale")
+
+    async def run():
+        rng = random.Random(5)
+        kw = dict(max_groups=32, max_peers=5, scalar_fallback_threshold=0,
+                  leadership_timeout_ms=300, use_device=True)
+        gpu, cpu = QuorumEngine(device=card, **kw), QuorumEngine(
+            device="cpu", **kw)
+        engines = (gpu, cpu)
+        for e in engines:
+            e.clock = Clock()
+        recs, futs = {}, []
+
+        def attach():
+            ra, rb = Rec(), Rec()
+            slot = gpu.attach(ra)
+            assert cpu.attach(rb) == slot
+            recs[slot] = (ra, rb)
+            cur = np.arange(5) < rng.randint(1, 5)
+            prio = np.array([rng.choice([0, 1, 2]) for _ in range(5)],
+                            np.int32)
+            for e in engines:
+                e.state.set_conf(slot, 0, cur, np.zeros(5, bool), prio,
+                                 int(prio[0]))
+                e.state.role[slot] = ROLE_LEADER
+
+        for _ in range(24):
+            attach()
+        for step in range(40):
+            for e in engines:
+                e.clock.t += 37
+            if step == 20:
+                for _ in range(12):
+                    attach()
+            slots = sorted(recs)
+            for _ in range(rng.randint(0, 10)):
+                g, p, m = rng.choice(slots), rng.randint(0, 4), \
+                    rng.randint(-1, 14)
+                for e in engines:
+                    e.on_ack(g, p, m)
+            for g in rng.sample(slots, rng.randint(0, 5)):
+                role, f = rng.choice([ROLE_LEADER, ROLE_FOLLOWER]), \
+                    rng.randint(-1, 16)
+                for e in engines:
+                    e.state.role[g] = role
+                    e.state.flush_index[g] = f
+                    e.state.election_deadline_ms[g] = e.clock.t + 40
+                    e.state.mark_dirty(g)
+            for g in rng.sample(slots, rng.randint(0, 4)):
+                if g not in gpu._vote_rounds:
+                    dl = gpu.clock.t + rng.randint(40, 160)
+                    futs.append((gpu.begin_vote_round(g, dl),
+                                 cpu.begin_vote_round(g, dl)))
+            for g in list(gpu._vote_rounds):
+                if rng.random() < 0.6:
+                    p, ok = rng.randint(0, 4), rng.random() < 0.6
+                    for e in engines:
+                        e.on_vote_reply(g, p, ok)
+            for e in engines:
+                await e.tick()
+            await asyncio.sleep(0)
+            for name in ("match_index", "last_ack_ms", "commit_index",
+                         "election_deadline_ms", "vote_deadline_ms"):
+                assert np.array_equal(getattr(gpu.state, name),
+                                      getattr(cpu.state, name)), (step, name)
+            for x, y in zip(gpu._dev, cpu._dev):
+                assert torch.equal(x.cpu(), y), step
+            for ra, rb in recs.values():
+                assert ra.events == rb.events, step
+            for fa, fb in futs:
+                assert fa.done() == fb.done(), step
+                if fa.done() and not fa.cancelled():
+                    assert fa.result() == fb.result(), step
+        assert gpu._refresh_plan.capacity == 64
+        assert gpu.metrics["refresh_ticks"] > 20
+        for e in engines:
+            await e.close()
+
+    n2, n3 = tq.K2.launches, tq.K3.launches
+    asyncio.run(run())
+    assert tq.K2.launches > n2 and tq.K3.launches > n3
+
+
 def _step_both(args):
     """K6 and its plain version on the same card tensors: equal outputs,
     inputs unchanged."""

@@ -348,7 +348,8 @@ def test_mesh_engine_churn_matches_jax(n_slices, seed):
 
 def test_mesh_engine_launches_the_sliced_step(monkeypatch):
     """A mesh engine's fast ticks go through K5's wrapper (never K1's), its
-    refresh ticks through K2's, on the flat state with global rows."""
+    refresh ticks through K2's prepared call, on the flat state with
+    global rows."""
     calls = []
     for name in ("engine_step_resident_fast", "engine_step_resident",
                  "engine_step_resident_fast_sliced"):
@@ -358,10 +359,19 @@ def test_mesh_engine_launches_the_sliced_step(monkeypatch):
             calls.append((_name, tuple(a[1].shape)))
             return _fn(*a)
         monkeypatch.setattr(tq, name, rec)
+    run = tq.RefreshPlan.run
+
+    def rec_run(plan, *a):
+        calls.append(("RefreshPlan.run",
+                      tuple(plan.state.match_index.shape)))
+        return run(plan, *a)
+    monkeypatch.setattr(tq.RefreshPlan, "run", rec_run)
     res = bench.dryrun_multichip(8, device="cpu")
     names = {n for n, _ in calls}
-    assert names == {"engine_step_resident_fast_sliced",
-                     "engine_step_resident"}
+    assert names == {"engine_step_resident_fast_sliced", "RefreshPlan.run"}
+    # the refresh runs on the whole flat [G, P] state
+    assert {shape for n, shape in calls if n == "RefreshPlan.run"} == {
+        (res["groups"], P)}
     assert all(shape[1] == 8 for n, shape in calls
                if n == "engine_step_resident_fast_sliced")
     assert res["refresh_ticks"] > 0 and res["fast_ticks"] > 0
