@@ -15,7 +15,12 @@ result line:
    on the bench's own batches at its three shapes, its inputs unchanged;
    K5 at 1, 2 and 8 slices with rows past and before the slice and padding
    columns, equal to K1 at one slice, and on the mesh100k rung's batch
-   (also equal to K1 on the same acks unrouted); the redesigned K2 (one
+   (also equal to K1 on the same acks unrouted); the redesigned K1 and K5
+   (one launch each, the tile kernel of K2) at 3, 5, 8 and 16 peers, K1
+   at G = 1 to 102400 and E = 64 and 16384, K5 at 1, 2 and 8 slices of G
+   / S rows a multiple of the tile and not, every tile size, each case
+   also through the engine's prepared call (``FastPlan``); the
+   redesigned K2 (one
    launch) at 3, 5, 8 and 16 peers, G = 1 to 102400, every tile size,
    each case also through the engine's prepared call, and K3 (the row
    entry the engine runs) on gathered rows at every peer count, padded to
@@ -64,16 +69,23 @@ result line:
       calling engine led a row with a non-empty ``conf_old`` more than 0
       times);
    Before the paths, one K2 call captured in a CUDA graph, which must
-   hold exactly one node, the kernel ``refresh_tick``;
+   hold exactly one node, the kernel ``tile_tick`` on K2's refresh
+   events, and one K1 call and one K5 call, each one node, ``tile_tick``
+   on the fast events;
 5. kernel parity again at every shape the main paths gave K1-K5 (K3 at
    every padded row count of the vote passes); the
    engine's own routes on one card engine of 1024 rows, host clock,
-   median of 200: the refresh dispatch (K2's prepared call, D = E = 64),
-   the fast dispatch (K1) as the control, the vote pass at R = 1, 64,
+   median of 200: the refresh dispatch (K2's prepared call, D = E = 64)
+   and its prepared call alone, the fast dispatch (K1's prepared call,
+   64 acks), its prepared call alone and the earlier route (pack,
+   ``upload``, the wrapper, ``.cpu()``) as the same-run control, the same
+   three on a mesh engine of 8 slices (K5), the vote pass at R = 1, 64,
    1024 open rounds and its tally alone (K3's prepared call) beside the
-   earlier tally of all G rows; one refresh tick and one vote pass must
-   each make exactly one call into the kernel library, and the refresh
-   tick one kernel launch; then timing: K1-K5 at their most common shape
+   earlier tally of all G rows; one refresh tick, one fast tick and one
+   vote pass must each make exactly one call into the kernel library, the
+   refresh tick one K2 launch, a flat fast tick one K1 launch, a mesh
+   fast tick one K5 launch and no K1; then timing: K1-K5 at their most
+   common shape
    (K3 at the vote passes' most common padded R, ``K3_public`` at G; K5
    also at the mesh100k rung's), K6 at both rung shapes; CUDA events, warm-up,
    median of 200 calls (K1/K2/K5 each on the same fresh state), beside
@@ -82,7 +94,9 @@ result line:
    the profiler sometimes drops the records of kernels launched from the
    kernel libraries, so these may read low or be missing) and from 20
    calls captured in a CUDA graph and replayed between CUDA events, and
-   its host time per call issued back to back; K7a-c at G = 1024, P = 8
+   its host time per call issued back to back; K1 also with each tile
+   size at G = 1024, 10240, 102400 and E = 64, 16384, and on the mesh100k
+   rung's flat control (102400 x 8 x 8192); K7a-c at G = 1024, P = 8
    (K7a with 2048 events; no path calls K7 or ``K3_public``: every path's
    run checks that they launched 0 times, so phases 3 and 5 make all of
    their launches); K2 also with each
@@ -111,6 +125,9 @@ import time
 
 import numpy as np
 import torch
+
+from ratis_tpu_torch.tools.fast_tick_timing import (engine_padded, graph_us,
+                                                     host_us, timed)
 
 P = 8
 NOW = 100_000
@@ -160,11 +177,17 @@ K7 = ("K7a", "K7b", "K7c")
 OFF_PATH = ("K3_public", *K7)
 K7_PEERS = (3, 5, 7, 16)
 K7_VOTE_EDGES = ((4, 3), (2, 3), (16, 8), (8, 16), (1024, 8))
-# the redesigned K2 (one launch per tick) and K3 (gathered rows): peers
-# and tile sizes held against the plain versions
+# the redesigned K1, K2, K5 (one launch per tick of one tile kernel) and
+# K3 (gathered rows): peers and tile sizes held against the plain
+# versions (and the tiles timed)
 K2_PEERS = (3, 5, 8, 16)
-K2_TILES = (32, 128)
+TILES = (32, 128)
 REDESIGNED = {
+    "K1": "redesigned: one launch per tick (row tiles in shared memory, the "
+          "kernel of K2); the engine's fast tick is one prepared call",
+    "K5": "redesigned: one launch per tick (row tiles in shared memory, each "
+          "block scanning only its slices' planes); a mesh engine's fast "
+          "tick is one prepared call",
     "K2": "redesigned: one launch per tick (row tiles in shared memory); the "
           "engine's refresh tick is one prepared call",
     "K3": "redesigned: the engine's vote pass tallies only the open rounds' "
@@ -209,16 +232,39 @@ def cuda(arrays):
 
 # -- phases 3 and 5: parity ----------------------------------------------------
 
-def parity_k1(tq, cases, g, p, e, seed, negative=False):
+def fast_plan_err(tq, cases, st, ev_np, sliced, k, a):
+    """The engine's prepared call (``FastPlan``) on the tick ``ev_np``
+    packed into its buffer, on a fresh copy of the state ``st``, against
+    the public wrapper's result ``k`` and state ``a``."""
+    c = tq.device_state_from_numpy(st, "cuda")
+    pl = cases.fast_plan(c, ev_np, sliced)
+    out = torch.from_numpy(pl.run(ev_np.shape[-1], NOW, TIMEOUT_MS).copy())
+    return max_abs_err([out.cuda(), *c], [k.out, *a])
+
+
+def parity_k1(tq, cases, g, p, e, seed, negative=False, plan=False,
+              hot=False, engine_padding=False):
+    """K1's public wrapper (one launch) against its plain version; with
+    ``plan``, also the engine's prepared call on the same tick, against
+    the wrapper; with ``hot``, every ack aimed at three rows of one tile
+    (``cases.hot_acks``); with ``engine_padding``, padded as the engine
+    pads (``fast_tick_timing.engine_padded``)."""
     rng = np.random.default_rng(seed)
     st = cases.resident_state(rng, g, p, NOW)
-    ev, meta = cuda([cases.fast_events(rng, g, p, e, NOW, negative),
-                     np.array([NOW, TIMEOUT_MS], np.int32)])
+    ev_np = cases.fast_events(rng, g, p, e, NOW, negative)
+    if hot:
+        cases.hot_acks(rng, ev_np)
+    if engine_padding:
+        engine_padded(ev_np)
+    ev, meta = cuda([ev_np, np.array([NOW, TIMEOUT_MS], np.int32)])
     a = tq.device_state_from_numpy(st, "cuda")
     b = tq.device_state_from_numpy(st, "cuda")
     k = tq.engine_step_resident_fast(a, ev, meta)
     want = tq._resident_fast_plain(b, ev, meta)
-    return max_abs_err([k.out, *a], [want, *b])
+    err = max_abs_err([k.out, *a], [want, *b])
+    if plan:
+        err = max(err, fast_plan_err(tq, cases, st, ev_np, False, k, a))
+    return err
 
 
 def parity_k2(tq, cases, g, p, d, e, seed, negative=False, plan=False):
@@ -243,18 +289,28 @@ def parity_k2(tq, cases, g, p, d, e, seed, negative=False, plan=False):
     return err
 
 
-def parity_k5(tq, cases, g, p, s, e, seed, negative=False):
+def parity_k5(tq, cases, g, p, s, e, seed, negative=False, plan=False,
+              hot=False, engine_padding=False):
     """K5 against its plain version; at one slice also against K1 on the
-    same plane."""
+    same plane; with ``plan``, also the engine's prepared call on the same
+    tick, against the wrapper; with ``hot``, every ack aimed at three rows
+    of each slice (``cases.hot_acks``); with ``engine_padding``, padded as
+    the engine pads (``fast_tick_timing.engine_padded``)."""
     rng = np.random.default_rng(seed)
     st = cases.resident_state(rng, g, p, NOW)
-    ev, meta = cuda([cases.sliced_events(rng, g, p, s, e, NOW, negative),
-                     np.array([NOW, TIMEOUT_MS], np.int32)])
+    ev_np = cases.sliced_events(rng, g, p, s, e, NOW, negative)
+    if hot:
+        cases.hot_acks(rng, ev_np)
+    if engine_padding:
+        engine_padded(ev_np)
+    ev, meta = cuda([ev_np, np.array([NOW, TIMEOUT_MS], np.int32)])
     a = tq.device_state_from_numpy(st, "cuda")
     b = tq.device_state_from_numpy(st, "cuda")
     k = tq.engine_step_resident_fast_sliced(a, ev, meta)
     want = tq._resident_fast_sliced_plain(b, ev, meta)
     err = max_abs_err([k.out, *a], [want, *b])
+    if plan:
+        err = max(err, fast_plan_err(tq, cases, st, ev_np, True, k, a))
     if s == 1:
         c = tq.device_state_from_numpy(st, "cuda")
         k1 = tq.engine_step_resident_fast(c, ev[:, 0].contiguous(), meta)
@@ -400,6 +456,7 @@ def run_parity(tq, tl, cases, bench, par: Parity) -> None:
         for seed in (0, 1, 2):
             par.add("K3_public", parity_k3(tq, cases, g, P, seed))
     run_parity_redesigned(tq, cases, par)
+    run_parity_fast(tq, cases, par)
     for g in (1024, 10240):
         for width in (8, 16):
             for seed in (0, 1):
@@ -437,16 +494,67 @@ def run_parity_redesigned(tq, cases, par) -> None:
                                             plan=True))
         for r, cap in ((1, 64), (64, 64), (100, 256), (1024, 1024)):
             par.add("K3", parity_k3_rows(tq, cases, 2048, p, r, cap, p + r))
-    tile = tq.refresh_tile
+    tile = tq.tick_tile
     try:
-        for t in K2_TILES:
-            tq.refresh_tile = lambda g, t=t: t
+        for t in TILES:
+            tq.tick_tile = lambda g, t=t: t
             for g in (100, 1024, 10240):
                 par.add("K2", parity_k2(tq, cases, g, P, 1024, 1024, g, True,
                                         plan=True))
     finally:
-        tq.refresh_tile = tile
+        tq.tick_tile = tile
     par.add("K2", parity_k2(tq, cases, 102_400, P, 1024, 16384, 5, True))
+
+
+def run_parity_fast(tq, cases, par) -> None:
+    """The redesigned K1 and K5 (one launch each), every case through the
+    public wrapper and through the engine's prepared call: K1 at P = 3,
+    5, 8, 16, G = 1, 100, 1024, 10240 and E = 64, 16384, negative,
+    out-of-range and sentinel columns and duplicate acks included; K5 at
+    S = 1, 2, 8 with slices of G / S rows a multiple of the tile (G =
+    2048) and not (G = 264: a tile straddles slices), for every P; K1 and
+    K5 at every tile size; K1 at G = 102400 with E = 16384; K1 and K5 with
+    every ack aimed at three rows (a tile lists more columns than its list
+    holds) and padded as the engine pads."""
+    for p in K2_PEERS:
+        for g in (1, 100, 1024, 10240):
+            for e in (64, 16384):
+                for negative in (False, True):
+                    par.add("K1", parity_k1(tq, cases, g, p, e,
+                                            p + g + e + negative, negative,
+                                            plan=True))
+        for g in (264, 2048):
+            for s in (1, 2, MESH_SLICES):
+                for negative in (False, True):
+                    par.add("K5", parity_k5(tq, cases, g, p, s, 256,
+                                            p + g + s + negative, negative,
+                                            plan=True))
+    tile = tq.tick_tile
+    try:
+        for t in TILES:
+            tq.tick_tile = lambda g, t=t: t
+            for g in (100, 1024, 10240):
+                par.add("K1", parity_k1(tq, cases, g, P, 1024, g + t, True,
+                                        plan=True))
+            for g, s in ((264, 8), (2048, 2), (10240, 8)):
+                par.add("K5", parity_k5(tq, cases, g, P, s, 1024, g + t,
+                                        True, plan=True))
+    finally:
+        tq.tick_tile = tile
+    par.add("K1", parity_k1(tq, cases, 102_400, P, 16384, 5, True,
+                            plan=True))
+    for e in (4096, 16384):
+        for hot in (False, True):
+            par.add("K1", parity_k1(tq, cases, 1024, P, e, e + hot, True,
+                                    plan=True, hot=hot,
+                                    engine_padding=True))
+            par.add("K5", parity_k5(tq, cases, 2048, P, 2, e, e + hot, True,
+                                    plan=True, hot=hot,
+                                    engine_padding=True))
+        par.add("K1", parity_k1(tq, cases, 1024, P, e, e, plan=True,
+                                hot=True))
+        par.add("K5", parity_k5(tq, cases, 2048, P, 2, e, e, plan=True,
+                                hot=True))
 
 
 def run_parity_observed(tq, tl, cases, main, shapes, par: Parity,
@@ -513,9 +621,10 @@ async def drive(cluster, writes: int) -> dict:
 
 
 class ShapeRecorder:
-    """Records the shapes the engine hands K1, K2 (D, E of the refresh
-    plan's runs), K3 (the rows R of the tally plan's runs, padding
-    included) and K5 while active (the wrappers are swapped for counting
+    """Records the shapes the engine hands K1 (E of the flat fast plan's
+    runs), K2 (D, E of the refresh plan's runs), K3 (the rows R of the
+    tally plan's runs, padding included) and K5 ((S, E) of the sliced fast
+    plan's runs) while active (the plans' ``run`` are swapped for counting
     ones and restored on exit)."""
 
     def __init__(self, tq):
@@ -527,15 +636,16 @@ class ShapeRecorder:
 
     def __enter__(self):
         tq, shapes = self.tq, self.shapes
-        self.fast, self.refresh, self.tally, self.sliced = (
-            tq.engine_step_resident_fast, tq.RefreshPlan.run,
-            tq.TallyPlan.run, tq.engine_step_resident_fast_sliced)
-        fast, refresh, tally, sliced = (self.fast, self.refresh, self.tally,
-                                        self.sliced)
+        self.fast, self.refresh, self.tally = (
+            tq.FastPlan.run, tq.RefreshPlan.run, tq.TallyPlan.run)
+        fast, refresh, tally = self.fast, self.refresh, self.tally
 
-        def rec_fast(state, ev, meta):
-            shapes["K1"][ev.shape[1]] += 1
-            return fast(state, ev, meta)
+        def rec_fast(plan, e, *rest):
+            if plan.sliced:
+                shapes["K5"][(plan.n_slices, e)] += 1
+            else:
+                shapes["K1"][e] += 1
+            return fast(plan, e, *rest)
 
         def rec_refresh(plan, d, e, *rest):
             shapes["K2"][(d, e)] += 1
@@ -545,21 +655,15 @@ class ShapeRecorder:
             shapes["K3"][r] += 1
             return tally(plan, r)
 
-        def rec_sliced(state, ev, meta):
-            shapes["K5"][(ev.shape[1], ev.shape[2])] += 1
-            return sliced(state, ev, meta)
-
-        tq.engine_step_resident_fast = rec_fast
+        tq.FastPlan.run = rec_fast
         tq.RefreshPlan.run = rec_refresh
         tq.TallyPlan.run = rec_tally
-        tq.engine_step_resident_fast_sliced = rec_sliced
         return self
 
     def __exit__(self, *exc):
-        self.tq.engine_step_resident_fast = self.fast
+        self.tq.FastPlan.run = self.fast
         self.tq.RefreshPlan.run = self.refresh
         self.tq.TallyPlan.run = self.tally
-        self.tq.engine_step_resident_fast_sliced = self.sliced
 
 
 def counted(kernels: dict, keys, drive, never=()):
@@ -600,23 +704,80 @@ class _Listener:
         pass
 
 
-def route_engine(tq):
+def route_engine(tq, mesh: bool = False):
     """A card engine of ``ROUTE_GROUPS`` leader rows (3 of 8 peers), built
-    and prewarmed as a server builds one, its state uploaded."""
+    and prewarmed as a server builds one, its state uploaded; with
+    ``mesh``, in ``MESH_SLICES`` slices of ``MESH_MAX_GROUPS`` rows, the
+    groups pinned round-robin to the slices (as the mesh path's engines
+    are).  Returns the engine and its attached slots."""
     from ratis_tpu_torch.engine.engine import QuorumEngine
     from ratis_tpu_torch.engine.state import ROLE_LEADER
-    eng = QuorumEngine(max_groups=ROUTE_GROUPS, max_peers=P,
-                       scalar_fallback_threshold=0, use_device=True,
-                       device="cuda")
+    from ratis_tpu_torch.parallel import make_group_mesh
+    eng = QuorumEngine(
+        max_groups=MESH_MAX_GROUPS if mesh else ROUTE_GROUPS, max_peers=P,
+        scalar_fallback_threshold=0, use_device=True, device="cuda",
+        mesh=make_group_mesh(MESH_SLICES, device="cuda") if mesh else None)
     cur = np.arange(P) < 3
-    for _ in range(ROUTE_GROUPS):
-        slot = eng.attach(_Listener())
+    slots = []
+    for i in range(ROUTE_GROUPS):
+        slot = eng.attach(_Listener(), i % MESH_SLICES if mesh else -1)
         eng.state.set_conf(slot, 0, cur, np.zeros(P, bool),
                            np.zeros(P, np.int32), 0)
         eng.state.role[slot] = ROLE_LEADER
+        slots.append(slot)
     eng.prewarm()
     eng._tick_batched([], eng.clock.now_ms())  # the full upload
-    return eng
+    return eng, slots
+
+
+def earlier_fast_dispatch(tq, eng, acks, now):
+    """The fast dispatch by the engine's earlier route, the same-run
+    control of the prepared call: the tick packed into a fresh array, it
+    and meta uploaded in one pageable copy (``ops.quorum.upload``), the
+    public wrapper (K1, or K5 on a mesh engine; eleven tensors checked,
+    ``out`` allocated), a synchronising pageable copy of ``out`` down,
+    the changed list."""
+    sliced = eng.mesh is not None
+    ev = (eng._pack_tick_sliced(acks, {}) if sliced
+          else eng._pack_tick(acks, {})).copy()
+    ev_t, meta_t = tq.upload(
+        (ev, np.array([now, eng.leadership_timeout_ms], np.int32)), "cuda")
+    step = (tq.engine_step_resident_fast_sliced if sliced
+            else tq.engine_step_resident_fast)
+    out = step(eng._dev, ev_t, meta_t).out.cpu().numpy()
+    return eng._collect_changed(out[0], out[1] != 0, out[2] != 0,
+                                out[3] != 0)
+
+
+def fast_route_rows(tq, eng, acks, now, prefix: str) -> dict:
+    """One engine's fast route: a fast tick must be ONE call into the
+    kernel library that launches K1 once on a flat engine, K5 once (and
+    K1 never) on a mesh engine, and nothing else; then host ms (median
+    of 200) of the fast dispatch, of its prepared call alone and of the
+    earlier route."""
+    plan = eng._fast_plan
+    sliced = eng.mesh is not None
+    before = (tq.K1.launches, tq.K2.launches, tq.K5.launches)
+    with CallCounter(plan) as calls:
+        eng._tick_batched_pass(acks, now)
+    got = tuple(k.launches - n for k, n in zip((tq.K1, tq.K2, tq.K5),
+                                                before))
+    want = (0, 0, 1) if sliced else (1, 0, 0)
+    if calls.calls != 1 or got != want:
+        raise AssertionError(f"{prefix} fast tick: {calls.calls} calls into "
+                             f"the library, K1/K2/K5 +{got}, expected "
+                             f"+{want}")
+    e = eng._last_event_cap
+    return {
+        f"{prefix}fast_dispatch": {
+            "ms": timed_host(lambda: eng._tick_batched_pass(acks, now)),
+            "acks": len(acks), "slices": plan.n_slices, "columns": e,
+            "library_calls": calls.calls,
+            "launches": dict(zip(("K1", "K2", "K5"), got))},
+        f"{prefix}fast_plan_run": {"ms": timed_host(
+            lambda: plan.run(e, now, eng.leadership_timeout_ms))},
+        f"{prefix}fast_dispatch_earlier_route": {"ms": timed_host(
+            lambda: earlier_fast_dispatch(tq, eng, acks, now))}}
 
 
 def timed_host(fn, setup=None, n: int = 200, warm: int = 10) -> float:
@@ -655,22 +816,24 @@ class CallCounter:
 def run_route_timing(tq, log_card) -> dict:
     """Host time of the engine's own routes on one card engine: the
     refresh dispatch (K2's prepared call: pack, one C call, the changed
-    list) at D = E = ROUTE_ROWS, the fast dispatch (K1, the flat route:
-    pack, upload, launch, download) as the same-run control, the vote pass
-    at R = 1, 64, 1024 open rounds (the whole pass, and its tally alone:
-    K3's prepared call on the open rounds' rows) beside the earlier tally
-    (all G rows of six mirrors uploaded, the public K3, the download).
-    Checks
-    that one refresh tick and one vote pass each make exactly ONE call
-    into the kernel library (and launch K2 / K3 once).  The refresh
-    tick's device operations come from a profiler trace, reported and
-    failed only on a trace that shows another kernel (on the card hosts
-    a trace sometimes records nothing); the tick synchronises, so it
-    cannot be captured in a graph, but its kernel comes from the C
-    launcher of the wrapper's, which phase 3 holds to one kernel in a
-    graph."""
+    list) at D = E = ROUTE_ROWS and its prepared call alone; the fast
+    dispatch (K1's prepared call) with ROUTE_ROWS acks, its prepared call
+    alone and the earlier route (pack, ``upload``, the wrapper, ``.cpu()``)
+    as the same-run control; the same three on a mesh engine of 8 slices
+    (K5); the vote pass at R = 1, 64, 1024 open rounds (the whole pass,
+    and its tally alone: K3's prepared call on the open rounds' rows)
+    beside the earlier tally (all G rows of six mirrors uploaded, the
+    public K3, the download).  Checks that one refresh tick, one fast tick
+    and one vote pass each make exactly ONE call into the kernel library
+    (and launch K2, K1 or K5, K3 once, and no other of K1, K2, K5).  The
+    refresh and fast ticks' device operations come from a profiler trace,
+    the refresh tick's failed only on a trace that shows another kernel
+    (on the card hosts a trace sometimes records nothing); the ticks
+    synchronise, so they cannot be captured in a graph, but their kernels
+    come from the C launchers of the wrappers', which phase 3 holds to one
+    kernel in a graph."""
     from ratis_tpu_torch.tools.profile_main_path import device_ops, is_copy
-    eng = route_engine(tq)
+    eng, _ = route_engine(tq)
     s = eng.state
     rng = np.random.default_rng(17)
     now = eng.clock.now_ms()
@@ -697,7 +860,8 @@ def run_route_timing(tq, log_card) -> dict:
                              f"+{tq.K1.launches - n1}")
     ops = device_ops(lambda: (dirty(), refresh()))
     kernels = [op for op in ops if not is_copy(op)]
-    if ops and (len(kernels) != 1 or "refresh_tick" not in kernels[0]):
+    if ops and (len(kernels) != 1 or "tile_tick" not in kernels[0]
+                or "RefreshEvents" not in kernels[0]):
         raise AssertionError(f"refresh tick put {ops} on the card")
     out["refresh_dispatch"] = {
         "ms": timed_host(refresh, dirty), "rows": ROUTE_ROWS,
@@ -705,12 +869,14 @@ def run_route_timing(tq, log_card) -> dict:
         "device_ops": ops or None}
     out["refresh_plan_run"] = {"ms": timed_host(
         lambda: plan.run(64, 64, now, eng.leadership_timeout_ms))}
-    n1 = tq.K1.launches
-    out["fast_dispatch"] = {"ms": timed_host(
-        lambda: eng._tick_batched_pass(acks, now)), "acks": ROUTE_ROWS,
-        "device_ops": device_ops(lambda: eng._tick_batched_pass(acks, now))}
-    if tq.K1.launches == n1:
-        raise AssertionError("the fast dispatch did not launch K1")
+    out.update(fast_route_rows(tq, eng, acks, now, ""))
+    out["fast_dispatch"]["device_ops"] = device_ops(
+        lambda: eng._tick_batched_pass(acks, now)) or None
+    mesh_eng, slots = route_engine(tq, mesh=True)
+    mesh_now = mesh_eng.clock.now_ms()
+    mesh_acks = [(int(g), int(rng.integers(0, 3)), int(rng.integers(0, 99)),
+                  mesh_now) for g in rng.choice(slots, size=ROUTE_ROWS)]
+    out.update(fast_route_rows(tq, mesh_eng, mesh_acks, mesh_now, "mesh_"))
 
     async def votes():
         for r in ROUTE_ROUNDS:
@@ -798,7 +964,8 @@ def k1_k2_split(tq, cases, main, n: int = 200) -> dict:
 def k2_one_launch(tq, cases) -> list[str]:
     """One K2 public-wrapper call at the main shape, captured in a CUDA
     graph: the graph must hold exactly one node, the kernel
-    ``refresh_tick`` (the earlier design put three kernels).  Returns the
+    ``tile_tick`` on K2's refresh events (the earlier design put three
+    kernels).  Returns the
     nodes' first lines."""
     from ratis_tpu_torch.tools.profile_main_path import (graph_nodes,
                                                          is_kernel_node)
@@ -811,10 +978,39 @@ def k2_one_launch(tq, cases) -> list[str]:
     nodes = graph_nodes(lambda: tq.engine_step_resident(
         a, rf_idx, *rf, *acks, NOW, TIMEOUT_MS))
     if len(nodes) != 1 or not is_kernel_node(nodes[0]) \
-            or "refresh_tick" not in nodes[0]:
+            or "tile_tick" not in nodes[0] \
+            or "RefreshEvents" not in nodes[0]:
         raise AssertionError(f"one K2 call put {len(nodes)} graph nodes on "
                              f"the card: {nodes}")
     return [" ".join(n.split())[:160] for n in nodes]
+
+
+def fast_one_launch(tq, cases) -> dict:
+    """One K1 public-wrapper call (G = 1024, E = 64) and one K5 call (G =
+    2048 in 8 slices, E = 64), each captured in a CUDA graph: each graph
+    must hold exactly one node, the kernel ``tile_tick`` on the fast
+    events (the earlier design put two kernels).  Returns each call's nodes' first lines."""
+    from ratis_tpu_torch.tools.profile_main_path import (graph_nodes,
+                                                         is_kernel_node)
+    rng = np.random.default_rng(29)
+    out = {}
+    for key, g, sliced in (("K1", ROUTE_GROUPS, False),
+                           ("K5", MESH_MAX_GROUPS, True)):
+        st = cases.resident_state(rng, g, P, NOW)
+        ev_np = (cases.sliced_events(rng, g, P, MESH_SLICES, 64, NOW)
+                 if sliced else cases.fast_events(rng, g, P, 64, NOW))
+        ev, meta = cuda([ev_np, np.array([NOW, TIMEOUT_MS], np.int32)])
+        a = tq.device_state_from_numpy(st, "cuda")
+        wrapper = (tq.engine_step_resident_fast_sliced if sliced
+                   else tq.engine_step_resident_fast)
+        nodes = graph_nodes(lambda: wrapper(a, ev, meta))
+        if len(nodes) != 1 or not is_kernel_node(nodes[0]) \
+                or "tile_tick" not in nodes[0] \
+                or "FastEvents" not in nodes[0]:
+            raise AssertionError(f"one {key} call put {len(nodes)} graph "
+                                 f"nodes on the card: {nodes}")
+        out[key] = [" ".join(n.split())[:160] for n in nodes]
+    return out
 
 
 def run_main_path(tq, kernels, groups: int, writes: int, rec):
@@ -923,8 +1119,8 @@ class JointRecorder:
     """While active, counts the K1 and K2 calls an engine made while its
     host mirror had a row it leads (role leader) with a non-empty
     ``conf_old`` (joint consensus: the only rows where the ``conf_old``
-    branch decides a commit); the wrappers are swapped for counting ones
-    and restored on exit."""
+    branch decides a commit); the plans' ``run`` are swapped for counting
+    ones and restored on exit."""
 
     def __init__(self, tq, cluster):
         from ratis_tpu_torch.engine.roles import ROLE_LEADER
@@ -947,24 +1143,23 @@ class JointRecorder:
 
     def __enter__(self):
         tq = self.tq
-        self.fast, self.refresh = (tq.engine_step_resident_fast,
-                                   tq.RefreshPlan.run)
+        self.fast, self.refresh = tq.FastPlan.run, tq.RefreshPlan.run
         fast, refresh = self.fast, self.refresh
 
-        def rec_fast(state, *rest):
-            self.joint_calls["K1"] += self._leads_joint_row(state)
-            return fast(state, *rest)
+        def rec_fast(plan, *rest):
+            self.joint_calls["K1"] += self._leads_joint_row(plan.state)
+            return fast(plan, *rest)
 
         def rec_refresh(plan, *rest):
             self.joint_calls["K2"] += self._leads_joint_row(plan.state)
             return refresh(plan, *rest)
 
-        tq.engine_step_resident_fast = rec_fast
+        tq.FastPlan.run = rec_fast
         tq.RefreshPlan.run = rec_refresh
         return self
 
     def __exit__(self, *exc):
-        self.tq.engine_step_resident_fast = self.fast
+        self.tq.FastPlan.run = self.fast
         self.tq.RefreshPlan.run = self.refresh
 
 
@@ -998,29 +1193,6 @@ def run_churn_path(tq, kernels, bench, shapes):
 
 
 # -- phase 5: timing ---------------------------------------------------------
-
-def timed(fn, setup=None, n: int = 200, warm: int = 5) -> float:
-    """Median CUDA-event time of ``fn``; ``setup`` runs before each call,
-    outside the events."""
-    for _ in range(warm):
-        if setup:
-            setup()
-        fn()
-    torch.cuda.synchronize()
-    times = []
-    for _ in range(n):
-        if setup:
-            setup()
-            torch.cuda.synchronize()
-        a = torch.cuda.Event(enable_timing=True)
-        b = torch.cuda.Event(enable_timing=True)
-        a.record()
-        fn()
-        b.record()
-        b.synchronize()
-        times.append(a.elapsed_time(b))
-    return statistics.median(times)
-
 
 def state_bytes(g, p):
     # match, last_ack (int32), self/cur/old (bool), role (int8), 4 x int32
@@ -1066,21 +1238,6 @@ def k6_bytes(g: int, p: int, e: int) -> int:
     return g * p * (8 + 3) + 17 * e + 17 * g + g * p * 8 + 7 * g
 
 
-def host_us_per_call(fn, n: int = 200, warm: int = 10) -> float:
-    """Host time per call of ``fn`` issued back to back: the wrapper's own
-    cost (checks, allocation, the call into the library); the card keeps
-    up, as every kernel here takes far less on the device."""
-    for _ in range(warm):
-        fn()
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    for _ in range(n):
-        fn()
-    t1 = time.perf_counter()
-    torch.cuda.synchronize()
-    return (t1 - t0) / n * 1e6
-
-
 # host us per call of each timed wrapper, and its device us per call from
 # a CUDA graph (keys as in device_us)
 HOST_US: dict = {}
@@ -1091,34 +1248,17 @@ def per_call(key: str, fn):
     """Device us per call of ``fn`` from the profiler (returned), its host
     us per call (HOST_US[key]) and its device us per call from a CUDA
     graph (GRAPH_US[key])."""
-    HOST_US[key] = host_us_per_call(fn)
+    HOST_US[key] = host_us(fn)
     GRAPH_US[key] = graph_us_per_call(fn)
     return device_us_per_call(fn)
 
 
 def graph_us_per_call(fn, n: int = 20):
-    """Device us per call of ``fn``, without the profiler: ``n`` calls
-    captured in one CUDA graph, the graph replayed between two CUDA
-    events, so the card runs the calls back to back with the host out of
-    the loop (each call's kernels and copies plus the graph's gap between
-    its nodes, ~1 us).  None, and a log line, where a call cannot be
-    captured."""
+    """Device us per call of ``fn`` from ``n`` calls in one CUDA graph
+    (``fast_tick_timing.graph_us``); None, and a log line, where a call
+    cannot be captured."""
     try:
-        fn()
-        torch.cuda.synchronize()
-        g = torch.cuda.CUDAGraph()
-        with torch.cuda.graph(g):
-            for _ in range(n):
-                fn()
-        g.replay()
-        torch.cuda.synchronize()
-        a = torch.cuda.Event(enable_timing=True)
-        b = torch.cuda.Event(enable_timing=True)
-        a.record()
-        g.replay()
-        b.record()
-        b.synchronize()
-        return a.elapsed_time(b) * 1e3 / n
+        return graph_us(fn, n)
     except RuntimeError as exc:
         log(f"graph timing: not measured ({exc})")
         return None
@@ -1161,7 +1301,7 @@ def k2_timing(tq, cases, rng, g, p, d, e, out, key, device_us) -> None:
     out[key] = (ms, plain, *bound(nbytes, g * (4 * p * p + 64) + 10 * e
                                   + d_real * 12 * p),
                 f"G={g} P={p} D={d} ({d_real} rows) E={e} "
-                f"tile={tq.refresh_tile(g)}")
+                f"tile={tq.tick_tile(g)}")
     a = tq.device_state_from_numpy(st, "cuda")
     device_us[key] = per_call(key, lambda: tq.engine_step_resident(
         a, rf_idx, *rf, *acks, NOW, TIMEOUT_MS))
@@ -1171,16 +1311,53 @@ def k2_extra_timing(tq, cases, rng, p, out, device_us) -> None:
     """K2 with each tile size at G = 1024, 10240 and 102400, at the main
     paths' most common (D, E) = (64, 64) and at the acks' cap (E = 16384,
     where every block scans 64 KB of ack rows)."""
-    tile = tq.refresh_tile
+    tile = tq.tick_tile
     try:
         for gx in (1024, 10_240, 102_400):
             for d, e in ((64, 64), (1024, 16384)):
-                for t in K2_TILES:
-                    tq.refresh_tile = lambda g, t=t: t
+                for t in TILES:
+                    tq.tick_tile = lambda g, t=t: t
                     k2_timing(tq, cases, rng, gx, p, d, e, out,
                               f"K2_G{gx}_D{d}_E{e}_tile{t}", device_us)
     finally:
-        tq.refresh_tile = tile
+        tq.tick_tile = tile
+
+
+def k1_timing(tq, st, ev_np, out, key, device_us) -> None:
+    """K1 on ``ev_np`` ([7, E]) over the state ``st``: each input read
+    once (the state, the E event columns, meta), the state it changes and
+    the [4, G] output written once."""
+    g, p = st[0].shape
+    e = ev_np.shape[1]
+    ev, meta = cuda([ev_np, np.array([NOW, TIMEOUT_MS], np.int32)])
+    ms, plain, wrote = time_inplace(
+        tq, st, lambda a: tq.engine_step_resident_fast(a, ev, meta),
+        lambda a: tq._resident_fast_plain(a, ev, meta))
+    nbytes = state_bytes(g, p) + 28 * e + 8 + wrote + 16 * g
+    out[key] = (ms, plain, *bound(nbytes, g * (4 * p * p + 64) + 10 * e),
+                f"G={g} P={p} E={e} tile={tq.tick_tile(g)}")
+    a = tq.device_state_from_numpy(st, "cuda")
+    device_us[key] = per_call(
+        key, lambda: tq.engine_step_resident_fast(a, ev, meta))
+
+
+def k1_extra_timing(tq, cases, rng, p, out, device_us) -> None:
+    """K1 with each tile size at G = 1024, 10240 and 102400, at the main
+    paths' most common E = 64 and at the acks' cap (E = 16384, where
+    every block scans 64 KB of slot rows); at 1024 rows also at the
+    backlog buckets between (E = 1024, 4096)."""
+    tile = tq.tick_tile
+    try:
+        for g in (1024, 10_240, 102_400):
+            st = cases.resident_state(rng, g, p, NOW)
+            for e in (64, 1024, 4096, 16384) if g == 1024 else (64, 16384):
+                ev = cases.fast_events(rng, g, p, e, NOW)
+                for t in TILES:
+                    tq.tick_tile = lambda g, t=t: t
+                    k1_timing(tq, st, ev, out, f"K1_G{g}_E{e}_tile{t}",
+                              device_us)
+    finally:
+        tq.tick_tile = tile
 
 
 def k5_timing(tq, st, ev_np, out, key, device_us) -> None:
@@ -1195,7 +1372,7 @@ def k5_timing(tq, st, ev_np, out, key, device_us) -> None:
         lambda a: tq._resident_fast_sliced_plain(a, ev, meta))
     nbytes = state_bytes(g, p) + 7 * s * e * 4 + 8 + wrote + 16 * g
     out[key] = (ms, plain, *bound(nbytes, g * (4 * p * p + 64) + 10 * s * e),
-                f"G={g} P={p} S={s} E={e}")
+                f"G={g} P={p} S={s} E={e} tile={tq.tick_tile(g)}")
     a = tq.device_state_from_numpy(st, "cuda")
     device_us[key] = per_call(
         key, lambda: tq.engine_step_resident_fast_sliced(a, ev, meta))
@@ -1235,7 +1412,10 @@ def run_timing(tq, tl, cases, bench, main, shapes, mesh_main,
                mesh_shapes) -> dict:
     """K1-K4 at the main paths' most common shape (K3's row entry at the
     vote passes' most common padded R; its public entry ``K3_public`` at
-    G), K5 at the mesh path's
+    G), K1 also with each tile size at G = 1024, 10240, 102400 and E = 64,
+    16384 (at 1024 also E = 1024, 4096), at 1024 x 16384 padded as the
+    engine pads, and on the mesh100k rung's flat control (``K1_100k``), K5 at
+    the mesh path's
     (key ``K5``) and on the mesh100k rung's batch (``K5_100k``), K6 at
     both kernel-rung shapes (key ``K6`` at 10240 groups, ``K6_100k`` at
     102400).  Bytes: every input read once (K2's refresh rows only where
@@ -1251,18 +1431,16 @@ def run_timing(tq, tl, cases, bench, main, shapes, mesh_main,
     out = {}
     device_us = {}
 
-    # K1
-    ev, meta = cuda([cases.fast_events(rng, g, p, e1, NOW),
-                     np.array([NOW, TIMEOUT_MS], np.int32)])
-    ms, plain, wrote = time_inplace(
-        tq, st, lambda s: tq.engine_step_resident_fast(s, ev, meta),
-        lambda s: tq._resident_fast_plain(s, ev, meta))
-    nbytes = state_bytes(g, p) + 28 * e1 + 8 + wrote + 16 * g
-    out["K1"] = (ms, plain, *bound(nbytes, g * (4 * p * p + 64) + 10 * e1),
-                 f"G={g} P={p} E={e1}")
-    a = tq.device_state_from_numpy(st, "cuda")
-    device_us["K1"] = per_call(
-        "K1", lambda: tq.engine_step_resident_fast(a, ev, meta))
+    # K1 at the main shape, with each tile, and at the mesh100k rung's
+    # flat control (102400 x 8 x 8192, global rows)
+    k1_timing(tq, st, cases.fast_events(rng, g, p, e1, NOW), out, "K1",
+              device_us)
+    k1_extra_timing(tq, cases, rng, p, out, device_us)
+    ev = engine_padded(cases.fast_events(rng, 1024, p, 16384, NOW))
+    k1_timing(tq, cases.resident_state(rng, 1024, p, NOW), ev, out,
+              "K1_G1024_E16384_engine_padding", device_us)
+    state, evs, evf, _ = bench.mesh100k_batch()
+    k1_timing(tq, state, evf, out, "K1_100k", device_us)
 
     # K2
     rf_idx_np, rf, acks = cases.refresh(rng, g, p, d2, e2, NOW)
@@ -1328,7 +1506,6 @@ def run_timing(tq, tl, cases, bench, main, shapes, mesh_main,
     k5_timing(tq, cases.resident_state(rng, g5, p, NOW),
               cases.sliced_events(rng, g5, p, s5, e5, NOW), out, "K5",
               device_us)
-    state, evs, _, _ = bench.mesh100k_batch()
     k5_timing(tq, state, evs, out, "K5_100k", device_us)
 
     # K6 on the bench's own batches, at the rungs' shapes; functional, so
@@ -1402,6 +1579,10 @@ def main(argv=None) -> int:
     k2_nodes = k2_one_launch(tq, cases)
     log(f"K2: one public-wrapper call captured in a CUDA graph: "
         f"{len(k2_nodes)} node, {k2_nodes[0]}")
+    fast_nodes = fast_one_launch(tq, cases)
+    for key, nodes in fast_nodes.items():
+        log(f"{key}: one public-wrapper call captured in a CUDA graph: "
+            f"{len(nodes)} node, {nodes[0]}")
     off_launches = {k: {"parity": kernels[k].launches - off_before[k]}
                     for k in OFF_PATH}
     off_before = {k: kernels[k].launches for k in OFF_PATH}
@@ -1524,16 +1705,21 @@ def main(argv=None) -> int:
     log(f"K2 (D, E) by path: {k2_shapes}")
     k3_shapes = {path: dict(r.shapes["K3"]) for path, r in recs.items()}
     log(f"K3 R (padded) by path: {k3_shapes}")
-    for key, control in (("K2", "K1"), ("refresh_dispatch", "fast_dispatch")):
-        a = routes[key]["ms"] if key in routes else timing[key][0]
-        b = routes[control]["ms"] if control in routes else timing[control][0]
+    for key, control in (
+            ("fast_dispatch", "refresh_dispatch"),
+            ("mesh_fast_dispatch", "refresh_dispatch"),
+            ("fast_dispatch", "fast_dispatch_earlier_route"),
+            ("mesh_fast_dispatch", "mesh_fast_dispatch_earlier_route"),
+            ("fast_plan_run", "refresh_plan_run"),
+            ("mesh_fast_plan_run", "refresh_plan_run")):
+        a, b = routes[key]["ms"], routes[control]["ms"]
         log(f"{key} {a:.4f} ms vs {control} {b:.4f} ms: "
-            f"{'below' if a < b else 'NOT below'}")
+            f"{'at or below' if a <= b else 'NOT at or below'}")
     for name, us in (("graph", GRAPH_US), ("profiler", device_us)):
-        if us.get("K2") and us.get("K1"):
-            log(f"K2 device ({name}) {us['K2']:.3f} us vs K1 "
-                f"{us['K1']:.3f} us: "
-                f"{'below' if us['K2'] < us['K1'] else 'NOT below'}")
+        for key in ("K1", "K5"):
+            if us.get(key) and us.get("K2"):
+                log(f"{key} device ({name}) {us[key]:.3f} us vs K2 "
+                    f"{us['K2']:.3f} us")
 
     # 6. results
     # each kernel's counts as every path's run read them (the off-path
@@ -1562,7 +1748,9 @@ def main(argv=None) -> int:
         if key in REDESIGNED:
             rows[-1]["redesigned"] = REDESIGNED[key]
     by_key = {key: row for (_, key, _, _), row in zip(KERNELS, rows)}
+    by_key["K1"]["engine_route_ms"] = routes["fast_dispatch"]["ms"]
     by_key["K2"]["engine_route_ms"] = routes["refresh_dispatch"]["ms"]
+    by_key["K5"]["engine_route_ms"] = routes["mesh_fast_dispatch"]["ms"]
     by_key["K3"]["engine_route_ms"] = {r: routes[f"vote_pass_R{r}"]["ms"]
                                        for r in ROUTE_ROUNDS}
     if args.out:
@@ -1585,6 +1773,7 @@ def main(argv=None) -> int:
                        "profiler_device_us": device_us, "host_us": HOST_US,
                        "k1_k2_after_idle_gap": split,
                        "routes": routes, "k2_graph_nodes": k2_nodes,
+                       "fast_graph_nodes": fast_nodes,
                        "k2_shapes_by_path": k2_shapes,
                        "k3_rows_by_path": k3_shapes,
                        "parity_cases": dict(par.n),

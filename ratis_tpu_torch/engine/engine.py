@@ -20,7 +20,6 @@ CUDA device, their plain-torch versions when it is the CPU.
 from __future__ import annotations
 
 import asyncio
-import functools
 import itertools
 import logging
 import threading
@@ -39,13 +38,24 @@ from ratis_tpu_torch.ops import ledger as ops_ledger
 from ratis_tpu_torch.ops import quorum as q
 from ratis_tpu_torch.ops import reference as ref
 from ratis_tpu_torch.parallel.mesh import (pad_to_mesh, same_card,
-                                           shard_device_state,
-                                           sharded_resident_fast_step_sliced)
+                                           shard_device_state)
 from ratis_tpu_torch.trace.tracer import STAGE_ENGINE, TRACER
 
 _PACK_SENTINEL = q.PACK_SENTINEL
 
 LOG = logging.getLogger(__name__)
+
+
+def _plane_positions(sl: np.ndarray, width: int) -> np.ndarray:
+    """Each item's position in planes of ``width`` columns laid end to end:
+    its plane ``sl`` times ``width``, plus the number of items of the same
+    plane before it (items keep their order within a plane)."""
+    order = np.argsort(sl, kind="stable")
+    srt = sl[order]
+    pos = np.empty(len(sl), np.int64)
+    # a sorted item's rank in its plane: its index less its plane's first
+    pos[order] = srt * width + np.arange(len(sl)) - np.searchsorted(srt, srt)
+    return pos
 
 
 # Why the sweep gate let a batched dispatch through — the dispatch count at
@@ -257,9 +267,11 @@ class QuorumEngine:
         # updated in place by the kernels);
         # None until the first batched tick, invalidated on rebase/regrow.
         self._dev = None
-        # The prepared calls of the refresh tick (K2, bound to ``_dev``)
-        # and of the vote pass (K3): pinned staging buffers and their device
-        # copies, built at first use and again when capacity regrows.
+        # The prepared calls of the fast tick (K1, or K5 on a mesh engine)
+        # and the refresh tick (K2), both bound to ``_dev``, and of the vote
+        # pass (K3): pinned staging buffers and their device copies, built
+        # at first use and again when capacity regrows.
+        self._fast_plan: Optional[q.FastPlan] = None
         self._refresh_plan: Optional[q.RefreshPlan] = None
         self._tally_plan: Optional[q.TallyPlan] = None
         # Next time the scalar path sweeps leaders for staleness; the batched
@@ -969,18 +981,28 @@ class QuorumEngine:
 
     # -- batched path --------------------------------------------------------
 
-    def _fast_kernel(self):
-        # The fast step (K1); its wrapper launches the CUDA kernel for a
-        # CUDA-resident state and the plain version for a CPU one.  A mesh
-        # engine's fast tick is the SLICED variant (K5): events pre-routed
-        # per slice ([7, S, E]), checked against its mesh.
-        if self.mesh is not None:
-            return self._mesh_fast_step
-        return q.engine_step_resident_fast
+    def _fast_plan_for(self, dev) -> q.FastPlan:
+        """The fast tick's prepared call bound to ``dev``: K1, or K5 over
+        the slices on a mesh engine (events pre-routed per slice, [7, S,
+        E]); built once per state shape, re-bound when the state was
+        re-uploaded."""
+        plan = self._fast_plan
+        if plan is None or plan.capacity != dev.match_index.shape[0]:
+            plan = self._fast_plan = q.FastPlan(
+                dev, self._MAX_EVENT_BUCKET,
+                None if self.mesh is None else self.state.n_slices)
+        elif plan.state is not dev:
+            plan.bind(dev)
+        return plan
 
-    @functools.cached_property
-    def _mesh_fast_step(self):
-        return sharded_resident_fast_step_sliced(self.mesh)
+    def _fast_events(self, ecap: int) -> np.ndarray:
+        """The fast plan's packed tick of ``ecap`` columns in each of its
+        planes (int32 [7, S, E]: one plane, or one per slice on a mesh
+        engine; pinned on a card), the device state uploaded first if
+        there is none."""
+        if self._dev is None:
+            self._dev = self._upload_device_state()
+        return self._fast_plan_for(self._dev).events(ecap)
 
     def _refresh_plan_for(self, dev) -> q.RefreshPlan:
         """The refresh tick's prepared call (K2) bound to ``dev``: built
@@ -1052,69 +1074,72 @@ class QuorumEngine:
         return b
 
     def _pack_tick(self, acks, updates: dict) -> np.ndarray:
-        """Pack acks + slot updates into the [7, E] fast-tick array (column
-        layout documented at ops.quorum.engine_step_resident_fast)."""
+        """Pack acks + slot updates into the fast plan's [7, E] tick
+        (column layout documented at ops.quorum.engine_step_resident_fast)
+        and return it: acks first in intake order, then the updates;
+        padding columns name slot PACK_SENTINEL (dropped: they land in no
+        row, so no kernel tile lists them) and are invalid acks with
+        sentinel updates."""
         n = len(acks) + len(updates)
         ecap = self._bucket(n)
         self._last_event_rows, self._last_event_cap = n, ecap
-        evp = np.full((7, ecap), _PACK_SENTINEL, np.int32)
-        evp[0] = 0
-        evp[1] = 0
-        evp[4] = 0
-        if acks:
-            a = np.asarray(acks, np.int32)  # [E, 4]
-            k = len(acks)
-            evp[:4, :k] = a.T
+        evp = self._fast_events(ecap)[:, 0]
+        evp[...] = _PACK_SENTINEL
+        evp[1] = 0  # peer
+        evp[4] = 0  # valid
+        k = len(acks)
+        if k:
+            evp[:4, :k] = np.fromiter(
+                itertools.chain.from_iterable(acks), np.int32,
+                4 * k).reshape(k, 4).T
             evp[4, :k] = 1
         if updates:
-            k = len(acks)
-            for i, (slot, (flush, deadline)) in enumerate(updates.items()):
-                evp[0, k + i] = slot
-                evp[5, k + i] = flush
-                evp[6, k + i] = deadline
+            u = len(updates)
+            evp[0, k:k + u] = np.fromiter(updates, np.int32, u)
+            evp[5:, k:k + u] = np.fromiter(
+                itertools.chain.from_iterable(updates.values()), np.int32,
+                2 * u).reshape(u, 2).T
         return evp
 
     def _pack_tick_sliced(self, acks, updates: dict) -> np.ndarray:
-        """Slice-routed fast-tick packing: [7, S, E] with SLICE-LOCAL row
-        indices (ops.quorum.engine_step_resident_fast_sliced, kernel K5):
-        plane s holds only the events of slice s's rows, acks first in
-        intake order, then its slot updates.  E is the bucket of the
-        FULLEST slice; the other planes are padded to it."""
+        """Slice-routed fast-tick packing into the fast plan's [7, S, E]
+        tick, SLICE-LOCAL row indices (ops.quorum.
+        engine_step_resident_fast_sliced, kernel K5), returned: plane s
+        holds only the events of slice s's rows, acks first in intake
+        order, then its slot updates in queue order.  E is the bucket of
+        the FULLEST slice; the other planes are padded to it, with
+        columns as ``_pack_tick`` pads."""
         s = self.state
         n_slices, rows = s.n_slices, s.slice_rows
-        na = len(acks)
-        a = np.asarray(acks, np.int32).reshape(na, 4)  # slot,peer,match,t
+        na, nu = len(acks), len(updates)
+        a = np.fromiter(itertools.chain.from_iterable(acks), np.int32,
+                        4 * na).reshape(na, 4)  # slot,peer,match,t
         asl = a[:, 0] // rows
         ack_counts = np.bincount(asl, minlength=n_slices)
-        counts = ack_counts.copy()
-        for slot in updates:
-            counts[slot // rows] += 1
-        n = int(counts.max()) if n_slices else 0
+        counts = ack_counts
+        if nu:
+            us = np.fromiter(updates, np.int32, nu)
+            uv = np.fromiter(itertools.chain.from_iterable(updates.values()),
+                             np.int32, 2 * nu).reshape(nu, 2)  # flush,dl
+            usl = us // rows
+            counts = ack_counts + np.bincount(usl, minlength=n_slices)
+        n = int(counts.max())
         ecap = self._bucket(n)
         self._last_event_rows, self._last_event_cap = n, ecap
-        evp = np.full((7, n_slices, ecap), _PACK_SENTINEL, np.int32)
-        evp[0] = 0
-        evp[1] = 0
-        evp[4] = 0
+        evp = self._fast_events(ecap)
+        planes = evp.reshape(7, n_slices * ecap)  # a view: planes end to end
+        planes[...] = _PACK_SENTINEL
+        planes[1] = 0  # peer
+        planes[4] = 0  # valid
         if na:
-            order = np.argsort(asl, kind="stable")
-            srt, ssl = a[order], asl[order]
-            starts = np.concatenate(
-                ([0], np.cumsum(ack_counts)[:-1])).astype(np.int64)
-            col = np.arange(na) - starts[ssl]
-            evp[0, ssl, col] = srt[:, 0] % rows
-            evp[1, ssl, col] = srt[:, 1]
-            evp[2, ssl, col] = srt[:, 2]
-            evp[3, ssl, col] = srt[:, 3]
-            evp[4, ssl, col] = 1
-        cur = ack_counts.copy()
-        for slot, (flush, deadline) in updates.items():
-            sl = slot // rows
-            c = int(cur[sl])
-            cur[sl] += 1
-            evp[0, sl, c] = slot % rows
-            evp[5, sl, c] = flush
-            evp[6, sl, c] = deadline
+            pos = _plane_positions(asl, ecap)
+            a[:, 0] %= rows
+            planes[:4, pos] = a.T
+            planes[4, pos] = 1
+        if nu:
+            pos = _plane_positions(usl, ecap) + ack_counts[usl]
+            planes[0, pos] = us % rows
+            planes[5:, pos] = uv.T
         return evp
 
     # Hard ceiling on one dispatch's event bucket (64 * 4^4).  A backlog
@@ -1178,24 +1203,22 @@ class QuorumEngine:
             self._slot_updates.clear()  # the full upload carried them
 
         if not s.dirty:
-            # Fast path (the steady state under load): the packed events
-            # and meta in one upload, one packed download.
-            # Flush advances and deadline re-arms travel as packed updates
-            # alongside the acks, so routine traffic never needs a refresh.
+            # Fast path (the steady state under load): the acks and the
+            # packed slot updates straight into the fast plan's pinned
+            # buffer, then ONE prepared call (the bytes up, one launch of
+            # K1 or K5, the [4, G] outputs down).  Flush advances and
+            # deadline re-arms travel as packed updates alongside the
+            # acks, so routine traffic never needs a refresh.
             self._m.fast_ticks.inc()
-            step = self._fast_kernel()
             updates, self._slot_updates = self._slot_updates, {}
             # mesh: slice-routed [7, S, E] planes for the sliced kernel;
             # single device: the flat [7, E] pack
-            ev = (self._pack_tick_sliced(acks, updates)
-                  if self.mesh is not None
-                  else self._pack_tick(acks, updates))
-            ev_t, meta_t = q.upload(
-                (ev, np.array([now, self.leadership_timeout_ms], np.int32)),
-                self.device)
-            res = step(self._dev, ev_t, meta_t)
-            self._dev = res.state
-            out = res.out.cpu().numpy()
+            if self.mesh is not None:
+                self._pack_tick_sliced(acks, updates)
+            else:
+                self._pack_tick(acks, updates)
+            out = self._fast_plan.run(self._last_event_cap, now,
+                                      self.leadership_timeout_ms)
             changed = self._collect_changed(out[0], out[1] != 0, out[2] != 0,
                                             out[3] != 0)
             if trace_t0:

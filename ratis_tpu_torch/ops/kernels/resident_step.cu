@@ -14,89 +14,89 @@
 // ack copies [G, P], new_commit [G], bool flags [3, G]) and none of its
 // inputs.
 //
-// K5 is K1 over S contiguous slices of G / S rows, each with its own event
-// plane of E columns ([7, S, E]) whose row indices are local to the slice.
-// JAX vmaps the flat fast tick over the slices, so every slice wraps and
-// drops its indices by its OWN extent: a local row past the slice is
-// dropped (not spilled into the next slice) and row -1 is the slice's last
-// row.  So K5 cannot be K1 on offset indices; it is K1's event pass told
-// the slice extent, then K1's row pass unchanged (the row math is
-// row-local).  With S = 1 it is K1: both run the same code.
-//
 // Bound on the card: at the main path's shape (G = 1024, P = 8, E <= 16384)
-// one K1/K2 tick moves ~0.2 MB, ~0.06 us at 3.35 TB/s, and does a few
+// one K1/K2/K5 tick moves ~0.2 MB, ~0.06 us at 3.35 TB/s, and does a few
 // thousand integer operations.  K6 at the bench's shapes must move ~1.9 MB
 // (G = 10240, P = 8, E = 4096; ~0.56 us) and ~18 MB (G = 102400, E = 8192;
 // ~5.4 us), most of it the copy of the two [G, P] arrays.  Bytes bind none
-// of them at 1024 and 10240 groups: the launch latency of each step (a
-// few us) and the host's work around it do.  K5 moves what K1 moves plus
-// its padding columns: E is the bucket of the FULLEST slice, so a tick
-// ships S x E columns, most of them padding, and the event pass reads them
-// all (at the mesh100k rung's 102400 x 8 x 8192 over 8 slices, ~2.6 MB of
-// events beside ~11 MB of state, ~4 us).
+// of them at 1024 and 10240 groups: the latency of each launch and of the
+// dependent steps inside it (a few us) and the host's work around it do.
+// So K1, K2 and K5 are each ONE launch of one tile kernel, ``tile_tick``,
+// and the engine reaches each through a prepared call that is one C call
+// per tick.
 //
-// K1, K5 and K6 are two flat launches (an event pass, then a row pass;
-// K6 after two device-to-device copies on the same stream).
-//
-// K2, the refresh tick (the engine's most common tick), is ONE launch of
-// ``refresh_tick``: each block owns a tile of T consecutive group rows
-// (T = 32, or 128 above 16384 rows, where the ack scans below would
-// dominate: ``ops.quorum.refresh_tile``) and does the whole tick for them
-// in shared memory:
+// tile_tick: each block owns a tile of T consecutive group rows (T = 32,
+// or 128 above 16384 rows, where the event scans below would dominate:
+// ``ops.quorum.tick_tile``; 64 was never faster on an H100) and does the
+// whole tick for them in shared memory:
 // 1. it starts asynchronous 16-byte copies (cp.async) of its tile of the
 //    ten state arrays into shared memory (~3 KB at T = 32, P = 8) and,
-//    while they are in flight, scans the D refresh indices (16-byte
-//    loads, from L2: every block reads all of them) and notes, per tile
-//    row, which refresh entry lands on it;
-// 2. it waits for the copies and overlays the refreshed rows;
-// 3. it scans the E ack columns the same way and applies the ones that
-//    land in the tile with shared-memory atomicMax on match and ack
-//    (integer max is order-free, so the result is deterministic); a
-//    column's other fields are read only when its row is in the tile;
-// 4. it runs the row math on the shared tile with one lane per peer slot
-//    (8 or 16 lanes a row): a member's rank in its row is counted over
-//    the row's lanes with warp shuffles, O(P) dependent steps a lane
-//    where one thread per row takes O(P^2), which at a few rows per
-//    block is most of a tick; lane 0 of each row stores the new commit
-//    and the (disarmed) deadline and writes out[4, G];
-// 5. it writes back, with 16-byte stores, only what changed: every array
-//    of a tile that a refresh row landed in, match and ack of a tile an
-//    ack landed in, nothing else.
-// So the refresh lands before the acks, as in JAX, and no tick needs a
-// second launch.  The scans cost every block D + E index loads from L2
-// (at most 64 KB each at the engine's caps).
+//    while they are in flight, scans the tick's row indices (16-byte
+//    loads, from L2: every block reads them all):
+//    - K2: the D refresh indices, noting per tile row which refresh entry
+//      lands on it;
+//    - K1, K5: the packed event columns of the planes the tile overlaps,
+//      listing those that land in it (a shared list of up to kHitCap); a
+//      tile that more land in (a hot group's acks) scans the columns
+//      again after the copies and lands its hits kLandBatch a thread at
+//      a time (the engine pads a tick with a row index that lands in no
+//      tile);
+// 2. it waits for the copies and lands the tick's events on the tile:
+//    - K2: the refreshed rows over the staged tile, then the E ack columns
+//      with shared-memory atomicMax on match and ack (a column's other
+//      fields are read only when its row is in the tile);
+//    - K1, K5: each listed column's slot update (flush by shared atomicMax;
+//      the deadline by a plain store: update slots are unique per tick,
+//      and where two name one row either may land, as in XLA) and its ack
+//      (atomicMax on match and ack); integer max is order-free, so the
+//      result is deterministic.  Updates and acks touch disjoint arrays,
+//      so one pass lands both, and both land before the row math, as in
+//      JAX: a deadline re-armed in the same tick is seen by the timeout
+//      check;
+// 3. it runs the row math on the shared tile with one lane per peer slot
+//    (8 or 16 lanes a row): a member's rank in its row is counted over the
+//    row's lanes with warp shuffles, O(P) dependent steps a lane where one
+//    thread per row takes O(P^2), and the majority member is picked by a
+//    ballot, ties broken by peer index; lane 0 of each row writes out[4, G]
+//    and the new commit and (disarmed) deadline where they changed;
+// 4. it writes back, with 16-byte stores, only what changed: every array
+//    of a tile that a refresh row landed in, flush of a tile a flush
+//    update landed in, match and ack of a tile an ack landed in.
+// The scans cost every block its events' index loads from L2: D + E for
+// K2, E for K1 (at most 64 KB at the engine's caps).  K5 is K1 over S
+// contiguous slices of Gs = G / S rows, each with its own event plane of E
+// columns ([7, S, E]) whose rows are local to the slice: a block scans
+// only the planes of the slices its tile overlaps (Gs need not be a
+// multiple of T, so a tile may straddle two slices), and a column of
+// plane s wraps and drops its row by Gs, so a row past the slice is
+// dropped, never spilled into the next, and -1 is the slice's last row.
+// With S = 1 it is K1: both run the same code.
 //
-// The engine reaches K2 through a prepared call (``k2_plan_new`` once per
-// resident state, ``k2_tick`` per tick): the host packs the refresh rows
-// and acks into one pinned buffer (the layout is the host's: each tick
-// passes its sections' byte offsets), and one C call copies it to the
-// card, launches ``refresh_tick``, copies out[4, G] back and synchronises
-// the stream.  The public wrapper launches the same kernel on separate
-// tensors (``k2_resident``).
+// The engine reaches K2 through ``k2_tick`` and K1 / K5 through
+// ``fast_tick`` on a prepared call (``tick_plan_new`` once per resident
+// state): the host packs the tick into one pinned buffer (the layout is
+// the host's: each tick passes its sections' byte offsets), and one C call
+// copies it to the card, launches ``tile_tick``, copies out[4, G] back and
+// synchronises the stream.  The public wrappers launch the same kernel on
+// separate tensors (``k1_resident_fast``, ``k5_resident_fast_sliced``,
+// ``k2_resident``).
 //
-// Design of the rest:
-// - Scatter indices follow XLA's mode="drop": an index in [-n, -1] counts
-//   from the end of its own dimension (n + idx), one outside [-n, n) is
-//   skipped (the engine pads with index G).  Refresh rows are unique
-//   once wrapped (the engine packs each dirty row once); if two were not,
-//   either may land, as either may in XLA.
-// - Event pass (K1, K5, K6): one thread per event column.  A valid ack
-//   does atomicMax on match_index[g, p] and last_ack_ms[g, p]; invalid
-//   acks write nothing.  Update columns (K1, K5) atomicMax the flush index
-//   and store the deadline; update slots are unique per tick (the engine
-//   keys them by slot).  For K5 the pass covers all S x E columns and
-//   takes each column's slice from its position; padding columns (valid
-//   0, both update rows PACK_SENTINEL) write nothing.
-// - Row pass (K1, K5, K6): one thread per group row, its <= MAXP peer
-//   values in registers.  The majority-min of a row is the member of rank
-//   (k-1)/2 in ascending order, found by counting ranks (O(P^2) compares,
-//   no sort, no local memory; ``row_math.cuh``, shared with K7c).  In
-//   place (K1, K5) it writes the new commit and the disarmed deadline
-//   back into the state and writes out[4, G]; K6's instance writes
-//   new_commit [G] and the flags [3, G] only.  K2's row math takes the
-//   same ranks with ties broken by peer index, so both pick one member.
-// - int32 arithmetic that XLA wraps (now - quorum_ack) is done in uint32:
-//   signed overflow is undefined in C++.
+// K6 is two flat launches after two device-to-device copies on the same
+// stream: ``apply_events`` (one thread per ack column, global atomicMax
+// on the copies) and ``row_pass`` (one thread per group row, its <= MAXP
+// peer values in registers, ranks counted in O(P^2) compares by
+// ``row_math.cuh``).
+//
+// Scatter indices follow XLA's mode="drop": an index in [-n, -1] counts
+// from the end of its own dimension (n + idx), one outside [-n, n) is
+// skipped (the engine pads refresh rows with index G, fast-tick columns
+// with PACK_SENTINEL).  Refresh rows are unique once wrapped (the engine
+// packs each dirty row once); if two were not, either may land, as either
+// may in XLA.  int32 arithmetic that XLA wraps
+// (now - quorum_ack) is done in uint32: signed overflow is undefined in
+// C++.
+
+#include <climits>
 
 #include "row_math.cuh"
 
@@ -106,56 +106,36 @@ constexpr int32_t kSentinel = INT32_MIN;  // ops.quorum.PACK_SENTINEL
 constexpr int8_t kRoleFollower = 1;
 constexpr int8_t kRoleLeader = 3;
 
-// Pass A: scatter ack events and (K1, K5) slot updates.  ``valid`` is read
-// through its own type: int32 row 4 of the fast pack, bool for K6.
-// Column e belongs to slice e / Es, whose rows are [s * Gs, (s + 1) * Gs);
-// its row index is local to the slice and wraps and drops by Gs.  K1 and
-// K6 are one slice: Es = E, Gs = G.
-template <typename V>
+// -- K6: the stateless tick in two flat passes ------------------------------
+
+// Scatter-max the E valid acks into the copies of match and ack.
 __global__ void apply_events(
     const int32_t* __restrict__ ev_g, const int32_t* __restrict__ ev_p,
     const int32_t* __restrict__ ev_m, const int32_t* __restrict__ ev_t,
-    const V* __restrict__ ev_valid, const int32_t* __restrict__ up_flush,
-    const int32_t* __restrict__ up_deadline, int E, int Es, int Gs, int P,
-    int32_t* match, int32_t* ack, int32_t* flush, int32_t* deadline) {
+    const uint8_t* __restrict__ ev_valid, int E, int G, int P,
+    int32_t* match, int32_t* ack) {
   int e = blockIdx.x * blockDim.x + threadIdx.x;
-  if (e >= E) return;
-  int g = wrap_index(ev_g[e], Gs);
-  bool in_row = g >= 0 && g < Gs;
-  g += (e / Es) * Gs;
-  if (ev_valid[e] != 0) {
-    int p = wrap_index(ev_p[e], P);
-    if (in_row && p >= 0 && p < P) {
-      size_t i = (size_t)g * P + p;
-      atomicMax(&match[i], ev_m[e]);
-      atomicMax(&ack[i], ev_t[e]);
-    }
-  }
-  if (up_flush != nullptr && in_row) {
-    int32_t f = up_flush[e];
-    if (f != kSentinel) atomicMax(&flush[g], f);
-    int32_t dl = up_deadline[e];
-    if (dl != kSentinel) deadline[g] = dl;
-  }
+  if (e >= E || ev_valid[e] == 0) return;
+  int g = wrap_index(ev_g[e], G);
+  int p = wrap_index(ev_p[e], P);
+  if (g < 0 || g >= G || p < 0 || p >= P) return;
+  size_t i = (size_t)g * P + p;
+  atomicMax(&match[i], ev_m[e]);
+  atomicMax(&ack[i], ev_t[e]);
 }
 
-// Pass B: the row math.  now/timeout come from ``meta`` when given (K1's
-// device-side meta), else from the arguments (K6).  kInPlace (K1, K5):
-// commit and deadline are updated and out is int32 [4, G]; otherwise (K6)
-// out is new_commit [G], flags bool [3, G], and no input is written.
-template <bool kInPlace>
+// The row math of K6: new_commit [G] and flags bool [3, G]
+// (commit_changed, timeouts, stale); no input is written.
 __global__ void row_pass(
     const int32_t* __restrict__ match, const int32_t* __restrict__ ack,
     const uint8_t* __restrict__ self_mask, const uint8_t* __restrict__ cur,
     const uint8_t* __restrict__ old, const int8_t* __restrict__ role,
-    const int32_t* __restrict__ flush, int32_t* commit,
-    const int32_t* __restrict__ first, int32_t* deadline,
-    const int32_t* __restrict__ meta, int now_arg, int timeout_arg,
-    int32_t* __restrict__ out, uint8_t* __restrict__ flags, int G, int P) {
+    const int32_t* __restrict__ flush, const int32_t* __restrict__ commit,
+    const int32_t* __restrict__ first, const int32_t* __restrict__ deadline,
+    int now, int timeout, int32_t* __restrict__ new_commit,
+    uint8_t* __restrict__ flags, int G, int P) {
   int g = blockIdx.x * blockDim.x + threadIdx.x;
   if (g >= G) return;
-  int32_t now = meta != nullptr ? meta[0] : now_arg;
-  int32_t timeout = meta != nullptr ? meta[1] : timeout_arg;
   const size_t base = (size_t)g * P;
   unsigned cb = row_bits(cur + base, P);
   unsigned ob = row_bits(old + base, P);
@@ -174,31 +154,30 @@ __global__ void row_pass(
   int32_t c = commit[g];
   int32_t cand = combined_majority_min(eff, cb, ob);
   bool ok = is_leader && cand > c && cand >= first[g];
-  int32_t new_commit = ok ? cand : c;
   // election_timeout
-  int32_t dl = deadline[g];
-  bool timed_out = r == kRoleFollower && now >= dl;
+  bool timed_out = r == kRoleFollower && now >= deadline[g];
   // check_leadership (int32 subtraction wraps, as in XLA)
   int32_t quorum_ack = combined_majority_min(eff_ack, cb, ob);
   bool stale = is_leader && wrap_sub(now, quorum_ack) > timeout;
-
-  out[g] = new_commit;
-  if constexpr (kInPlace) {
-    commit[g] = new_commit;
-    if (timed_out) deadline[g] = kIntMax;
-    out[G + g] = ok;
-    out[2 * G + g] = timed_out;
-    out[3 * G + g] = stale;
-  } else {
-    flags[g] = ok;
-    flags[G + g] = timed_out;
-    flags[2 * G + g] = stale;
-  }
+  new_commit[g] = ok ? cand : c;
+  flags[g] = ok;
+  flags[G + g] = timed_out;
+  flags[2 * G + g] = stale;
 }
 
-// -- K2: the refresh tick in one launch -------------------------------------
+// -- K1, K2, K5: the tile kernel --------------------------------------------
 
 constexpr int kTileThreads = 256;
+constexpr int kMaxTile = 128;
+// the event columns a K1 / K5 block lists while its tile is copied in,
+// and the listed columns whose fields a thread loads before landing any
+// (kTileThreads * kLandBatch <= kHitCap: the rescan of a tile whose list
+// overflowed gathers each thread's hits in the list)
+constexpr int kHitCap = 2048;
+constexpr int kLandBatch = 4;
+static_assert(kTileThreads * kLandBatch <= kHitCap, "rescan slots");
+// a listed column is (column << 8) | tile row: at most 2^23 columns
+constexpr long long kMaxColumns = 1 << 23;
 
 struct StateArgs {
   int32_t* match;
@@ -233,6 +212,39 @@ struct AckArgs {  // E unpacked ack columns
   const int32_t* m;
   const int32_t* t;
   const uint8_t* valid;
+};
+
+// The packed fast tick's seven rows, each [S, E] (plane s at s * E): slot
+// local to the slice, peer, match, time, valid (acks), new flush, new
+// deadline (updates; PACK_SENTINEL where none)
+struct FastArgs {
+  const int32_t* slot;
+  const int32_t* peer;
+  const int32_t* match;
+  const int32_t* time;
+  const int32_t* valid;
+  const int32_t* flush;
+  const int32_t* deadline;
+};
+
+// A block's tile of the state in shared memory, and what the tick changed
+// in it
+template <int T>
+struct Tile {
+  alignas(16) int32_t match[T * MAXP];
+  alignas(16) int32_t ack[T * MAXP];
+  alignas(16) uint8_t self_mask[T * MAXP];
+  alignas(16) uint8_t cur[T * MAXP];
+  alignas(16) uint8_t old[T * MAXP];
+  alignas(16) int32_t flush[T];
+  alignas(16) int32_t commit[T];
+  alignas(16) int32_t first[T];
+  alignas(16) int32_t deadline[T];
+  alignas(16) int8_t role[T];
+  int rows;       // a refresh row landed: every array changed
+  int flushed;    // a flush update landed
+  int deadlined;  // a deadline update landed
+  int acked;      // an ack landed
 };
 
 __device__ __forceinline__ bool aligned16(const void* p) {
@@ -280,7 +292,11 @@ __device__ __forceinline__ void unstage(void* gmem, const void* smem,
 }
 
 // f(i, a[i]) for every i in [0, n), split over the block's threads, with
-// 16-byte loads when the array is aligned
+// 16-byte loads when the array is aligned, kScanBatch of them issued
+// together before f runs on any (f's shared-memory atomics would
+// otherwise hold each load back until the one before had landed)
+constexpr int kScanBatch = 4;
+
 template <typename F>
 __device__ __forceinline__ void for_each_index(const int32_t* a, int n,
                                                F&& f) {
@@ -288,12 +304,25 @@ __device__ __forceinline__ void for_each_index(const int32_t* a, int n,
   if (aligned16(a)) {
     head = n & ~3;
     const int4* v = reinterpret_cast<const int4*>(a);
-    for (int i = threadIdx.x; i < head / 4; i += blockDim.x) {
-      int4 x = __ldg(v + i);
-      f(4 * i, x.x);
-      f(4 * i + 1, x.y);
-      f(4 * i + 2, x.z);
-      f(4 * i + 3, x.w);
+    const int nv = head / 4;
+    for (int base = threadIdx.x; base < nv;
+         base += kScanBatch * blockDim.x) {
+      int4 x[kScanBatch];
+#pragma unroll
+      for (int k = 0; k < kScanBatch; ++k) {
+        const int i = base + k * blockDim.x;
+        x[k] = i < nv ? __ldg(v + i) : make_int4(0, 0, 0, 0);
+      }
+#pragma unroll
+      for (int k = 0; k < kScanBatch; ++k) {
+        const int i = base + k * blockDim.x;
+        if (i < nv) {
+          f(4 * i, x[k].x);
+          f(4 * i + 1, x[k].y);
+          f(4 * i + 2, x[k].z);
+          f(4 * i + 3, x[k].w);
+        }
+      }
     }
   }
   for (int i = head + threadIdx.x; i < n; i += blockDim.x) f(i, __ldg(a + i));
@@ -318,34 +347,51 @@ __device__ __forceinline__ int32_t lane_majority_min(int32_t v, int rank,
   return who ? m : kIntMin;
 }
 
-// Step 4 of refresh_tick: the row math of the tile in shared memory, one
-// lane per peer slot.  L (8 or 16, >= P) consecutive lanes hold a row; a
-// member's rank in its row is counted over L shuffles, so a row costs
-// O(P) steps per lane instead of O(P^2) in one thread.  Lane 0 of each
-// row stores the new commit and deadline and writes out[4, G].
-template <int L>
+// Step 1: start the copies of rows [r0, r0 + n) into the tile.
+template <int T>
+__device__ __forceinline__ void stage_tile(Tile<T>& t, const StateArgs& st,
+                                           int r0, int n, int P) {
+  const size_t base = (size_t)r0 * P;
+  const int np = n * P;
+  stage(t.match, st.match + base, np * 4);
+  stage(t.ack, st.ack + base, np * 4);
+  stage(t.self_mask, st.self_mask + base, np);
+  stage(t.cur, st.cur + base, np);
+  stage(t.old, st.old + base, np);
+  stage(t.flush, st.flush + r0, n * 4);
+  stage(t.commit, st.commit + r0, n * 4);
+  stage(t.first, st.first + r0, n * 4);
+  stage(t.deadline, st.deadline + r0, n * 4);
+  stage(t.role, st.role + r0, n);
+}
+
+// Step 3: the row math of the tile, one lane per peer slot.  L (8 or 16,
+// >= P) consecutive lanes hold a row; a member's rank in its row is
+// counted over L shuffles, so a row costs O(P) steps per lane instead of
+// O(P^2) in one thread.  Lane 0 of each row writes out[4, G], and the new
+// commit and deadline into the state where the tick changed them.
+template <int L, int T>
 __device__ __forceinline__ void tile_row_math(
-    const StateArgs& st, const int32_t* s_match, const int32_t* s_ack,
-    const uint8_t* s_self, const uint8_t* s_cur, const uint8_t* s_old,
-    const int8_t* s_role, const int32_t* s_flush, const int32_t* s_commit,
-    const int32_t* s_first, const int32_t* s_deadline, int r0, int n,
-    int now, int timeout, int32_t* __restrict__ out, int G, int P) {
+    const StateArgs& st, const Tile<T>& t, int r0, int n, int now,
+    int timeout, int32_t* __restrict__ out, int G, int P) {
   const int lane = threadIdx.x % L;
   const int shift = (threadIdx.x % 32) / L * L;
   const int rows_per_pass = blockDim.x / L;
+  const bool rows_changed = t.rows != 0;
+  const bool deadlines_changed = rows_changed || t.deadlined != 0;
   for (int base = 0; base < n; base += rows_per_pass) {
     const int r = base + threadIdx.x / L;
     const bool row = r < n;
     const bool in = row && lane < P;
     const int i = r * P + lane;
-    const int32_t fl = row ? s_flush[r] : 0;
-    const bool self = in && s_self[i];
-    const int32_t eff = self ? fl : (in ? s_match[i] : kIntMax);
-    const int32_t eff_ack = self ? now : (in ? s_ack[i] : kIntMax);
+    const int32_t fl = row ? t.flush[r] : 0;
+    const bool self = in && t.self_mask[i];
+    const int32_t eff = self ? fl : (in ? t.match[i] : kIntMax);
+    const int32_t eff_ack = self ? now : (in ? t.ack[i] : kIntMax);
     const unsigned cb =
-        (__ballot_sync(kFullWarp, in && s_cur[i]) >> shift) & ((1u << L) - 1u);
+        (__ballot_sync(kFullWarp, in && t.cur[i]) >> shift) & ((1u << L) - 1u);
     const unsigned ob =
-        (__ballot_sync(kFullWarp, in && s_old[i]) >> shift) & ((1u << L) - 1u);
+        (__ballot_sync(kFullWarp, in && t.old[i]) >> shift) & ((1u << L) - 1u);
     int rc = 0, ro = 0, rac = 0, rao = 0;
 #pragma unroll
     for (int j = 0; j < L; ++j) {
@@ -369,17 +415,18 @@ __device__ __forceinline__ void tile_row_math(
       q = min(q, q_old);
     }
     if (!row || lane != 0) continue;
-    const int8_t role = s_role[r];
+    const int8_t role = t.role[r];
     const bool is_leader = role == kRoleLeader;
-    const int32_t c = s_commit[r], dl = s_deadline[r];
-    const bool ok = is_leader && cand > c && cand >= s_first[r];
+    const int32_t c = t.commit[r], dl = t.deadline[r];
+    const bool ok = is_leader && cand > c && cand >= t.first[r];
     const int32_t new_commit = ok ? cand : c;
     const bool timed_out = role == kRoleFollower && now >= dl;
     // int32 subtraction wraps, as in XLA
     const bool stale = is_leader && wrap_sub(now, q) > timeout;
     const int g = r0 + r;
-    st.commit[g] = new_commit;
-    st.deadline[g] = timed_out ? kIntMax : dl;
+    if (ok || rows_changed) st.commit[g] = new_commit;
+    if (timed_out || deadlines_changed)
+      st.deadline[g] = timed_out ? kIntMax : dl;
     out[g] = new_commit;
     out[G + g] = ok;
     out[2 * G + g] = timed_out;
@@ -387,133 +434,271 @@ __device__ __forceinline__ void tile_row_math(
   }
 }
 
-template <int T, int L>
-__global__ void __launch_bounds__(kTileThreads)
-    refresh_tick(StateArgs st, RefreshArgs rf, AckArgs ev, int now,
-                 int timeout, int32_t* __restrict__ out, int G, int P, int D,
-                 int E) {
-  __shared__ __align__(16) int32_t s_match[T * MAXP];
-  __shared__ __align__(16) int32_t s_ack[T * MAXP];
-  __shared__ __align__(16) uint8_t s_self[T * MAXP];
-  __shared__ __align__(16) uint8_t s_cur[T * MAXP];
-  __shared__ __align__(16) uint8_t s_old[T * MAXP];
-  __shared__ __align__(16) int32_t s_flush[T];
-  __shared__ __align__(16) int32_t s_commit[T];
-  __shared__ __align__(16) int32_t s_first[T];
-  __shared__ __align__(16) int32_t s_deadline[T];
-  __shared__ __align__(16) int8_t s_role[T];
-  __shared__ int s_src[T];  // the refresh entry that lands on a row, or -1
-  __shared__ int s_refreshed, s_acked;
-
-  const int r0 = blockIdx.x * T;
-  const int n = min(T, G - r0);
+// Step 4: write back what the tick changed (commit and deadline went
+// straight to the state in step 3).
+template <int T>
+__device__ __forceinline__ void write_back(const Tile<T>& t,
+                                           const StateArgs& st, int r0,
+                                           int n, int P) {
   const size_t base = (size_t)r0 * P;
   const int np = n * P;
+  if (t.rows) {
+    unstage(st.self_mask + base, t.self_mask, np);
+    unstage(st.cur + base, t.cur, np);
+    unstage(st.old + base, t.old, np);
+    unstage(st.role + r0, t.role, n);
+    unstage(st.first + r0, t.first, n * 4);
+  }
+  if (t.rows || t.flushed) unstage(st.flush + r0, t.flush, n * 4);
+  if (t.rows || t.acked) {
+    unstage(st.match + base, t.match, np * 4);
+    unstage(st.ack + base, t.ack, np * 4);
+  }
+}
 
-  // 1. the tile, copied while the refresh indices are scanned
-  stage(s_match, st.match + base, np * 4);
-  stage(s_ack, st.ack + base, np * 4);
-  stage(s_self, st.self_mask + base, np);
-  stage(s_cur, st.cur + base, np);
-  stage(s_old, st.old + base, np);
-  stage(s_flush, st.flush + r0, n * 4);
-  stage(s_commit, st.commit + r0, n * 4);
-  stage(s_first, st.first + r0, n * 4);
-  stage(s_deadline, st.deadline + r0, n * 4);
-  stage(s_role, st.role + r0, n);
-  for (int i = threadIdx.x; i < T; i += blockDim.x) s_src[i] = -1;
-  if (threadIdx.x == 0) s_refreshed = s_acked = 0;
-  __syncthreads();
-  for_each_index(rf.idx, D, [&](int d, int32_t raw) {
-    int r = wrap_index(raw, G) - r0;
-    if (r >= 0 && r < n) {
-      s_src[r] = d;
-      s_refreshed = 1;
+// K2's events: D refresh rows, then E unpacked acks with global rows.
+struct RefreshEvents {
+  RefreshArgs rf;
+  AckArgs ev;
+  int D, E;
+
+  struct Shared {
+    int src[kMaxTile];  // the refresh entry that lands on a row, or -1
+    int refreshed;
+  };
+
+  __device__ void init(Shared& s) const {
+    for (int i = threadIdx.x; i < kMaxTile; i += blockDim.x) s.src[i] = -1;
+    if (threadIdx.x == 0) s.refreshed = 0;
+  }
+
+  // step 1, while the tile is copied in: which refresh entry lands where
+  __device__ void scan(Shared& s, int r0, int n, int G) const {
+    for_each_index(rf.idx, D, [&](int d, int32_t raw) {
+      int r = wrap_index(raw, G) - r0;
+      if (r >= 0 && r < n) {
+        s.src[r] = d;
+        s.refreshed = 1;
+      }
+    });
+  }
+
+  // step 2: the refreshed rows over the staged tile, then the acks on top
+  template <int T>
+  __device__ void land(Shared& s, Tile<T>& t, int r0, int n, int G,
+                       int P) const {
+    if (s.refreshed) {
+      const int np = n * P;
+      for (int i = threadIdx.x; i < np; i += blockDim.x) {
+        int d = s.src[i / P];
+        if (d < 0) continue;
+        size_t src = (size_t)d * P + i % P;
+        t.match[i] = rf.match[src];
+        t.ack[i] = rf.ack[src];
+        t.self_mask[i] = rf.self_mask[src];
+        t.cur[i] = rf.cur[src];
+        t.old[i] = rf.old[src];
+      }
+      for (int r = threadIdx.x; r < n; r += blockDim.x) {
+        int d = s.src[r];
+        if (d < 0) continue;
+        t.role[r] = rf.role[d];
+        t.flush[r] = rf.flush[d];
+        t.commit[r] = rf.commit[d];
+        t.first[r] = rf.first[d];
+        t.deadline[r] = rf.deadline[d];
+      }
+      if (threadIdx.x == 0) t.rows = 1;
     }
-  });
+    __syncthreads();
+    for_each_index(ev.g, E, [&](int e, int32_t raw) {
+      int r = wrap_index(raw, G) - r0;
+      if (r < 0 || r >= n) return;
+      // the column's fields, loaded together
+      const uint8_t valid = __ldg(ev.valid + e);
+      const int p = wrap_index(__ldg(ev.p + e), P);
+      const int32_t m = __ldg(ev.m + e), ts = __ldg(ev.t + e);
+      if (valid == 0 || p < 0 || p >= P) return;
+      atomicMax(&t.match[r * P + p], m);
+      atomicMax(&t.ack[r * P + p], ts);
+      t.acked = 1;
+    });
+  }
+};
+
+// K1's and K5's events: S planes of E packed columns, rows local to the
+// slice of Gs = G / S rows (K1: S = 1).
+struct FastEvents {
+  FastArgs a;
+  int S, E;
+
+  struct Shared {
+    int hits[kHitCap];  // (column << 8) | tile row of the listed columns
+    int n;              // the columns that land in the tile
+  };
+
+  __device__ void init(Shared& s) const {
+    if (threadIdx.x == 0) s.n = 0;
+  }
+
+  // the tile row a column of plane s lands on, or -1
+  __device__ __forceinline__ int row_of(int s, int32_t raw, int r0, int n,
+                                        int gs) const {
+    int l = wrap_index(raw, gs);
+    if (l < 0 || l >= gs) return -1;
+    int r = s * gs + l - r0;
+    return r >= 0 && r < n ? r : -1;
+  }
+
+  // f(column, tile row) for each column of the planes this tile overlaps
+  // that lands in it
+  template <typename F>
+  __device__ __forceinline__ void for_each_hit(int r0, int n, int G,
+                                               F&& f) const {
+    const int gs = G / S;
+    for (int s = r0 / gs; s <= (r0 + n - 1) / gs; ++s)
+      for_each_index(a.slot + (size_t)s * E, E, [&](int e, int32_t raw) {
+        const int r = row_of(s, raw, r0, n, gs);
+        if (r >= 0) f(s * E + e, r);
+      });
+  }
+
+  // step 1, while the tile is copied in: list the columns that land in it
+  __device__ void scan(Shared& sh, int r0, int n, int G) const {
+    for_each_hit(r0, n, G, [&](int c, int r) {
+      const int k = atomicAdd(&sh.n, 1);
+      if (k < kHitCap) sh.hits[k] = (c << 8) | r;
+    });
+  }
+
+  // the updates (flush by atomicMax, the deadline by a plain store) and
+  // acks (atomicMax on match and ack) of the listed columns h[0, nh),
+  // nh <= kLandBatch, every column's fields loaded before any lands
+  template <int T>
+  __device__ __forceinline__ void land_batch(Tile<T>& t, const int* h,
+                                             int nh, int P) const {
+    int r[kLandBatch], p[kLandBatch];
+    int32_t f[kLandBatch], dl[kLandBatch], valid[kLandBatch];
+    int32_t m[kLandBatch], ts[kLandBatch];
+#pragma unroll
+    for (int k = 0; k < kLandBatch; ++k) {
+      r[k] = -1;
+      if (k >= nh) continue;
+      const int c = h[k] >> 8;
+      r[k] = h[k] & 255;
+      f[k] = __ldg(a.flush + c);
+      dl[k] = __ldg(a.deadline + c);
+      valid[k] = __ldg(a.valid + c);
+      p[k] = wrap_index(__ldg(a.peer + c), P);
+      m[k] = __ldg(a.match + c);
+      ts[k] = __ldg(a.time + c);
+    }
+#pragma unroll
+    for (int k = 0; k < kLandBatch; ++k) {
+      if (r[k] < 0) continue;
+      if (f[k] != kSentinel) {
+        atomicMax(&t.flush[r[k]], f[k]);
+        t.flushed = 1;
+      }
+      if (dl[k] != kSentinel) {
+        t.deadline[r[k]] = dl[k];
+        t.deadlined = 1;
+      }
+      if (valid[k] == 0 || p[k] < 0 || p[k] >= P) continue;
+      atomicMax(&t.match[r[k] * P + p[k]], m[k]);
+      atomicMax(&t.ack[r[k] * P + p[k]], ts[k]);
+      t.acked = 1;
+    }
+  }
+
+  // step 2: the listed columns, kLandBatch a thread at a time.  A tile
+  // that more columns landed in than the list holds (a hot group's, or
+  // padding on one row) scans its planes again, each thread gathering its
+  // hits in its own kLandBatch slots of the list and landing them a batch
+  // at a time.
+  template <int T>
+  __device__ void land(Shared& sh, Tile<T>& t, int r0, int n, int G,
+                       int P) const {
+    const int hits = sh.n;
+    if (hits <= kHitCap) {
+      for (int i = threadIdx.x * kLandBatch; i < hits;
+           i += blockDim.x * kLandBatch)
+        land_batch(t, sh.hits + i, min(kLandBatch, hits - i), P);
+      return;
+    }
+    int* mine = sh.hits + threadIdx.x * kLandBatch;
+    int nb = 0;
+    for_each_hit(r0, n, G, [&](int c, int r) {
+      mine[nb++] = (c << 8) | r;
+      if (nb == kLandBatch) {
+        land_batch(t, mine, nb, P);
+        nb = 0;
+      }
+    });
+    land_batch(t, mine, nb, P);
+  }
+};
+
+// One tick on a tile of T rows: copy in while scanning the events (1),
+// land the events (2), the row math (3), write back (4).  ``meta``, when
+// given, holds (now, timeout) on the card (the K1 / K5 public wrappers);
+// otherwise they are the arguments.
+template <int T, int L, class Events>
+__global__ void __launch_bounds__(kTileThreads)
+    tile_tick(StateArgs st, Events ev, int now, int timeout,
+              const int32_t* __restrict__ meta, int32_t* __restrict__ out,
+              int G, int P) {
+  __shared__ Tile<T> t;
+  __shared__ typename Events::Shared es;
+  const int r0 = blockIdx.x * T;
+  const int n = min(T, G - r0);
+  if (meta != nullptr) {
+    now = meta[0];
+    timeout = meta[1];
+  }
+
+  stage_tile(t, st, r0, n, P);
+  if (threadIdx.x == 0) t.rows = t.flushed = t.deadlined = t.acked = 0;
+  ev.init(es);
+  __syncthreads();
+  ev.scan(es, r0, n, G);
   cp_async_wait_all();
   __syncthreads();
 
-  // 2. the refreshed rows over the staged tile
-  if (s_refreshed) {
-    for (int i = threadIdx.x; i < np; i += blockDim.x) {
-      int d = s_src[i / P];
-      if (d < 0) continue;
-      size_t src = (size_t)d * P + i % P;
-      s_match[i] = rf.match[src];
-      s_ack[i] = rf.ack[src];
-      s_self[i] = rf.self_mask[src];
-      s_cur[i] = rf.cur[src];
-      s_old[i] = rf.old[src];
-    }
-    for (int r = threadIdx.x; r < n; r += blockDim.x) {
-      int d = s_src[r];
-      if (d < 0) continue;
-      s_role[r] = rf.role[d];
-      s_flush[r] = rf.flush[d];
-      s_commit[r] = rf.commit[d];
-      s_first[r] = rf.first[d];
-      s_deadline[r] = rf.deadline[d];
-    }
-  }
+  ev.land(es, t, r0, n, G, P);
   __syncthreads();
 
-  // 3. the acks that land in the tile, on top of the refresh
-  for_each_index(ev.g, E, [&](int e, int32_t raw) {
-    int r = wrap_index(raw, G) - r0;
-    if (r < 0 || r >= n || ev.valid[e] == 0) return;
-    int p = wrap_index(ev.p[e], P);
-    if (p < 0 || p >= P) return;
-    atomicMax(&s_match[r * P + p], ev.m[e]);
-    atomicMax(&s_ack[r * P + p], ev.t[e]);
-    s_acked = 1;
-  });
-  __syncthreads();
-
-  // 4. the row math; commit and deadline go straight to the state
-  tile_row_math<L>(st, s_match, s_ack, s_self, s_cur, s_old, s_role, s_flush,
-                   s_commit, s_first, s_deadline, r0, n, now, timeout, out, G,
-                   P);
-
-  // 5. write back what the refresh or the acks changed
-  if (s_refreshed) {
-    unstage(st.self_mask + base, s_self, np);
-    unstage(st.cur + base, s_cur, np);
-    unstage(st.old + base, s_old, np);
-    unstage(st.role + r0, s_role, n);
-    unstage(st.flush + r0, s_flush, n * 4);
-    unstage(st.first + r0, s_first, n * 4);
-  }
-  if (s_refreshed || s_acked) {
-    unstage(st.match + base, s_match, np * 4);
-    unstage(st.ack + base, s_ack, np * 4);
-  }
+  tile_row_math<L>(st, t, r0, n, now, timeout, out, G, P);
+  write_back(t, st, r0, n, P);
 }
 
-template <int T>
-void launch_tile(const StateArgs& st, const RefreshArgs& rf,
-                 const AckArgs& ev, int now, int timeout, int32_t* out,
-                 int G, int P, int D, int E, cudaStream_t s) {
+template <int T, class Events>
+void launch_tile(const StateArgs& st, const Events& ev, int now, int timeout,
+                 const int32_t* meta, int32_t* out, int G, int P,
+                 cudaStream_t s) {
   const int grid = (G + T - 1) / T;
   if (P <= 8)
-    refresh_tick<T, 8><<<grid, kTileThreads, 0, s>>>(st, rf, ev, now,
-                                                     timeout, out, G, P, D, E);
+    tile_tick<T, 8><<<grid, kTileThreads, 0, s>>>(st, ev, now, timeout,
+                                                  meta, out, G, P);
   else
-    refresh_tick<T, 16><<<grid, kTileThreads, 0, s>>>(
-        st, rf, ev, now, timeout, out, G, P, D, E);
+    tile_tick<T, 16><<<grid, kTileThreads, 0, s>>>(st, ev, now, timeout,
+                                                   meta, out, G, P);
 }
 
-int launch_refresh(const StateArgs& st, const RefreshArgs& rf,
-                   const AckArgs& ev, int now, int timeout, int32_t* out,
-                   int G, int P, int D, int E, int tile, cudaStream_t s) {
+// One launch of ``tile_tick`` with tiles of ``tile`` rows (32 or 128),
+// then the launch's error.
+template <class Events>
+int launch_tick(const StateArgs& st, const Events& ev, int now, int timeout,
+                const int32_t* meta, int32_t* out, int G, int P, int tile,
+                cudaStream_t s) {
   if (P < 1 || P > MAXP) return (int)cudaErrorInvalidValue;
   if (G > 0) {
     switch (tile) {
       case 32:
-        launch_tile<32>(st, rf, ev, now, timeout, out, G, P, D, E, s);
+        launch_tile<32>(st, ev, now, timeout, meta, out, G, P, s);
         break;
       case 128:
-        launch_tile<128>(st, rf, ev, now, timeout, out, G, P, D, E, s);
+        launch_tile<128>(st, ev, now, timeout, meta, out, G, P, s);
         break;
       default:
         return (int)cudaErrorInvalidValue;
@@ -522,7 +707,25 @@ int launch_refresh(const StateArgs& st, const RefreshArgs& rf,
   return (int)cudaGetLastError();
 }
 
-struct RefreshPlan {
+// K1 (S = 1) and K5 on a packed [7, S, E] event array: G a multiple of S,
+// S * E an int
+int launch_fast(const StateArgs& st, const int32_t* ev, const int32_t* meta,
+                int now, int timeout, int32_t* out, int G, int P, int S,
+                int E, int tile, cudaStream_t s) {
+  if (S < 1 || E < 0 || G % S != 0 || (long long)S * E > kMaxColumns)
+    return (int)cudaErrorInvalidValue;
+  const size_t n = (size_t)S * E;
+  FastEvents fe{{ev, ev + n, ev + 2 * n, ev + 3 * n, ev + 4 * n, ev + 5 * n,
+                 ev + 6 * n},
+                S,
+                E};
+  return launch_tick(st, fe, now, timeout, meta, out, G, P, tile, s);
+}
+
+// A prepared call on one resident state: its ten arrays, a pinned input
+// buffer and its device copy (room for the largest packed tick), and
+// out[4, G] on the card and pinned on the host.
+struct TickPlan {
   StateArgs st;
   const uint8_t* host_in;  // pinned
   uint8_t* dev_in;
@@ -530,6 +733,27 @@ struct RefreshPlan {
   int32_t* host_out;       // pinned int32 [4, G]
   int G, P, tile, device;
 };
+
+// One tick through a plan, in one call: ``nbytes`` of the packed input to
+// the card, ``launch(dev_in)``, out[4, G] back to the pinned host buffer,
+// and the stream synchronised.
+template <class Launch>
+int run_plan(const TickPlan& k, size_t nbytes, cudaStream_t s,
+             Launch&& launch) {
+  int prev = -1;
+  cudaError_t err = cudaGetDevice(&prev);
+  if (err == cudaSuccess && prev != k.device) err = cudaSetDevice(k.device);
+  if (err != cudaSuccess) return (int)err;
+  err = cudaMemcpyAsync(k.dev_in, k.host_in, nbytes, cudaMemcpyHostToDevice,
+                        s);
+  if (err == cudaSuccess) err = (cudaError_t)launch(k.dev_in);
+  if (err == cudaSuccess)
+    err = cudaMemcpyAsync(k.host_out, k.dev_out, (size_t)16 * k.G,
+                          cudaMemcpyDeviceToHost, s);
+  if (err == cudaSuccess) err = cudaStreamSynchronize(s);
+  if (prev != k.device) cudaSetDevice(prev);
+  return (int)err;
+}
 
 }  // namespace
 
@@ -539,58 +763,37 @@ const char* k_error_string(int err) {
   return cudaGetErrorString((cudaError_t)err);
 }
 
-// K1 (S = 1) and K5: ev is int32 [7, S, E] (rows: slot local to the
-// slice, peer, match, time, valid, flush, deadline), meta int32 [2]
-// (now_ms, leadership_timeout_ms); G is a multiple of S
-static int resident_fast(int32_t* match, int32_t* ack,
-                         const uint8_t* self_mask, const uint8_t* cur,
-                         const uint8_t* old, const int8_t* role,
-                         int32_t* flush, int32_t* commit,
-                         const int32_t* first, int32_t* deadline,
-                         const int32_t* ev, const int32_t* meta, int32_t* out,
-                         int G, int P, int S, int E, cudaStream_t s) {
-  const int cols = S * E;
-  if (cols > 0) {
-    const size_t n = (size_t)cols;
-    apply_events<int32_t><<<blocks(cols), kThreads, 0, s>>>(
-        ev, ev + n, ev + 2 * n, ev + 3 * n, ev + 4 * n, ev + 5 * n,
-        ev + 6 * n, cols, E, G / S, P, match, ack, flush, deadline);
-  }
-  if (G > 0)
-    row_pass<true><<<blocks(G), kThreads, 0, s>>>(
-        match, ack, self_mask, cur, old, role, flush, commit, first,
-        deadline, meta, 0, 0, out, nullptr, G, P);
-  return (int)cudaGetLastError();
+// K1 on separate tensors: ev is int32 [7, E] (rows: slot, peer, match,
+// time, valid, flush, deadline), meta int32 [2] (now_ms,
+// leadership_timeout_ms) on the card; one launch of ``tile_tick``
+int k1_resident_fast(int32_t* match, int32_t* ack, uint8_t* self_mask,
+                     uint8_t* cur, uint8_t* old, int8_t* role,
+                     int32_t* flush, int32_t* commit, int32_t* first,
+                     int32_t* deadline, const int32_t* ev,
+                     const int32_t* meta, int32_t* out, int G, int P, int E,
+                     int tile, void* stream) {
+  StateArgs st{match, ack, self_mask, cur, old, role, flush, commit, first,
+               deadline};
+  return launch_fast(st, ev, meta, 0, 0, out, G, P, 1, E, tile,
+                     (cudaStream_t)stream);
 }
 
-int k1_resident_fast(int32_t* match, int32_t* ack, const uint8_t* self_mask,
-                     const uint8_t* cur, const uint8_t* old,
-                     const int8_t* role, int32_t* flush, int32_t* commit,
-                     const int32_t* first, int32_t* deadline,
-                     const int32_t* ev, const int32_t* meta, int32_t* out,
-                     int G, int P, int E, void* stream) {
-  return resident_fast(match, ack, self_mask, cur, old, role, flush, commit,
-                       first, deadline, ev, meta, out, G, P, 1, E,
-                       (cudaStream_t)stream);
-}
-
-int k5_resident_fast_sliced(int32_t* match, int32_t* ack,
-                            const uint8_t* self_mask, const uint8_t* cur,
-                            const uint8_t* old, const int8_t* role,
-                            int32_t* flush, int32_t* commit,
-                            const int32_t* first, int32_t* deadline,
-                            const int32_t* ev, const int32_t* meta,
-                            int32_t* out, int G, int P, int S, int E,
-                            void* stream) {
-  if (S < 1 || G % S != 0) return (int)cudaErrorInvalidValue;
-  return resident_fast(match, ack, self_mask, cur, old, role, flush, commit,
-                       first, deadline, ev, meta, out, G, P, S, E,
-                       (cudaStream_t)stream);
+// K5 on separate tensors: ev is int32 [7, S, E], rows local to each
+// slice of G / S rows; otherwise as K1
+int k5_resident_fast_sliced(int32_t* match, int32_t* ack, uint8_t* self_mask,
+                            uint8_t* cur, uint8_t* old, int8_t* role,
+                            int32_t* flush, int32_t* commit, int32_t* first,
+                            int32_t* deadline, const int32_t* ev,
+                            const int32_t* meta, int32_t* out, int G, int P,
+                            int S, int E, int tile, void* stream) {
+  StateArgs st{match, ack, self_mask, cur, old, role, flush, commit, first,
+               deadline};
+  return launch_fast(st, ev, meta, 0, 0, out, G, P, S, E, tile,
+                     (cudaStream_t)stream);
 }
 
 // K2 on separate tensors: refresh D rows, scatter E unpacked acks, the
-// row math, in one launch of ``refresh_tick`` with tiles of ``tile`` rows
-// (32 or 128)
+// row math, in one launch of ``tile_tick`` with tiles of ``tile`` rows
 int k2_resident(int32_t* match, int32_t* ack, uint8_t* self_mask,
                 uint8_t* cur, uint8_t* old, int8_t* role, int32_t* flush,
                 int32_t* commit, int32_t* first, int32_t* deadline,
@@ -606,70 +809,83 @@ int k2_resident(int32_t* match, int32_t* ack, uint8_t* self_mask,
                 int tile, void* stream) {
   StateArgs st{match, ack, self_mask, cur, old, role, flush, commit, first,
                deadline};
-  RefreshArgs rf{rf_idx, rf_match, rf_ack, rf_self, rf_cur, rf_old,
-                 rf_role, rf_flush, rf_commit, rf_first, rf_deadline};
-  AckArgs ev{ev_g, ev_p, ev_m, ev_t, ev_valid};
-  return launch_refresh(st, rf, ev, now_ms, timeout_ms, out, G, P, D, E,
-                        tile, (cudaStream_t)stream);
+  RefreshEvents re{{rf_idx, rf_match, rf_ack, rf_self, rf_cur, rf_old,
+                    rf_role, rf_flush, rf_commit, rf_first, rf_deadline},
+                   {ev_g, ev_p, ev_m, ev_t, ev_valid},
+                   D,
+                   E};
+  return launch_tick(st, re, now_ms, timeout_ms, nullptr, out, G, P, tile,
+                     (cudaStream_t)stream);
 }
 
-// A prepared K2 call on one resident state: its ten arrays, a pinned
-// input buffer and its device copy (room for the largest packed tick),
-// and out[4, G] on the card and pinned on the host.  Freed by
-// k2_plan_free.
-void* k2_plan_new(int32_t* match, int32_t* ack, uint8_t* self_mask,
-                  uint8_t* cur, uint8_t* old, int8_t* role, int32_t* flush,
-                  int32_t* commit, int32_t* first, int32_t* deadline,
-                  const uint8_t* host_in, uint8_t* dev_in,
-                  const int32_t* dev_out, int32_t* host_out, int G, int P,
-                  int tile, int device) {
-  return new RefreshPlan{{match, ack, self_mask, cur, old, role, flush,
-                          commit, first, deadline},
-                         host_in, dev_in, dev_out, host_out, G, P, tile,
-                         device};
+// A prepared call (K2's refresh plan, or K1's / K5's fast plan) on one
+// resident state: its ten arrays, a pinned input buffer and its device
+// copy, out[4, G] on the card and pinned on the host, and the tile size.
+// Freed by tick_plan_free.
+void* tick_plan_new(int32_t* match, int32_t* ack, uint8_t* self_mask,
+                    uint8_t* cur, uint8_t* old, int8_t* role, int32_t* flush,
+                    int32_t* commit, int32_t* first, int32_t* deadline,
+                    const uint8_t* host_in, uint8_t* dev_in,
+                    const int32_t* dev_out, int32_t* host_out, int G, int P,
+                    int tile, int device) {
+  return new TickPlan{{match, ack, self_mask, cur, old, role, flush, commit,
+                       first, deadline},
+                      host_in, dev_in, dev_out, host_out, G, P, tile,
+                      device};
 }
 
-void k2_plan_free(void* plan) { delete (RefreshPlan*)plan; }
+void tick_plan_free(void* plan) { delete (TickPlan*)plan; }
 
-// One refresh tick through a plan: the packed input (D refresh rows, E
-// ack columns) to the card, the launch, out[4, G] back to the pinned
-// host buffer, and the stream synchronised, in one call.  The host owns
-// the packed layout: ``offsets`` holds the byte offsets in it of idx [D],
-// match, ack [D, P], self, cur, old [D, P], role [D], flush, commit,
-// first, deadline [D], the ack columns [4, E] (group, peer, match, time)
-// and valid [E], in that order, then the bytes to copy; every int32
+// One refresh tick through a plan (D refresh rows, E ack columns).  The
+// host owns the packed layout: ``offsets`` holds the byte offsets in it of
+// idx [D], match, ack [D, P], self, cur, old [D, P], role [D], flush,
+// commit, first, deadline [D], the ack columns [4, E] (group, peer, match,
+// time) and valid [E], in that order, then the bytes to copy; every int32
 // section 4-byte aligned.
 int k2_tick(void* plan, int D, int E, int now_ms, int timeout_ms,
             const long long* offsets, void* stream) {
-  const RefreshPlan& k = *(const RefreshPlan*)plan;
-  int prev = -1;
-  cudaError_t err = cudaGetDevice(&prev);
-  if (err == cudaSuccess && prev != k.device) err = cudaSetDevice(k.device);
-  if (err != cudaSuccess) return (int)err;
-  cudaStream_t s = (cudaStream_t)stream;
+  const TickPlan& k = *(const TickPlan*)plan;
   const long long* o = offsets;
-  err = cudaMemcpyAsync(k.dev_in, k.host_in, (size_t)o[13],
-                        cudaMemcpyHostToDevice, s);
-  if (err == cudaSuccess) {
-    const uint8_t* b = k.dev_in;
+  return run_plan(k, (size_t)o[13], (cudaStream_t)stream,
+                  [&](const uint8_t* b) {
     const int32_t* evs = (const int32_t*)(b + o[11]);
-    RefreshArgs rf{(const int32_t*)(b + o[0]), (const int32_t*)(b + o[1]),
-                   (const int32_t*)(b + o[2]), b + o[3], b + o[4], b + o[5],
-                   (const int8_t*)(b + o[6]), (const int32_t*)(b + o[7]),
-                   (const int32_t*)(b + o[8]), (const int32_t*)(b + o[9]),
-                   (const int32_t*)(b + o[10])};
-    AckArgs ev{evs, evs + E, evs + 2 * (size_t)E, evs + 3 * (size_t)E,
-               b + o[12]};
-    err = (cudaError_t)launch_refresh(k.st, rf, ev, now_ms, timeout_ms,
-                                      const_cast<int32_t*>(k.dev_out), k.G,
-                                      k.P, D, E, k.tile, s);
-  }
-  if (err == cudaSuccess)
-    err = cudaMemcpyAsync(k.host_out, k.dev_out, (size_t)16 * k.G,
-                          cudaMemcpyDeviceToHost, s);
-  if (err == cudaSuccess) err = cudaStreamSynchronize(s);
-  if (prev != k.device) cudaSetDevice(prev);
-  return (int)err;
+    RefreshEvents re{
+        {(const int32_t*)(b + o[0]), (const int32_t*)(b + o[1]),
+         (const int32_t*)(b + o[2]), b + o[3], b + o[4], b + o[5],
+         (const int8_t*)(b + o[6]), (const int32_t*)(b + o[7]),
+         (const int32_t*)(b + o[8]), (const int32_t*)(b + o[9]),
+         (const int32_t*)(b + o[10])},
+        {evs, evs + E, evs + 2 * (size_t)E, evs + 3 * (size_t)E, b + o[12]},
+        D,
+        E};
+    return launch_tick(k.st, re, now_ms, timeout_ms, nullptr,
+                       const_cast<int32_t*>(k.dev_out), k.G, k.P, k.tile,
+                       (cudaStream_t)stream);
+  });
+}
+
+// One fast tick through a plan (K1 with S = 1, K5 with the mesh's S): S
+// planes of E packed columns.  ``offsets`` holds the byte offsets in the
+// host's layout of the seven int32 [S, E] rows (slot, peer, match, time,
+// valid, flush, deadline), in that order, then the bytes to copy.
+int fast_tick(void* plan, int S, int E, int now_ms, int timeout_ms,
+              const long long* offsets, void* stream) {
+  const TickPlan& k = *(const TickPlan*)plan;
+  const long long* o = offsets;
+  if (S < 1 || E < 0 || k.G % S != 0 || (long long)S * E > kMaxColumns)
+    return (int)cudaErrorInvalidValue;
+  return run_plan(k, (size_t)o[7], (cudaStream_t)stream,
+                  [&](const uint8_t* b) {
+    FastEvents fe{{(const int32_t*)(b + o[0]), (const int32_t*)(b + o[1]),
+                   (const int32_t*)(b + o[2]), (const int32_t*)(b + o[3]),
+                   (const int32_t*)(b + o[4]), (const int32_t*)(b + o[5]),
+                   (const int32_t*)(b + o[6])},
+                  S,
+                  E};
+    return launch_tick(k.st, fe, now_ms, timeout_ms, nullptr,
+                       const_cast<int32_t*>(k.dev_out), k.G, k.P, k.tile,
+                       (cudaStream_t)stream);
+  });
 }
 
 // K6: the stateless tick, arguments in engine_step's order.  Copies match
@@ -697,14 +913,13 @@ int k6_engine_step(const int32_t* match, const int32_t* ack,
     if (err != cudaSuccess) return (int)err;
   }
   if (E > 0)
-    apply_events<uint8_t><<<blocks(E), kThreads, 0, s>>>(
-        ev_g, ev_p, ev_m, ev_t, ev_valid, nullptr, nullptr, E, E, G, P,
-        match_out, ack_out, nullptr, nullptr);
+    apply_events<<<blocks(E), kThreads, 0, s>>>(ev_g, ev_p, ev_m, ev_t,
+                                                ev_valid, E, G, P, match_out,
+                                                ack_out);
   if (G > 0)
-    row_pass<false><<<blocks(G), kThreads, 0, s>>>(
-        match_out, ack_out, self_mask, cur, old, role, flush,
-        const_cast<int32_t*>(commit), first, const_cast<int32_t*>(deadline),
-        nullptr, now_ms, timeout_ms, new_commit, flags, G, P);
+    row_pass<<<blocks(G), kThreads, 0, s>>>(
+        match_out, ack_out, self_mask, cur, old, role, flush, commit, first,
+        deadline, now_ms, timeout_ms, new_commit, flags, G, P);
   return (int)cudaGetLastError();
 }
 

@@ -20,8 +20,9 @@ masks).  Each function on the engine's path has two bodies:
 A wrapper takes the plain version only because its tensors lie on the
 CPU; for CUDA tensors it launches the kernel or raises.
 
-The engine reaches K2 and K3 through prepared calls instead of the
-wrappers: :class:`RefreshPlan` (the refresh tick) and :class:`TallyPlan`
+The engine reaches K1, K2, K3 and K5 through prepared calls instead of
+the wrappers: :class:`FastPlan` (the fast tick: K1, or K5 on a mesh
+engine), :class:`RefreshPlan` (the refresh tick) and :class:`TallyPlan`
 (the vote pass over the open rounds' rows) hold a pinned host buffer the
 engine packs each tick into, its device copy and the output on both
 sides, and ``run`` is one call into the kernel library (copy up, one
@@ -708,9 +709,9 @@ def upload(arrays: Sequence[np.ndarray], device) -> list[torch.Tensor]:
     """Copy host arrays to ``device`` in ONE transfer: their bytes are
     packed (4-byte aligned) into one buffer, copied once, and returned as
     typed views of the copy, one per array, with the arrays' shapes and
-    dtypes.  The fast tick's upload and the ledger's go through here, so
-    a tick pays one host-to-device copy, not one per array (the refresh
-    tick and the vote pass pack into their plans' pinned buffers)."""
+    dtypes.  The ledger's upload goes through here, so a pass pays one
+    host-to-device copy, not one per array (the engine's fast and refresh
+    ticks and its vote pass pack into their plans' pinned buffers)."""
     arrays = [np.ascontiguousarray(a) for a in arrays]
     offs, off = [], 0
     for a in arrays:
@@ -771,17 +772,17 @@ def _scatter_rows(dst: torch.Tensor, idx: torch.Tensor,
 
 
 K1 = Kernel("resident_step.cu", "k1_resident_fast",
-            (PTR,) * 13 + (INT, INT, INT))
+            (PTR,) * 13 + (INT, INT, INT, INT))
 K2 = Kernel("resident_step.cu", "k2_resident",
             (PTR,) * 26 + (INT, INT, PTR, INT, INT, INT, INT, INT))
 
 
-def refresh_tile(g: int) -> int:
-    """Rows per block of K2's kernel for a batch of ``g`` rows
-    (``refresh_tick`` in resident_step.cu takes 32 or 128): every block
-    scans all of a tick's refresh indices and ack rows, so above 16384
-    rows fewer, larger tiles win (measured on an H100 by chip_smoke.py's
-    K2 tile rows)."""
+def tick_tile(g: int) -> int:
+    """Rows per block of the tick kernel of K1, K2 and K5 for a batch of
+    ``g`` rows (``tile_tick`` in resident_step.cu takes 32 or 128):
+    every block scans all of a tick's row indices (refresh rows, ack and
+    update columns), so above 16384 rows fewer, larger tiles win
+    (measured on an H100 by chip_smoke.py's K1 and K2 tile rows)."""
     return 32 if g <= 16384 else 128
 
 
@@ -836,7 +837,7 @@ def engine_step_resident(state: DeviceState, rf_idx, rf_match, rf_ack,
     out = torch.empty((4, g), dtype=torch.int32, device=dev)
     K2(dev, *(t.data_ptr() for t in tensors), int(now_ms),
        int(leadership_timeout_ms), out.data_ptr(), g, p, d, e,
-       refresh_tile(g))
+       tick_tile(g))
     return ResidentStep(state, *out)
 
 
@@ -881,44 +882,41 @@ class RefreshViews(NamedTuple):
     valid: np.ndarray
 
 
-class RefreshPlan:
-    """K2's prepared call on one resident state (the engine's refresh
-    route).  Built once per state shape: a host buffer the caller packs
-    each tick's refresh rows and acks into (``views``; pinned on a card),
-    its device copy, and out[4, G] on both sides.  ``run`` is ONE call
-    into the kernel library: the copy to the card, the launch, the copy of
-    out back, the stream synchronised; the checks ran once, when the plan
-    was built or bound.  On the CPU the same buffer feeds the plain
-    version, so the packing is exercised there too.  ``bind`` points the
-    plan at another state of the same shape (a re-upload) without
-    reallocating."""
+class _StatePlan:
+    """A prepared call on one resident state: a host buffer of ``nbytes``
+    the caller packs each tick into (pinned on a card), its device copy,
+    and out[4, G] on both sides (``out``, the host side).  On a card the C
+    plan holds the state's ten arrays, the buffers and the tile size, so a
+    tick is ONE call into the kernel library (the copy to the card, the
+    launch, the copy of out back, the stream synchronised); the checks ran
+    once, when the plan was built or bound.  ``bind`` points the plan at
+    another state of the same shape (a re-upload) without reallocating."""
 
-    def __init__(self, state: DeviceState, max_rows: int, max_events: int):
+    _plan = None
+
+    def __init__(self, state: DeviceState, nbytes: int):
         g, p = _check_state(state)
         self.capacity, self.peers = g, p
-        self.max_rows, self.max_events = max_rows, max_events
         self.device = state.match_index.device
-        nbytes = layout_offsets(REFRESH_LAYOUT, refresh_shapes(
-            max_rows, max_events, p))[-1]
         cuda = self.device.type == "cuda"
         self._host = torch.zeros(nbytes, dtype=torch.uint8, pin_memory=cuda)
         self._host_out = torch.zeros((4, g), dtype=torch.int32,
                                      pin_memory=cuda)
         self.out = self._host_out.numpy()
-        self._views: dict[tuple, tuple] = {}
-        self._plan = None
         if cuda:
             self._dev_in = torch.empty(nbytes, dtype=torch.uint8,
                                        device=self.device)
             self._dev_out = torch.empty((4, g), dtype=torch.int32,
                                         device=self.device)
-            self._tick = c_function("resident_step.cu", "k2_tick",
-                                    (PTR, INT, INT, INT, INT, PTR, PTR))
-            self._plan_new = c_function("resident_step.cu", "k2_plan_new",
+            self._plan_new = c_function("resident_step.cu", "tick_plan_new",
                                         (PTR,) * 14 + (INT,) * 4, PTR)
-            self._plan_free = c_function("resident_step.cu", "k2_plan_free",
-                                         (PTR,), None)
+            self._plan_free = c_function("resident_step.cu",
+                                         "tick_plan_free", (PTR,), None)
         self.bind(state)
+
+    def tile(self) -> int:
+        """Rows per block of the plan's kernel."""
+        raise NotImplementedError
 
     def bind(self, state: DeviceState) -> None:
         """Point the plan at ``state`` (same shape and device)."""
@@ -935,11 +933,40 @@ class RefreshPlan:
                 *(t.data_ptr() for t in state), self._host.data_ptr(),
                 self._dev_in.data_ptr(), self._dev_out.data_ptr(),
                 self._host_out.data_ptr(), self.capacity, self.peers,
-                refresh_tile(self.capacity), self.device.index)
+                self.tile(), self.device.index)
             self._free()
             self._plan = plan
             self._stream = torch.cuda.current_stream(
                 self.device).cuda_stream
+
+    def _free(self) -> None:
+        if self._plan:
+            self._plan_free(self._plan)
+            self._plan = None
+
+    def __del__(self):
+        self._free()
+
+
+class RefreshPlan(_StatePlan):
+    """K2's prepared call on one resident state (the engine's refresh
+    route), built once per state shape: the caller packs each tick's
+    refresh rows and acks into ``views(d, e)`` and ``run`` is one call
+    into the kernel library.  On the CPU the same buffer feeds the plain
+    version, so the packing is exercised there too."""
+
+    def __init__(self, state: DeviceState, max_rows: int, max_events: int):
+        self.max_rows, self.max_events = max_rows, max_events
+        self._views: dict[tuple, tuple] = {}
+        p = state.match_index.shape[1]
+        super().__init__(state, layout_offsets(REFRESH_LAYOUT, refresh_shapes(
+            max_rows, max_events, p))[-1])
+        if self._plan is not None:
+            self._tick = c_function("resident_step.cu", "k2_tick",
+                                    (PTR, INT, INT, INT, INT, PTR, PTR))
+
+    def tile(self) -> int:
+        return tick_tile(self.capacity)
 
     def views(self, d: int, e: int) -> RefreshViews:
         """The packed tick of ``d`` refresh rows and ``e`` ack columns, as
@@ -979,14 +1006,6 @@ class RefreshPlan:
                 timeout_ms).numpy()
         return self.out
 
-    def _free(self) -> None:
-        if self._plan:
-            self._plan_free(self._plan)
-            self._plan = None
-
-    def __del__(self):
-        self._free()
-
 
 def _resident_fast_plain(state: DeviceState, ev_packed, meta):
     slot, ev_peer = ev_packed[0], ev_packed[1]
@@ -1008,7 +1027,7 @@ def _resident_fast_plain(state: DeviceState, ev_packed, meta):
 
 def engine_step_resident_fast(state: DeviceState, ev_packed: torch.Tensor,
                               meta: torch.Tensor) -> ResidentFastStep:
-    """The steady-state tick (K1): two uploads and one download.
+    """The steady-state tick (K1).
 
     ``ev_packed`` is int32 [7, E]; each column is an ack or a slot update:
     row 0 group slot, 1 peer slot (acks), 2 match index (acks), 3 ack time
@@ -1016,7 +1035,8 @@ def engine_step_resident_fast(state: DeviceState, ev_packed: torch.Tensor,
     otherwise), 6 new election deadline (updates; PACK_SENTINEL otherwise).
     ``meta`` is int32 [2]: (now_ms, leadership_timeout_ms).  ``out`` is
     int32 [4, G]: (new_commit, commit_changed, timeouts, stale).  Updates
-    ``state`` in place."""
+    ``state`` in place.  CUDA tensors: one launch of the kernel (the
+    engine's fast ticks go through :class:`FastPlan` instead)."""
     dev = _device_of(*state, ev_packed, meta)
     if dev.type == "cpu":
         return ResidentFastStep(state,
@@ -1027,7 +1047,7 @@ def engine_step_resident_fast(state: DeviceState, ev_packed: torch.Tensor,
     _check(meta, torch.int32, (2,))
     out = torch.empty((4, g), dtype=torch.int32, device=dev)
     K1(dev, *(t.data_ptr() for t in state), ev_packed.data_ptr(),
-       meta.data_ptr(), out.data_ptr(), g, p, e)
+       meta.data_ptr(), out.data_ptr(), g, p, e, tick_tile(g))
     return ResidentFastStep(state, out)
 
 
@@ -1046,7 +1066,7 @@ def _resident_fast_sliced_plain(state: DeviceState, ev_packed, meta):
 
 
 K5 = Kernel("resident_step.cu", "k5_resident_fast_sliced",
-            (PTR,) * 13 + (INT, INT, INT, INT))
+            (PTR,) * 13 + (INT,) * 5)
 
 
 def engine_step_resident_fast_sliced(state: DeviceState,
@@ -1060,7 +1080,9 @@ def engine_step_resident_fast_sliced(state: DeviceState,
     row wraps and drops by ``G / S`` (a row past the slice is dropped, not
     spilled into the next one; ``-1`` is the slice's last row), a peer by
     P.  With S == 1 it equals the flat fast tick.  ``meta`` is int32 [2];
-    ``out`` is int32 [4, G].  Updates ``state`` in place."""
+    ``out`` is int32 [4, G].  Updates ``state`` in place.  CUDA tensors:
+    one launch of the kernel (a mesh engine's fast ticks go through
+    :class:`FastPlan` instead)."""
     dev = _device_of(*state, ev_packed, meta)
     if ev_packed.dim() != 3 or ev_packed.shape[0] != 7:
         raise ValueError(f"events of shape {tuple(ev_packed.shape)}, "
@@ -1078,8 +1100,87 @@ def engine_step_resident_fast_sliced(state: DeviceState,
     _check(meta, torch.int32, (2,))
     out = torch.empty((4, g), dtype=torch.int32, device=dev)
     K5(dev, *(t.data_ptr() for t in state), ev_packed.data_ptr(),
-       meta.data_ptr(), out.data_ptr(), g, p, n_slices, e)
+       meta.data_ptr(), out.data_ptr(), g, p, n_slices, e, tick_tile(g))
     return ResidentFastStep(state, out)
+
+
+# K1's and K5's packed tick: the seven rows of the fast pack (see
+# engine_step_resident_fast), each int32 [S, E], back to back in row
+# order, so the whole tick is also one [7, S, E] array (``events``).
+# ``fast_tick`` takes the rows' offsets in this order
+FAST_ROWS = ("slot", "peer", "match", "time", "valid", "flush", "deadline")
+FAST_LAYOUT = tuple((name, np.int32, "SE") for name in FAST_ROWS)
+
+
+def fast_shapes(s: int, e: int) -> dict:
+    return {"SE": (s, e)}
+
+
+class FastPlan(_StatePlan):
+    """The fast tick's prepared call on one resident state (the engine's
+    fast route): K1 on a flat state (``n_slices`` None), K5 over
+    ``n_slices`` slices of a mesh engine's state.  Built once per state
+    shape: the caller packs each tick's acks and slot updates into
+    ``events(e)`` (int32 [7, S, E], plane s with rows local to slice s)
+    and ``run(e, ...)`` is one call into the kernel library.  On the CPU
+    the same buffer feeds the plain version, so the packing is exercised
+    there too."""
+
+    def __init__(self, state: DeviceState, max_events: int,
+                 n_slices: "int | None" = None):
+        s = 1 if n_slices is None else int(n_slices)
+        g = state.match_index.shape[0]
+        if s < 1 or g % s:
+            raise ValueError(f"{s} slices do not divide {g} group rows")
+        self.n_slices, self.sliced = s, n_slices is not None
+        self.kernel = K5 if self.sliced else K1
+        self.max_events = max_events
+        self._events: dict[int, tuple] = {}
+        super().__init__(state, layout_offsets(FAST_LAYOUT, fast_shapes(
+            s, max_events))[-1])
+        if self._plan is not None:
+            self._tick = c_function("resident_step.cu", "fast_tick",
+                                    (PTR, INT, INT, INT, INT, PTR, PTR))
+
+    def tile(self) -> int:
+        return tick_tile(self.capacity)
+
+    def events(self, e: int) -> np.ndarray:
+        """The packed tick of the plan's S planes of ``e`` columns, int32
+        [7, S, E], a view of the host buffer."""
+        v = self._events.get(e)
+        if v is None:
+            if not 0 <= e <= self.max_events:
+                raise ValueError(f"{e} columns; the plan holds "
+                                 f"{self.max_events}")
+            shapes = fast_shapes(self.n_slices, e)
+            n = layout_offsets(FAST_LAYOUT, shapes)[-1]
+            arr = self._host.numpy()[:n].view(np.int32).reshape(
+                7, self.n_slices, e)
+            v = self._events[e] = (
+                arr, torch.from_numpy(arr),
+                tick_offsets(FAST_LAYOUT, shapes, FAST_ROWS))
+        return v[0]
+
+    def run(self, e: int, now_ms: int, timeout_ms: int) -> np.ndarray:
+        """The fast tick on the packed ``events(e)``: int32 [4, G]
+        (new_commit, commit_changed, timeouts, stale), the plan's output
+        buffer, valid until the next run.  Updates the state in place."""
+        self.events(e)
+        _, ev, offsets = self._events[e]
+        if self._plan is not None:
+            raise_on_error("resident_step.cu", "fast_tick", self._tick(
+                self._plan, self.n_slices, e, now_ms, timeout_ms, offsets,
+                self._stream))
+            self.kernel.launches += 1
+        else:
+            meta = torch.tensor([now_ms, timeout_ms], dtype=torch.int32)
+            self.out[...] = (
+                _resident_fast_sliced_plain(self.state, ev, meta)
+                if self.sliced
+                else _resident_fast_plain(self.state, ev[:, 0], meta)
+            ).numpy()
+        return self.out
 
 
 # -- wrapper checks -----------------------------------------------------------

@@ -28,8 +28,9 @@ versions on the card), so both hold the kernels to the same cases:
   batches of ``vote_event_edges``, replicated-index and lease inputs with
   joint, single-member and empty confs, and lease timeouts that wrap
   (``LEASE_TIMEOUTS``);
-- the engine's prepared calls: a refresh tick or a vote pass's rows
-  packed into a ``RefreshPlan`` / ``TallyPlan`` as the engine packs them;
+- the engine's prepared calls: a fast tick, a refresh tick or a vote
+  pass's rows packed into a ``FastPlan`` / ``RefreshPlan`` /
+  ``TallyPlan`` as the engine packs them;
 - ledger: duplicate dense peer ids in a row, unmapped columns (-1), ids
   past the table width, argmax ties, and optionally one (peer, bucket)
   cell holding more than 2048 links.
@@ -159,6 +160,19 @@ def sliced_events(rng, g: int, p: int, s: int, e: int, now: int = 100_000,
         cut = int(rng.integers(0, e + 1))
         ev[:, i, cut:] = SENT
         ev[(0, 1, 4), i, cut:] = 0
+    return ev
+
+
+HOT_ROWS = (40, 41, 42)
+
+
+def hot_acks(rng, ev: np.ndarray, rows=HOT_ROWS) -> np.ndarray:
+    """``ev`` (a fast pack, [7, E] or [7, S, E]) with each ack column
+    aimed at one of ``rows`` (slice-local on a sliced pack): a few hot
+    groups' backlog, so that one kernel tile lists more columns than one
+    of its rounds holds.  In place; returned."""
+    acks = ev[0, ..., :ev.shape[-1] // 2]
+    acks[...] = rng.choice(np.asarray(rows, np.int32), size=acks.shape)
     return ev
 
 
@@ -367,6 +381,19 @@ def refresh_plan(state, rf_idx, rf, acks):
         getattr(v, name)[:] = rows
     v.events[:] = np.stack(acks[:4])
     v.valid[:] = acks[4]
+    return plan
+
+
+def fast_plan(state, ev, sliced: bool = False):
+    """A ``FastPlan`` on ``state`` (a DeviceState) holding one fast tick
+    packed into its buffer as the engine packs one: ``fast_events``'
+    [7, E] on a flat plan (K1), or with ``sliced`` ``sliced_events``'
+    [7, S, E] on a plan over S slices (K5).  ``plan.run(E, now, timeout)``
+    runs it."""
+    ev = ev if sliced else ev[:, None]
+    s, e = ev.shape[1:]
+    plan = q.FastPlan(state, e, s if sliced else None)
+    plan.events(e)[...] = ev
     return plan
 
 

@@ -1,0 +1,181 @@
+"""Time the fast tick's public wrappers, K1 and K5, on one CUDA card; and
+the timing helpers ``chip_smoke.py`` times every kernel with.
+
+    python ratis_tpu_torch/tools/fast_tick_timing.py [--label NAME]
+
+Prints the card's name and power limit, then one JSON line: for each
+shape, the kernel's median CUDA-event ms over 200 calls (each call on the
+same fresh state, restored outside the events), its device us per call
+from 20 calls captured in one CUDA graph, and the wrapper's host us per
+call issued back to back.  Shapes (``K1_SHAPES``): K1 at the main path's
+1024 x 8 rows with every event bucket the engine packs (64 * 4^k up to
+its cap of 16384 columns), the buckets from 1024 up both with
+``cases.fast_events``' padding on row 0 and with the engine's (a slot
+that lands in no row), at 10240 x 8 x 1024, and on the ``mesh_100k``
+rung's batch as its flat control (102400 x 8 x 8192, global rows); K5 at
+the mesh path's 2048 rows x 8 in 8 slices x 64 and on the ``mesh_100k``
+batch (8 slices x 1024).
+
+It imports ``ratis_tpu_torch`` from the Python path, not from beside the
+script, so the same script times another checkout of the package::
+
+    PYTHONPATH=<checkout> python ratis_tpu_torch/tools/fast_tick_timing.py
+
+which compares two versions of the kernels on one card in one run (run
+them in turns: A, B, B, A; the inputs come from ``tools.cases`` there,
+the engine's padding from this script).  It needs CUDA and fails
+without it.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import statistics
+import subprocess
+import sys
+import time
+
+import numpy as np
+import torch
+
+NOW = 100_000
+TIMEOUT_MS = 300
+SENT = np.iinfo(np.int32).min  # ops.quorum.PACK_SENTINEL
+# (key, G, E, padded as the engine pads) of the flat K1 shapes; the
+# engine's buckets at 1024 rows
+K1_SHAPES = tuple((f"K1_G1024_E{e}", 1024, e, False)
+                  for e in (64, 256, 1024, 4096, 16384)) + tuple(
+    (f"K1_G1024_E{e}_engine_padding", 1024, e, True)
+    for e in (1024, 4096, 16384)) + (
+    ("K1_G10240_E1024", 10_240, 1024, False),)
+
+
+def engine_padded(ev: np.ndarray) -> np.ndarray:
+    """``ev`` (a fast pack from ``cases.fast_events`` or ``sliced_events``,
+    [7, E] or [7, S, E]) with its padding columns (invalid acks whose
+    updates are both sentinel) naming slot PACK_SENTINEL, which lands in
+    no row, as the engine pads, where ``cases`` names row 0.  In place;
+    returned.  Here, not in ``cases``, so that another checkout's package
+    gets the same inputs."""
+    ev[0][(ev[4] == 0) & (ev[5] == SENT) & (ev[6] == SENT)] = SENT
+    return ev
+
+
+def timed(fn, setup=None, n: int = 200, warm: int = 5) -> float:
+    """Median CUDA-event ms of ``fn``; ``setup`` runs before each call,
+    outside the events (and is waited for)."""
+    for _ in range(warm):
+        if setup:
+            setup()
+        fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(n):
+        if setup:
+            setup()
+            torch.cuda.synchronize()
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        fn()
+        b.record()
+        b.synchronize()
+        times.append(a.elapsed_time(b))
+    return statistics.median(times)
+
+
+def graph_us(fn, n: int = 20) -> float:
+    """Device us per call of ``fn``: ``n`` calls captured in one CUDA
+    graph, the graph replayed between two CUDA events, so the card runs
+    the calls back to back with the host out of the loop (each call's
+    kernels and copies plus the graph's gap between its nodes, ~1 us).
+    Raises RuntimeError where a call cannot be captured."""
+    fn()
+    torch.cuda.synchronize()
+    g = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(g):
+        for _ in range(n):
+            fn()
+    g.replay()
+    torch.cuda.synchronize()
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    a.record()
+    g.replay()
+    b.record()
+    b.synchronize()
+    return a.elapsed_time(b) * 1e3 / n
+
+
+def host_us(fn, n: int = 200, warm: int = 10) -> float:
+    """Host us per call of ``fn`` issued back to back: the wrapper's own
+    cost (checks, allocation, the call into the library); the card keeps
+    up, as every kernel here takes far less on the device."""
+    for _ in range(warm):
+        fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(n):
+        fn()
+    t1 = time.perf_counter()
+    torch.cuda.synchronize()
+    return (t1 - t0) / n * 1e6
+
+
+def time_shape(q, state_np, ev_np, sliced: bool) -> dict:
+    """One wrapper on one packed tick: ms, graph us, host us."""
+    fresh = q.device_state_from_numpy(state_np, "cuda")
+    a = q.device_state_from_numpy(state_np, "cuda")
+    ev = torch.from_numpy(np.ascontiguousarray(ev_np)).cuda()
+    meta = torch.tensor([NOW, TIMEOUT_MS], dtype=torch.int32, device="cuda")
+    wrapper = (q.engine_step_resident_fast_sliced if sliced
+               else q.engine_step_resident_fast)
+
+    def restore():
+        for x, y in zip(a, fresh):
+            x.copy_(y)
+
+    def call():
+        wrapper(a, ev, meta)
+
+    return {"shape": list(state_np[0].shape) + list(ev_np.shape[1:]),
+            "ms": timed(call, restore), "graph_us": graph_us(call),
+            "host_us": host_us(call)}
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--label", default="", help="a name for this run")
+    args = ap.parse_args(argv)
+    if not torch.cuda.is_available():
+        print("fast_tick_timing: CUDA is not available", file=sys.stderr)
+        return 1
+    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                           "--format=csv,noheader"], capture_output=True,
+                          text=True, check=True).stdout.strip()
+    print(card, flush=True)
+    from ratis_tpu_torch.ops import _build
+    from ratis_tpu_torch.ops import quorum as q
+    from ratis_tpu_torch.tools import bench, cases
+    _build.build_all()
+    rng = np.random.default_rng(0)
+    res = {}
+    for key, g, e, engine in K1_SHAPES:
+        ev = cases.fast_events(rng, g, 8, e, NOW)
+        res[key] = time_shape(q, cases.resident_state(rng, g, 8, NOW),
+                              engine_padded(ev) if engine else ev,
+                              False)
+    res["K5_G2048_S8_E64"] = time_shape(
+        q, cases.resident_state(rng, 2048, 8, NOW),
+        cases.sliced_events(rng, 2048, 8, 8, 64, NOW), True)
+    state, evs, evf, _ = bench.mesh100k_batch()
+    res["K1_100k"] = time_shape(q, state, evf, False)
+    res["K5_100k"] = time_shape(q, state, evs, True)
+    print(json.dumps({"label": args.label, "card": card,
+                      "package": q.__file__, "timing": res}), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -26,6 +26,8 @@ DST = ROOT / "ratis_tpu_torch"
 # module paths relative to the package root, copied byte for byte apart
 # from the package rename
 VERBATIM = (
+    "chaos/__init__.py", "chaos/faults.py", "chaos/link.py",
+    "chaos/scenario.py", "chaos/scenarios.py",
     "client/__init__.py", "client/client.py",
     "conf/__init__.py", "conf/properties.py", "conf/reconfiguration.py",
     "engine/__init__.py", "engine/roles.py", "engine/state.py",
@@ -42,7 +44,8 @@ VERBATIM = (
     "server/datastream.py",
     "server/division.py", "server/election.py", "server/leader.py",
     "server/messagestream.py", "server/pause_monitor.py", "server/read.py",
-    "server/replication.py", "server/retrycache.py", "server/snapshot.py",
+    "server/replication.py", "server/retrycache.py", "server/shards.py",
+    "server/snapshot.py",
     "server/state.py", "server/statemachine.py", "server/storage.py",
     "server/watch.py", "server/watchdog.py",
     "server/log/__init__.py", "server/log/base.py", "server/log/memory.py",

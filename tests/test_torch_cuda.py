@@ -96,6 +96,160 @@ def test_sliced_step_kernel_counts_its_launches(card):
     assert (tq.K1.launches, tq.K5.launches) == (n1, n5 + 1)
 
 
+# -- K1 and K5 in one launch, and their prepared call -------------------------
+
+def _fast_kernel_plan_and_plain(card, st, ev, sliced):
+    """K1 (or K5 for a [7, S, E] ``ev``) through its public wrapper (one
+    launch) and through the engine's prepared call, each on its own copy
+    of the state, against the plain version on a third: equal outputs and
+    equal states, one launch each."""
+    ev_t, meta = _cuda([ev, np.array([NOW, 300], np.int32)])
+    a, b, c = (tq.device_state_from_numpy(st, card) for _ in range(3))
+    kernel = tq.K5 if sliced else tq.K1
+    wrapper, plain = ((tq.engine_step_resident_fast_sliced,
+                       tq._resident_fast_sliced_plain) if sliced
+                      else (tq.engine_step_resident_fast,
+                            tq._resident_fast_plain))
+    n = kernel.launches
+    k = wrapper(a, ev_t, meta)
+    assert kernel.launches == n + 1
+    want = plain(b, ev_t, meta)
+    assert torch.equal(k.out, want)
+    plan = cases.fast_plan(c, ev, sliced)
+    out = plan.run(ev.shape[-1], NOW, 300)
+    assert kernel.launches == n + 2
+    assert np.array_equal(out, want.cpu().numpy())
+    for x, y, z in zip(a, b, c):
+        assert torch.equal(x, y) and torch.equal(z, y)
+
+
+@pytest.mark.parametrize("negative", [False, True])
+@pytest.mark.parametrize("g,e", [(1, 64), (100, 1024), (1024, 64),
+                                 (1024, 16384), (10240, 1024)])
+@pytest.mark.parametrize("p", [3, 5, 8, 16])
+def test_fast_kernel_matches_plain_at_every_peer_count(card, p, g, e,
+                                                       negative):
+    rng = np.random.default_rng(p + g + e + negative)
+    _fast_kernel_plan_and_plain(
+        card, cases.resident_state(rng, g, p, NOW),
+        cases.fast_events(rng, g, p, e, NOW, negative), False)
+
+
+@pytest.mark.parametrize("negative", [False, True])
+@pytest.mark.parametrize("n_slices,g", [(1, 100), (2, 200), (8, 264),
+                                        (8, 2048), (8, 10240)])
+@pytest.mark.parametrize("p", [3, 5, 8, 16])
+def test_sliced_kernel_matches_plain_at_every_peer_count(card, p, n_slices,
+                                                         g, negative):
+    """Slices of 100, 33, 256 and 1280 rows: a tile straddles two slices
+    in the first two."""
+    rng = np.random.default_rng(p + n_slices + g + negative)
+    _fast_kernel_plan_and_plain(
+        card, cases.resident_state(rng, g, p, NOW),
+        cases.sliced_events(rng, g, p, n_slices, 256, NOW, negative), True)
+
+
+@pytest.mark.parametrize("tile", [32, 128])
+@pytest.mark.parametrize("g,p,n_slices", [(100, 5, 0), (10240, 16, 0),
+                                          (264, 8, 8), (2048, 3, 2)])
+def test_fast_kernel_tiles_agree(card, monkeypatch, tile, g, p, n_slices):
+    monkeypatch.setattr(tq, "tick_tile", lambda g: tile)
+    rng = np.random.default_rng(tile + g)
+    ev = (cases.sliced_events(rng, g, p, n_slices, 1024, NOW, True)
+          if n_slices else cases.fast_events(rng, g, p, 1024, NOW, True))
+    _fast_kernel_plan_and_plain(card, cases.resident_state(rng, g, p, NOW),
+                                ev, n_slices > 0)
+
+
+@pytest.mark.parametrize("e", [4096, 16384])
+@pytest.mark.parametrize("sliced", [False, True])
+def test_fast_kernel_lands_a_hot_tile(card, sliced, e):
+    """Every ack aimed at three rows of one tile (of each slice): the tile
+    lists more columns than one of the kernel's rounds holds."""
+    rng = np.random.default_rng(e + sliced)
+    g = 2048
+    ev = (cases.sliced_events(rng, g, P, 2, e, NOW) if sliced
+          else cases.fast_events(rng, g, P, e, NOW))
+    _fast_kernel_plan_and_plain(card, cases.resident_state(rng, g, P, NOW),
+                                cases.hot_acks(rng, ev), sliced)
+
+
+@pytest.mark.parametrize("sliced", [False, True])
+def test_fast_tick_is_one_kernel_launch(card, sliced):
+    """One public K1 call, and one K5 call, captured in a CUDA graph hold
+    one node each, the kernel ``tile_tick`` (the earlier design put two
+    kernels); the plan's tick is one call into the library that counts
+    one launch of K1 (flat) or K5 (sliced) and none of the other."""
+    from ratis_tpu_torch.tools.profile_main_path import (graph_nodes,
+                                                         is_kernel_node)
+    rng = np.random.default_rng(8)
+    g = 2048
+    st = cases.resident_state(rng, g, P, NOW)
+    ev = (cases.sliced_events(rng, g, P, 8, 64, NOW) if sliced
+          else cases.fast_events(rng, g, P, 64, NOW))
+    ev_t, meta = _cuda([ev, np.array([NOW, 300], np.int32)])
+    a = tq.device_state_from_numpy(st, card)
+    wrapper = (tq.engine_step_resident_fast_sliced if sliced
+               else tq.engine_step_resident_fast)
+    nodes = graph_nodes(lambda: wrapper(a, ev_t, meta))
+    assert len(nodes) == 1 and is_kernel_node(nodes[0]), nodes
+    assert "tile_tick" in nodes[0] and "FastEvents" in nodes[0], nodes
+    plan = cases.fast_plan(tq.device_state_from_numpy(st, card), ev, sliced)
+    calls = []
+    tick = plan._tick
+    plan._tick = lambda *a: calls.append(a) or tick(*a)
+    n1, n5 = tq.K1.launches, tq.K5.launches
+    plan.run(ev.shape[-1], NOW, 300)
+    assert len(calls) == 1
+    assert (tq.K1.launches - n1, tq.K5.launches - n5) == (
+        (0, 1) if sliced else (1, 0))
+
+
+def test_engine_fast_tick_is_one_library_call(card):
+    """A card engine's fast tick (no dirty rows) is one call of its fast
+    plan, K1 +1 and nothing else launched, and leaves the state a CPU
+    engine's fast tick leaves on the same acks."""
+    from ratis_tpu_torch.engine.engine import QuorumEngine
+    from ratis_tpu_torch.engine.state import ROLE_LEADER
+
+    class Listener:
+        async def on_commit_advance(self, c):
+            pass
+
+        async def on_election_timeout(self):
+            pass
+
+        async def on_leadership_stale(self):
+            pass
+
+    engines = [QuorumEngine(max_groups=64, max_peers=P,
+                            scalar_fallback_threshold=0, use_device=True,
+                            device=d) for d in (card, "cpu")]
+    now = engines[0].clock.now_ms()
+    acks = [(s, 1 + s % 2, 5 + s % 7, now) for s in range(64)] * 2
+    for eng in engines:
+        for _ in range(64):
+            slot = eng.attach(Listener())
+            eng.state.set_conf(slot, 0, np.arange(P) < 3, np.zeros(P, bool),
+                               np.zeros(P, np.int32), 0)
+            eng.state.role[slot] = ROLE_LEADER
+            eng.state.flush_index[slot] = 9
+        eng._tick_batched([], now)  # the full upload
+    plan = engines[0]._fast_plan
+    calls = []
+    tick = plan._tick
+    plan._tick = lambda *a: calls.append(a) or tick(*a)
+    counts = (tq.K1.launches, tq.K2.launches, tq.K5.launches)
+    for eng in engines:
+        eng._tick_batched_pass(acks, now)
+    assert len(calls) == 1
+    assert (tq.K1.launches, tq.K2.launches, tq.K5.launches) == (
+        counts[0] + 1, counts[1], counts[2])
+    for x, y in zip(*(e._dev for e in engines)):
+        assert torch.equal(x.cpu(), y)
+    assert (engines[1]._dev.commit_index > 0).all()
+
+
 @pytest.mark.parametrize("negative", [False, True])
 def test_refresh_step_kernel_matches_plain(card, negative):
     rng = np.random.default_rng(1)
@@ -152,7 +306,7 @@ def test_refresh_kernel_matches_plain_at_every_shape(card, p, g, d, e,
 @pytest.mark.parametrize("tile", [32, 128])
 @pytest.mark.parametrize("g,p", [(100, 5), (1024, 8), (10240, 16)])
 def test_refresh_kernel_tiles_agree(card, monkeypatch, tile, g, p):
-    monkeypatch.setattr(tq, "refresh_tile", lambda g: tile)
+    monkeypatch.setattr(tq, "tick_tile", lambda g: tile)
     _refresh_kernel_and_plain(card, *_refresh_case(tile + g, g, p, 1024,
                                                    1024, True))
 
@@ -178,7 +332,8 @@ def test_refresh_plan_matches_the_public_wrapper(card, g, p, d, e):
 def test_refresh_is_one_kernel_launch(card):
     """One K2 call counts one launch and puts exactly one kernel on the
     card: the call captured in a CUDA graph holds one node, the kernel
-    ``refresh_tick`` (the earlier design put three).  The plan's tick is one
+    ``tile_tick`` on K2's refresh events (the earlier design put three).
+    The plan's tick is one
     call into the library that counts one launch; its kernel comes from
     the same C launcher as the wrapper's."""
     from ratis_tpu_torch.tools.profile_main_path import (graph_nodes,
@@ -193,7 +348,7 @@ def test_refresh_is_one_kernel_launch(card):
     nodes = graph_nodes(lambda: tq.engine_step_resident(
         a, rf_idx_t, *rf_t, *acks_t, NOW, 300))
     assert len(nodes) == 1 and is_kernel_node(nodes[0]), nodes
-    assert "refresh_tick" in nodes[0], nodes
+    assert "tile_tick" in nodes[0] and "RefreshEvents" in nodes[0], nodes
     plan = cases.refresh_plan(tq.device_state_from_numpy(st, card), rf_idx,
                               rf, acks)
     calls = []

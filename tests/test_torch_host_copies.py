@@ -15,10 +15,11 @@ import pytest
 from ratis_tpu_torch.tools import sync_copies
 
 # the port's own modules: kernels' loader, bench entry point, harness,
-# kernel inputs, main-path profile, copy script
+# kernel inputs, main-path profile, fast-tick timing, copy script
 NEW = ("ops/_build.py", "tools/__init__.py", "tools/bench.py",
        "tools/cases.py", "tools/churn_probe.py", "tools/cluster.py",
-       "tools/profile_main_path.py", "tools/sync_copies.py")
+       "tools/fast_tick_timing.py", "tools/profile_main_path.py",
+       "tools/sync_copies.py")
 
 
 @pytest.mark.parametrize("rel", sync_copies.VERBATIM)

@@ -90,12 +90,10 @@ def test_port_sources_import_no_jax_and_no_ratis_tpu():
 # modules the port names (lazily, behind keys that are off by default) but
 # has not ported yet; ROADMAP.md Queue 1 lists them as the next slices
 NOT_YET_PORTED = frozenset({
-    "ratis_tpu_torch.chaos.link",
     "ratis_tpu_torch.metrics.flight",
     "ratis_tpu_torch.metrics.prometheus",
     "ratis_tpu_torch.metrics.timeseries",
     "ratis_tpu_torch.placement",
-    "ratis_tpu_torch.server.shards",
     "ratis_tpu_torch.server.upkeep",
 })
 

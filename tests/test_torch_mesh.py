@@ -180,9 +180,15 @@ def test_sliced_pack_matches_jax():
         slots = rng.permutation(64)[:n_up]
         updates = {int(s): [int(rng.integers(-1, 99)),
                             int(rng.choice([SENT, 500]))] for s in slots}
-        want = j._pack_tick_sliced(acks, dict(updates))
+        want = j._pack_tick_sliced(acks, dict(updates)).copy()
         got = t._pack_tick_sliced(acks, dict(updates))
         assert got.dtype == want.dtype and got.shape == want.shape
+        # padding columns (invalid, both updates sentinel) name a dropped
+        # slot in the port, where the JAX package names row 0: both land
+        # nowhere
+        pad = (want[4] == 0) & (want[5] == SENT) & (want[6] == SENT)
+        assert (want[0][pad] == 0).all()
+        want[0][pad] = SENT
         np.testing.assert_array_equal(got, want)
         assert (t._last_event_rows, t._last_event_cap) == \
             (j._last_event_rows, j._last_event_cap)
@@ -347,9 +353,9 @@ def test_mesh_engine_churn_matches_jax(n_slices, seed):
 
 
 def test_mesh_engine_launches_the_sliced_step(monkeypatch):
-    """A mesh engine's fast ticks go through K5's wrapper (never K1's), its
-    refresh ticks through K2's prepared call, on the flat state with
-    global rows."""
+    """A mesh engine's fast ticks go through the fast plan as K5 over its
+    8 slices (never K1, and never a public wrapper), its refresh ticks
+    through K2's prepared call, both on the flat state with global rows."""
     calls = []
     for name in ("engine_step_resident_fast", "engine_step_resident",
                  "engine_step_resident_fast_sliced"):
@@ -359,21 +365,24 @@ def test_mesh_engine_launches_the_sliced_step(monkeypatch):
             calls.append((_name, tuple(a[1].shape)))
             return _fn(*a)
         monkeypatch.setattr(tq, name, rec)
-    run = tq.RefreshPlan.run
+    for cls in (tq.RefreshPlan, tq.FastPlan):
+        run = cls.run
 
-    def rec_run(plan, *a):
-        calls.append(("RefreshPlan.run",
-                      tuple(plan.state.match_index.shape)))
-        return run(plan, *a)
-    monkeypatch.setattr(tq.RefreshPlan, "run", rec_run)
+        def rec_run(plan, *a, _run=run, _name=f"{cls.__name__}.run"):
+            calls.append((_name, tuple(plan.state.match_index.shape)))
+            if _name == "FastPlan.run":
+                calls.append(("fast kernel", (plan.kernel.symbol,
+                                              plan.n_slices)))
+            return _run(plan, *a)
+        monkeypatch.setattr(cls, "run", rec_run)
     res = bench.dryrun_multichip(8, device="cpu")
     names = {n for n, _ in calls}
-    assert names == {"engine_step_resident_fast_sliced", "RefreshPlan.run"}
-    # the refresh runs on the whole flat [G, P] state
-    assert {shape for n, shape in calls if n == "RefreshPlan.run"} == {
+    assert names == {"FastPlan.run", "fast kernel", "RefreshPlan.run"}
+    # both run on the whole flat [G, P] state
+    assert {shape for n, shape in calls if n.endswith("Plan.run")} == {
         (res["groups"], P)}
-    assert all(shape[1] == 8 for n, shape in calls
-               if n == "engine_step_resident_fast_sliced")
+    assert {shape for n, shape in calls if n == "fast kernel"} == {
+        ("k5_resident_fast_sliced", 8)}
     assert res["refresh_ticks"] > 0 and res["fast_ticks"] > 0
 
 
