@@ -29,7 +29,12 @@ result line:
    (the vote-reply scatter, the all-members replicated index, the lease
    expiry) at G = 1024 and 102400 with P = 8 and at P = 3, 5, 7 and 16,
    with the edge cases of ``cases.vote_event_edges`` and the wrapping
-   lease timeouts;
+   lease timeouts; the redesigned K4 (one cooperative launch) at G =
+   1024, 1000 and 10240 with tables of 8, 16 and 512 peers (512: the
+   counters do not fit in shared memory and go straight to the output)
+   and ``big_cell``, each case also through the engine's prepared call
+   (``LedgerPlan``); the redesigned K6 (one launch) also at
+   P = 3, 5, 7 and 16, and at G = 1001 and 1023 (no multiple of 4);
    the bar is exact equality;
 4. the main paths, each with its kernels' launch counts zeroed just
    before and read just after (each must be > 0; K5 must stay 0 on the
@@ -68,10 +73,13 @@ result line:
       configuration (K1-K4 > 0, K5 0, and K1/K2 launched while the
       calling engine led a row with a non-empty ``conf_old`` more than 0
       times);
+   on every served path (a, c-g) each ledger sample must make exactly one
+   call into the kernel library, its prepared call's, and launch K4 once;
    Before the paths, one K2 call captured in a CUDA graph, which must
    hold exactly one node, the kernel ``tile_tick`` on K2's refresh
    events, and one K1 call and one K5 call, each one node, ``tile_tick``
-   on the fast events;
+   on the fast events; one K4 call and one K6 call, each one kernel node,
+   and one call of K4's prepared call, its two copies around one kernel;
 5. kernel parity again at every shape the main paths gave K1-K5 (K3 at
    every padded row count of the vote passes); the
    engine's own routes on one card engine of 1024 rows, host clock,
@@ -84,7 +92,10 @@ result line:
    earlier tally of all G rows; one refresh tick, one fast tick and one
    vote pass must each make exactly one call into the kernel library, the
    refresh tick one K2 launch, a flat fast tick one K1 launch, a mesh
-   fast tick one K5 launch and no K1; then timing: K1-K5 at their most
+   fast tick one K5 launch and no K1; the ledger sample (K4's prepared
+   call) on the flat and the mesh engine, its prepared call alone and the
+   earlier route (``upload``, the wrapper, ``.cpu()``), a sample checked
+   to be one library call and one K4 launch; then timing: K1-K5 at their most
    common shape
    (K3 at the vote passes' most common padded R, ``K3_public`` at G; K5
    also at the mesh100k rung's), K6 at both rung shapes; CUDA events, warm-up,
@@ -126,8 +137,11 @@ import time
 import numpy as np
 import torch
 
-from ratis_tpu_torch.tools.fast_tick_timing import (engine_padded, graph_us,
-                                                     host_us, timed)
+from ratis_tpu_torch.tools.fast_tick_timing import (K6_SHAPES,
+                                                     engine_padded, graph_us,
+                                                     host_us,
+                                                     ledger_earlier_route,
+                                                     timed, timed_host)
 
 P = 8
 NOW = 100_000
@@ -191,7 +205,31 @@ REDESIGNED = {
     "K2": "redesigned: one launch per tick (row tiles in shared memory); the "
           "engine's refresh tick is one prepared call",
     "K3": "redesigned: the engine's vote pass tallies only the open rounds' "
-          "rows, packed as bit words, in one prepared call"}
+          "rows, packed as bit words, in one prepared call",
+    "K4": "redesigned: one cooperative launch (a lane per link, counters "
+          "in shared memory, one grid sync); a ledger sample is one "
+          "prepared call",
+    "K6": "redesigned: one launch (each block lists the acks landing in "
+          "its rows, then copies and runs them), its outputs views of one "
+          "buffer"}
+# why no kernel has a library time: no one PyTorch call computes the same
+# function (``library_ms`` null in the kernels line)
+_TICK = ("none: no one PyTorch call scatter-maxes the acks and takes each "
+         "row's majority-min, timeouts and staleness")
+NO_LIBRARY = {
+    "K1": _TICK, "K2": _TICK + " (after the refreshed rows)", "K5": _TICK,
+    "K6": _TICK + " (into copies)",
+    "K3": "none: no one PyTorch call tallies masked vote majorities with a "
+          "priority veto",
+    "K3_public": "none: as K3",
+    "K4": "none: no one PyTorch call gives the per-row gap, delta and worst "
+          "link with the per-peer histogram and rollups",
+    "K7a": "none: no one PyTorch call scatters vote replies gated on the "
+           "input masks",
+    "K7b": "none: a masked min over the conf union is a where and an amin, "
+           "two calls",
+    "K7c": "none: no one PyTorch call takes the lease's majority-min with "
+           "its wrapping expiry"}
 # the durable paths: 3 x 1024 per-group logs, 3 x 256 on the shared plane,
 # 1 warm-up + 8 measured writes per group; the churn path: 3 x 1024
 DURABLE_GROUPS = 1024
@@ -199,8 +237,13 @@ SHARED_GROUPS = 256
 DURABLE_WRITES = 8
 CHURN_GROUPS = 1024
 CHURN_WRITES = 8
-# K6: entry() and the bench's two kernel rungs (G, P, E)
-K6_SHAPES = ((1024, 8, 256), (10_240, 8, 4096), (102_400, 8, 8192))
+# K6: the other peer counts it is held at (at the first two of
+# K6_SHAPES, entry() and the bench's two kernel rungs)
+K6_PEERS = (3, 5, 7, 16)
+# K4: rows and table widths held against the plain version (W = 512: the
+# counters do not fit in shared memory and go straight to the output)
+K4_ROWS = (1024, 1000, 10_240)
+K4_WIDTHS = (8, 16, 512)
 # the mesh path: 3 servers x 1024 groups in 8 slices, 4 writes per group.
 # Capacity 2048, not the bench's bucket of 1024: divisions pin to their
 # crc32 slice, which fills 8 slices of 128 rows unevenly, and a full slice
@@ -368,12 +411,22 @@ def parity_k3_rows(tq, cases, g, p, r, cap, seed):
     return max_abs_err([got, k], [want, want])
 
 
-def parity_k4(tl, cases, g, p, width, seed, big_cell=False):
+def parity_k4(tl, cases, g, p, width, seed, big_cell=False, plan=False):
+    """K4's wrapper against its plain version on the same card tensors;
+    with ``plan``, also the engine's prepared call on the same inputs
+    written into its buffer (a plan built for a table of 8, so a wider
+    one grows it)."""
     arrays, scalars = cases.ledger_inputs(np.random.default_rng(seed), g, p,
                                           width, big_cell=big_cell)
     dev = cuda(arrays)
-    return max_abs_err([tl.ledger_pass(*dev, *scalars, num_peers=width)],
-                       [tl._ledger_plain(*dev, *scalars, width)])
+    want = tl._ledger_plain(*dev, *scalars, width)
+    got = [tl.ledger_pass(*dev, *scalars, num_peers=width)]
+    if plan:
+        pl = tl.LedgerPlan(g, p, "cuda")
+        for v, a in zip(pl.views, arrays):
+            np.copyto(v, a)
+        got.append(torch.from_numpy(pl.run(width, *scalars).copy()).cuda())
+    return max_abs_err(got, [want] * len(got))
 
 
 def parity_k7a(tq, arrays):
@@ -457,11 +510,15 @@ def run_parity(tq, tl, cases, bench, par: Parity) -> None:
             par.add("K3_public", parity_k3(tq, cases, g, P, seed))
     run_parity_redesigned(tq, cases, par)
     run_parity_fast(tq, cases, par)
-    for g in (1024, 10240):
-        for width in (8, 16):
+    for g in K4_ROWS:
+        for width in K4_WIDTHS:
             for seed in (0, 1):
-                par.add("K4", parity_k4(tl, cases, g, P, width, seed))
-        par.add("K4", parity_k4(tl, cases, g, P, 8, 2, big_cell=True))
+                par.add("K4", parity_k4(tl, cases, g, P, width, seed,
+                                        plan=True))
+        par.add("K4", parity_k4(tl, cases, g, P, 8, 2, big_cell=True,
+                                plan=True))
+    for p4 in (3, 5, 16):  # rows of 8 lanes, and of 16
+        par.add("K4", parity_k4(tl, cases, 1024, p4, 16, p4, plan=True))
     for g in (2048, 10240):
         for s in (1, 2, MESH_SLICES):
             for e in (64, 2048):
@@ -474,6 +531,20 @@ def run_parity(tq, tl, cases, bench, par: Parity) -> None:
             par.add("K6", parity_k6(tq, cases.step_args(
                 np.random.default_rng(seed), g, p, e, NOW, TIMEOUT_MS)))
             par.add("K6", parity_k6(tq, bench._example_batch(g, p, e, seed)))
+    for g, p6, e in K6_SHAPES[1:]:
+        # every ack on one row: more than the row's block lists
+        hot = cases.step_args(np.random.default_rng(g), g, p6, e, NOW,
+                              TIMEOUT_MS)
+        hot[2][:] = 7
+        par.add("K6", parity_k6(tq, hot))
+    for p6 in K6_PEERS:
+        for g, _, e in K6_SHAPES[:2]:
+            par.add("K6", parity_k6(tq, cases.step_args(
+                np.random.default_rng(p6), g, p6, e, NOW, TIMEOUT_MS)))
+            par.add("K6", parity_k6(tq, bench._example_batch(g, p6, e, p6)))
+    for g in (1001, 1023):  # the outputs' one buffer ends mid-word
+        par.add("K6", parity_k6(tq, cases.step_args(
+            np.random.default_rng(g), g, P, 1024, NOW, TIMEOUT_MS)))
     run_parity_k7(tq, cases, par)
     par.check("fixed shapes")
 
@@ -574,7 +645,7 @@ def run_parity_observed(tq, tl, cases, main, shapes, par: Parity,
             for r in (max(1, cap // 4), cap):
                 par.add("K3", parity_k3_rows(tq, cases, max(g, cap), p, r,
                                              cap, seed))
-        par.add("K4", parity_k4(tl, cases, g, p, w, seed))
+        par.add("K4", parity_k4(tl, cases, g, p, w, seed, plan=True))
     par.check(f"{what} shapes")
 
 
@@ -625,20 +696,55 @@ class ShapeRecorder:
     runs), K2 (D, E of the refresh plan's runs), K3 (the rows R of the
     tally plan's runs, padding included) and K5 ((S, E) of the sliced fast
     plan's runs) while active (the plans' ``run`` are swapped for counting
-    ones and restored on exit)."""
+    ones and restored on exit); and checks that every ledger sample taken
+    meanwhile (the watchdogs', once a second on every server) made ONE
+    call into the kernel library, its prepared call's ``k4_tick``, that
+    launched K4 once (``LagLedger.sample`` and ``LedgerPlan.run`` swapped
+    likewise): on exit it raises if a sample did not, or if none was
+    taken."""
 
-    def __init__(self, tq):
-        self.tq = tq
+    def __init__(self, tq, tl):
+        self.tq, self.tl = tq, tl
         self.shapes = {"K1": collections.Counter(),
                        "K2": collections.Counter(),
                        "K3": collections.Counter(),
                        "K5": collections.Counter()}
+        # samples taken, and the (library calls, K4 launches) of those
+        # that were not (1, 1)
+        self.ledger_samples = 0
+        self.ledger_faults = []
+        self._ledger_calls = 0
 
     def __enter__(self):
-        tq, shapes = self.tq, self.shapes
+        from ratis_tpu_torch.engine.ledger import LagLedger
+        tq, tl, shapes = self.tq, self.tl, self.shapes
         self.fast, self.refresh, self.tally = (
             tq.FastPlan.run, tq.RefreshPlan.run, tq.TallyPlan.run)
+        self.ledger_run, self.sample = tl.LedgerPlan.run, LagLedger.sample
         fast, refresh, tally = self.fast, self.refresh, self.tally
+        ledger_run, sample = self.ledger_run, self.sample
+
+        def rec_ledger_run(plan, *a):
+            tick = plan._tick
+
+            def counting(*b):
+                self._ledger_calls += 1
+                return tick(*b)
+            plan._tick = counting
+            try:
+                return ledger_run(plan, *a)
+            finally:
+                plan._tick = tick
+
+        def rec_sample(ledger):
+            self._ledger_calls = 0
+            n = tl.K4.launches
+            res = sample(ledger)
+            got = (self._ledger_calls, tl.K4.launches - n)
+            self.ledger_samples += 1
+            if got != (1, 1):
+                self.ledger_faults.append(got)
+            return res
 
         def rec_fast(plan, e, *rest):
             if plan.sliced:
@@ -658,12 +764,23 @@ class ShapeRecorder:
         tq.FastPlan.run = rec_fast
         tq.RefreshPlan.run = rec_refresh
         tq.TallyPlan.run = rec_tally
+        tl.LedgerPlan.run = rec_ledger_run
+        LagLedger.sample = rec_sample
         return self
 
-    def __exit__(self, *exc):
+    def __exit__(self, exc_type, *exc):
+        from ratis_tpu_torch.engine.ledger import LagLedger
         self.tq.FastPlan.run = self.fast
         self.tq.RefreshPlan.run = self.refresh
         self.tq.TallyPlan.run = self.tally
+        self.tl.LedgerPlan.run = self.ledger_run
+        LagLedger.sample = self.sample
+        if exc_type is None and (self.ledger_faults
+                                 or self.ledger_samples == 0):
+            raise AssertionError(
+                f"ledger samples: {self.ledger_samples}, (library calls, "
+                f"K4 launches) of those that were not one call and one "
+                f"launch: {self.ledger_faults[:10]}")
 
 
 def counted(kernels: dict, keys, drive, never=()):
@@ -780,20 +897,42 @@ def fast_route_rows(tq, eng, acks, now, prefix: str) -> dict:
             lambda: earlier_fast_dispatch(tq, eng, acks, now))}}
 
 
-def timed_host(fn, setup=None, n: int = 200, warm: int = 10) -> float:
-    """Median host wall ms of ``fn`` (each call ends synchronised: the
-    engine's routes wait for their results); ``setup`` runs before each
-    call, outside the clock."""
-    times = []
-    for i in range(warm + n):
-        if setup:
-            setup()
-        t0 = time.perf_counter()
-        fn()
-        t1 = time.perf_counter()
-        if i >= warm:
-            times.append((t1 - t0) * 1e3)
-    return statistics.median(times)
+def ledger_route_rows(tq, tl, eng, prefix: str) -> dict:
+    """One engine's ledger route (its rows leading 3 peers interned in the
+    ledger's table): a sample must be ONE call into the kernel library,
+    its prepared call's ``k4_tick``, that launches K4 once; then host ms
+    (median of 200) of the whole sample, of its prepared call alone and of
+    the earlier route (the eleven mirrors uploaded in one pageable copy by
+    ``ops.quorum.upload``, the public wrapper, a synchronising pageable
+    ``.cpu()``)."""
+    ledger, st = eng.ledger, eng.state
+    for i in range(3):
+        st.peer_index[:, i] = ledger.peer_for(f"route-peer-{i}")
+    ledger.sample()  # builds the prepared call
+    plan = ledger._ledger_plan
+    n = tl.K4.launches
+    with CallCounter(plan) as calls:
+        ledger.sample()
+    got = tl.K4.launches - n
+    if calls.calls != 1 or got != 1:
+        raise AssertionError(f"{prefix}ledger sample: {calls.calls} calls "
+                             f"into the library, K4 +{got}")
+    width = ledger._table_width()
+    now = eng.clock.now_ms()
+    scalars = (now, ledger.lag_threshold, ledger.up_window_ms)
+    mirrors = (st.role, st.match_index, st.commit_index, st.applied_index,
+               st.conf_cur, st.conf_old, st.self_mask, st.last_ack_ms,
+               st.peer_index, ledger._prev_commit,
+               ledger._prev_gen == st.alloc_gen)
+    return {
+        f"{prefix}ledger_sample": {
+            "ms": timed_host(ledger.sample), "rows": st.capacity,
+            "width": width, "library_calls": calls.calls,
+            "launches": {"K4": got}},
+        f"{prefix}ledger_plan_run": {"ms": timed_host(
+            lambda: plan.run(width, *scalars))},
+        f"{prefix}ledger_earlier_route": {"ms": timed_host(
+            lambda: ledger_earlier_route(tl, tq, mirrors, scalars, width))}}
 
 
 class CallCounter:
@@ -832,6 +971,7 @@ def run_route_timing(tq, log_card) -> dict:
     synchronise, so they cannot be captured in a graph, but their kernels
     come from the C launchers of the wrappers', which phase 3 holds to one
     kernel in a graph."""
+    from ratis_tpu_torch.ops import ledger as tl
     from ratis_tpu_torch.tools.profile_main_path import device_ops, is_copy
     eng, _ = route_engine(tq)
     s = eng.state
@@ -870,6 +1010,7 @@ def run_route_timing(tq, log_card) -> dict:
     out["refresh_plan_run"] = {"ms": timed_host(
         lambda: plan.run(64, 64, now, eng.leadership_timeout_ms))}
     out.update(fast_route_rows(tq, eng, acks, now, ""))
+    out.update(ledger_route_rows(tq, tl, eng, ""))
     out["fast_dispatch"]["device_ops"] = device_ops(
         lambda: eng._tick_batched_pass(acks, now)) or None
     mesh_eng, slots = route_engine(tq, mesh=True)
@@ -877,6 +1018,7 @@ def run_route_timing(tq, log_card) -> dict:
     mesh_acks = [(int(g), int(rng.integers(0, 3)), int(rng.integers(0, 99)),
                   mesh_now) for g in rng.choice(slots, size=ROUTE_ROWS)]
     out.update(fast_route_rows(tq, mesh_eng, mesh_acks, mesh_now, "mesh_"))
+    out.update(ledger_route_rows(tq, tl, mesh_eng, "mesh_"))
 
     async def votes():
         for r in ROUTE_ROUNDS:
@@ -1010,6 +1152,46 @@ def fast_one_launch(tq, cases) -> dict:
             raise AssertionError(f"one {key} call put {len(nodes)} graph "
                                  f"nodes on the card: {nodes}")
         out[key] = [" ".join(n.split())[:160] for n in nodes]
+    return out
+
+
+def ledger_step_one_launch(tq, tl, cases, bench) -> dict:
+    """One K4 wrapper call (G = 1024, W = 8) and one K6 call (the bench's
+    entry batch), each captured in a CUDA graph, must each hold exactly
+    one node, the kernel (the earlier designs put two kernels, and two
+    copies and two kernels); one call of K4's prepared call (captured it
+    does not synchronise) its copy in, the same one kernel and its copy
+    out.  Returns each call's nodes' first lines."""
+    from ratis_tpu_torch.tools.profile_main_path import (graph_nodes,
+                                                         is_kernel_node)
+    arrays, scalars = cases.ledger_inputs(np.random.default_rng(37),
+                                          ROUTE_GROUPS, P, 8)
+    dev = cuda(arrays)
+    plan = tl.LedgerPlan(ROUTE_GROUPS, P, "cuda")
+    for v, a in zip(plan.views, arrays):
+        np.copyto(v, a)
+
+    def plan_call():
+        plan._stream = torch.cuda.current_stream().cuda_stream
+        plan.run(8, *scalars)
+
+    fn, args = bench.entry("cuda")
+    out = {}
+    for key, call, want, kernel in (
+            ("K4", lambda: tl.ledger_pass(*dev, *scalars, num_peers=8),
+             [True], tl.K4),
+            ("K4_plan", plan_call, [False, True, False], tl.K4),
+            ("K6", lambda: fn(*args), [True], tq.K6)):
+        n = kernel.launches
+        nodes = graph_nodes(call)
+        # the warm-up call and the captured one; a node's label cuts the
+        # kernel's mangled name short, so the launch count names it
+        if [is_kernel_node(x) for x in nodes] != want \
+                or kernel.launches != n + 2:
+            raise AssertionError(f"one {key} call put {len(nodes)} graph "
+                                 f"nodes on the card ({kernel.launches - n} "
+                                 f"launches counted): {nodes}")
+        out[key] = [" ".join(x.split())[:160] for x in nodes]
     return out
 
 
@@ -1580,15 +1762,16 @@ def main(argv=None) -> int:
     log(f"K2: one public-wrapper call captured in a CUDA graph: "
         f"{len(k2_nodes)} node, {k2_nodes[0]}")
     fast_nodes = fast_one_launch(tq, cases)
+    fast_nodes.update(ledger_step_one_launch(tq, tl, cases, bench))
     for key, nodes in fast_nodes.items():
-        log(f"{key}: one public-wrapper call captured in a CUDA graph: "
-            f"{len(nodes)} node, {nodes[0]}")
+        log(f"{key}: one call captured in a CUDA graph: {len(nodes)} "
+            f"node(s): " + " | ".join(n[:100] for n in nodes))
     off_launches = {k: {"parity": kernels[k].launches - off_before[k]}
                     for k in OFF_PATH}
     off_before = {k: kernels[k].launches for k in OFF_PATH}
 
     # 4a. the main path over the simulated transport
-    recs = {k: ShapeRecorder(tq) for k in ("sim", "tcp", "mesh",
+    recs = {k: ShapeRecorder(tq, tl) for k in ("sim", "tcp", "mesh",
                                            "durable_1024", "shared_256",
                                            "churn_1024")}
     main_res, sim_launches = run_main_path(tq, kernels, args.groups,
@@ -1689,6 +1872,10 @@ def main(argv=None) -> int:
         f"(unmatched calls "
         f"{churn_res['joint_unmatched_calls']})")
 
+    ledger_checks = {k: r.ledger_samples for k, r in recs.items()}
+    log(f"ledger samples by path, each one call into the kernel library "
+        f"and K4 +1: {ledger_checks}")
+
     # 5. parity at every shape the main paths gave a kernel, then timing
     run_parity_observed(tq, tl, cases, main_res, shapes, par, "main path")
     run_parity_observed(tq, tl, cases, mesh_res, rec_mesh.shapes, par,
@@ -1711,7 +1898,10 @@ def main(argv=None) -> int:
             ("fast_dispatch", "fast_dispatch_earlier_route"),
             ("mesh_fast_dispatch", "mesh_fast_dispatch_earlier_route"),
             ("fast_plan_run", "refresh_plan_run"),
-            ("mesh_fast_plan_run", "refresh_plan_run")):
+            ("mesh_fast_plan_run", "refresh_plan_run"),
+            ("ledger_sample", "ledger_earlier_route"),
+            ("ledger_plan_run", "ledger_earlier_route"),
+            ("mesh_ledger_sample", "mesh_ledger_earlier_route")):
         a, b = routes[key]["ms"], routes[control]["ms"]
         log(f"{key} {a:.4f} ms vs {control} {b:.4f} ms: "
             f"{'at or below' if a <= b else 'NOT at or below'}")
@@ -1742,6 +1932,7 @@ def main(argv=None) -> int:
                                           **off_launches.get(key, {})},
                      "max_abs_err": par.errs[key], "ms": ms, "plain_ms": plain,
                      "bound_ms": b_ms, "bound_by": by, "library_ms": None,
+                     "library": NO_LIBRARY[key],
                      "device_us": GRAPH_US.get(key),
                      "profiler_device_us": device_us.get(key),
                      "host_us": HOST_US.get(key)})
@@ -1753,6 +1944,7 @@ def main(argv=None) -> int:
     by_key["K5"]["engine_route_ms"] = routes["mesh_fast_dispatch"]["ms"]
     by_key["K3"]["engine_route_ms"] = {r: routes[f"vote_pass_R{r}"]["ms"]
                                        for r in ROUTE_ROUNDS}
+    by_key["K4"]["engine_route_ms"] = routes["ledger_sample"]["ms"]
     if args.out:
         with open(args.out, "w") as f:
             json.dump({"card": card, "main_path": main_res,
@@ -1776,6 +1968,7 @@ def main(argv=None) -> int:
                        "fast_graph_nodes": fast_nodes,
                        "k2_shapes_by_path": k2_shapes,
                        "k3_rows_by_path": k3_shapes,
+                       "ledger_samples_by_path": ledger_checks,
                        "parity_cases": dict(par.n),
                        "kernels": rows}, f, indent=1, default=str)
     log(f"smoke: {time.monotonic() - t_start:.1f} s")

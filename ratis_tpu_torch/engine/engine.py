@@ -34,7 +34,6 @@ from ratis_tpu_torch.engine.state import (GroupBatchState, NO_DEADLINE,
                                     ROLE_CANDIDATE, ROLE_FOLLOWER,
                                     ROLE_LEADER, ROLE_LISTENER, ROLE_UNUSED)
 from ratis_tpu_torch.metrics.hops import hop
-from ratis_tpu_torch.ops import ledger as ops_ledger
 from ratis_tpu_torch.ops import quorum as q
 from ratis_tpu_torch.ops import reference as ref
 from ratis_tpu_torch.parallel.mesh import (pad_to_mesh, same_card,
@@ -1039,12 +1038,7 @@ class QuorumEngine:
         s.dirty = {0}
         self._tick_batched([(0, 0, -1, now)], now)   # K2
         self._tally_rounds(np.zeros(1, np.int64))    # K3
-        width = self.ledger._table_width()
-        ops_ledger.ledger_pass(*q.upload(
-            (s.role, s.match_index, s.commit_index, s.applied_index,
-             s.conf_cur, s.conf_old, s.self_mask, s.last_ack_ms,
-             s.peer_index, s.commit_index, s.role == ROLE_LEADER),
-            self.device), now, 0, 0, num_peers=width).cpu()  # K4
+        self.ledger.prewarm()                         # K4
         s.dirty = saved_dirty
         self._dev = None  # drop the prewarm device copy; re-upload on use
 

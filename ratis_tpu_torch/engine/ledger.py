@@ -1,14 +1,16 @@
 """LagLedger: the quorum engine's lag & health ledger.
 
 Host orchestration around :mod:`ratis_tpu_torch.ops.ledger`: every ``sample()``
-uploads the engine's authoritative host-mirror arrays (the same
+writes the engine's authoritative host-mirror arrays (the same
 ``GroupBatchState`` the tick advances, so this works identically in
-scalar-fallback and batched mode) to the engine's device in one copy, runs
-the fused pass (kernel K4 on a CUDA device), and fetches ONE packed int32
-vector.  Consumers — the telemetry sampler's hot-group
-accounting, the watchdog's follower-lag and grey-follower detectors, the
-``GET /lag`` endpoint, the flight recorder — read numpy views of that
-single transfer instead of walking the division fleet in Python.
+scalar-fallback and batched mode) into the pinned buffer of the ledger's
+prepared call (``ops.ledger.LedgerPlan``), and one call into the kernel
+library copies them to the engine's device, runs the fused pass (kernel
+K4, one launch) and fetches ONE packed int32 vector.  Consumers — the
+telemetry sampler's hot-group accounting, the watchdog's follower-lag and
+grey-follower detectors, the ``GET /lag`` endpoint, the flight recorder —
+read numpy views of that single transfer instead of walking the division
+fleet in Python.
 
 The ledger also owns the server-wide dense peer table: divisions intern
 their peers' ids here (``peer_for``) and write the resulting dense ids
@@ -27,21 +29,9 @@ from typing import Optional
 import numpy as np
 
 from ratis_tpu_torch.engine.roles import ROLE_LEADER
+from ratis_tpu_torch.ops.ledger import LedgerPlan
 
 LOG = logging.getLogger(__name__)
-
-
-def _pass_fn(num_peers: int, mesh=None):
-    """The ledger pass (K4 on a CUDA device): over the mesh's slices for a
-    mesh engine (parallel.mesh.sharded_ledger_pass), so the telemetry
-    tick reads the same slice layout as the resident tick."""
-    if mesh is not None:
-        from ratis_tpu_torch.parallel.mesh import sharded_ledger_pass
-        return sharded_ledger_pass(mesh, num_peers)
-    import functools
-
-    from ratis_tpu_torch.ops.ledger import ledger_pass
-    return functools.partial(ledger_pass, num_peers=num_peers)
 
 
 @dataclasses.dataclass
@@ -90,13 +80,17 @@ class LagLedger:
         self.peer_names: list[str] = []
         self._prev_commit = np.full(engine.state.capacity, -1, np.int32)
         self._prev_gen = np.full(engine.state.capacity, -1, np.int32)
+        # the prepared call, built at the first sample and again when the
+        # capacity changes (_sync_capacity)
+        self._ledger_plan = None
         self.last_sample: Optional[LedgerSample] = None
         info = MetricRegistryInfo(prefix=prefix, application="ratis",
                                   component="engine", name="lag_ledger")
         self.registry = MetricRegistries.global_registries().create(info)
         r = self.registry
         self.samples = r.counter("ledgerSamples")
-        # upload + fused kernel + the one device->host fetch, wall clock
+        # the mirrors into the plan + the one call (copy up, fused kernel,
+        # the one device->host fetch), wall clock
         self.fetch_timer = r.timer("ledgerFetchCost")
         r.gauge("ledgerPeersTracked", lambda: len(self.peer_names))
         r.gauge("ledgerWorstLag",
@@ -131,7 +125,17 @@ class LagLedger:
 
     # --------------------------------------------------------- sampling
 
-    def _sync_capacity(self, cap: int) -> None:
+    def _sync_capacity(self, cap: int):
+        """The prepared call for ``cap`` rows (remade when the capacity
+        changed), the previous-pass baselines resized with it."""
+        st = self.engine.state
+        plan = self._ledger_plan
+        if plan is None or plan.capacity != cap \
+                or plan.peers != st.max_peers:
+            # a mesh engine's slices are contiguous rows on the engine's
+            # card: the flat pass reduces its per-peer sections over all
+            plan = self._ledger_plan = LedgerPlan(cap, st.max_peers,
+                                                  self.engine.device)
         if len(self._prev_commit) != cap:
             pc = np.full(cap, -1, np.int32)
             pg = np.full(cap, -1, np.int32)
@@ -139,14 +143,48 @@ class LagLedger:
             pc[:n] = self._prev_commit[:n]
             pg[:n] = self._prev_gen[:n]
             self._prev_commit, self._prev_gen = pc, pg
+        return plan
+
+    def _run_pass(self, plan, width: int, now: int, commit: np.ndarray,
+                  prev_commit: np.ndarray, prev_valid: np.ndarray
+                  ) -> np.ndarray:
+        """The mirrors into the plan's buffer, one call into the kernel
+        library, and the packed result copied out of the plan's buffer
+        (a sample keeps views of it; the next pass rewrites the buffer)."""
+        st = self.engine.state
+        v = plan.views
+        np.copyto(v.role, st.role)
+        np.copyto(v.match_index, st.match_index)
+        np.copyto(v.commit_index, commit)
+        np.copyto(v.applied_index, st.applied_index)
+        np.copyto(v.conf_cur, st.conf_cur)
+        np.copyto(v.conf_old, st.conf_old)
+        np.copyto(v.self_mask, st.self_mask)
+        np.copyto(v.last_ack_ms, st.last_ack_ms)
+        np.copyto(v.peer_index, st.peer_index)
+        np.copyto(v.prev_commit, prev_commit)
+        np.copyto(v.prev_valid, prev_valid)
+        return plan.run(width, now, self.lag_threshold,
+                        self.up_window_ms).copy()
+
+    def prewarm(self) -> None:
+        """One pass through the prepared call (built here), recording no
+        sample: the engine's prewarm launches K4 once before the server
+        elects."""
+        st = self.engine.state
+        plan = self._sync_capacity(st.capacity)
+        self._run_pass(plan, self._table_width(), self.engine.clock.now_ms(),
+                       st.commit_index, st.commit_index,
+                       st.role == ROLE_LEADER)
 
     def sample(self) -> LedgerSample:
-        """One fused pass + one fetch.  Same read discipline as the
-        watchdog: plain reads of the host mirrors, tolerating concurrent
-        mutation (a torn row is one sample of noise, never a tear)."""
+        """One fused pass + one fetch, in one call of the prepared call.
+        Same read discipline as the watchdog: plain reads of the host
+        mirrors, tolerating concurrent mutation (a torn row is one sample
+        of noise, never a tear)."""
         st = self.engine.state
         cap = st.capacity
-        self._sync_capacity(cap)
+        plan = self._sync_capacity(cap)
         names = list(self.peer_names)
         width = self._table_width()
         now = self.engine.clock.now_ms()
@@ -156,14 +194,9 @@ class LagLedger:
         leader_mask = st.role == ROLE_LEADER
         prev_valid = self._prev_gen == gen
         from ratis_tpu_torch.ops.ledger import LAG_BUCKETS, pack_slices
-        from ratis_tpu_torch.ops.quorum import upload
         t0 = time.perf_counter()
-        packed = _pass_fn(width, self.engine.mesh)(*upload(
-            (st.role, st.match_index, commit, st.applied_index,
-             st.conf_cur, st.conf_old, st.self_mask, st.last_ack_ms,
-             st.peer_index, self._prev_commit, prev_valid),
-            self.engine.device), now, self.lag_threshold,
-            self.up_window_ms).cpu().numpy()
+        packed = self._run_pass(plan, width, now, commit, self._prev_commit,
+                                prev_valid)
         elapsed_s = time.perf_counter() - t0
         self.fetch_timer.update(elapsed_s)
         self._prev_commit = commit

@@ -18,12 +18,12 @@
 // one K1/K2/K5 tick moves ~0.2 MB, ~0.06 us at 3.35 TB/s, and does a few
 // thousand integer operations.  K6 at the bench's shapes must move ~1.9 MB
 // (G = 10240, P = 8, E = 4096; ~0.56 us) and ~18 MB (G = 102400, E = 8192;
-// ~5.4 us), most of it the copy of the two [G, P] arrays.  Bytes bind none
-// of them at 1024 and 10240 groups: the latency of each launch and of the
-// dependent steps inside it (a few us) and the host's work around it do.
-// So K1, K2 and K5 are each ONE launch of one tile kernel, ``tile_tick``,
-// and the engine reaches each through a prepared call that is one C call
-// per tick.
+// ~5.4 us), most of it the two [G, P] arrays read and their copies written.
+// Bytes bind none of them at 1024 and 10240 groups: the latency of each
+// launch and of the dependent steps inside it (a few us) and the host's
+// work around it do.  So K1, K2 and K5 are each ONE launch of one tile
+// kernel, ``tile_tick``, and the engine reaches each through a prepared
+// call that is one C call per tick; K6 is ONE launch of ``engine_step``.
 //
 // tile_tick: each block owns a tile of T consecutive group rows (T = 32,
 // or 128 above 16384 rows, where the event scans below would dominate:
@@ -81,11 +81,29 @@
 // separate tensors (``k1_resident_fast``, ``k5_resident_fast_sliced``,
 // ``k2_resident``).
 //
-// K6 is two flat launches after two device-to-device copies on the same
-// stream: ``apply_events`` (one thread per ack column, global atomicMax
-// on the copies) and ``row_pass`` (one thread per group row, its <= MAXP
-// peer values in registers, ranks counted in O(P^2) compares by
-// ``row_math.cuh``).
+// K6, ``engine_step``, is one launch.  Each block owns a range of about
+// G / 256 consecutive group rows (a multiple of 32: 64 at 10240 rows, 416
+// at 102400), so the grid is about two blocks an SM at the bench's shapes:
+// 1. the block scans the group row of every ack column (16-byte loads,
+//    from L2) and lists those landing in its rows (up to kStepHits; a
+//    block that more land in has each warp scan the columns itself);
+// 2. each warp takes 32 of its rows at a time: it stages their match and
+//    ack (32 x P contiguous values, coalesced loads) in shared memory,
+//    lands the listed acks there (separate atomicMax on match and ack,
+//    the column's other fields read only for a listed column), writes
+//    the rows to match_out / ack_out (coalesced stores) and runs the row
+//    math a lane per row on its <= MAXP peer values in registers (ranks
+//    counted in O(P^2) compares by ``row_math.cuh``), writing new_commit
+//    and flags.
+// So K6 reads each input once and writes each output once, writes no
+// input and needs no copy before it (an earlier design copied match and
+// ack into the outputs with two device-to-device copies, then scattered
+// into them and ran the rows in two more launches).  Every block scans
+// every ack column's row index, which is why a block owns hundreds of
+// rows at 102400 (the tile kernel of K1 scans them from 800 blocks
+// there, and that cost it more than its one launch saved); a
+// cooperative design (the acks into a scratch, a grid sync, the rows)
+// measured slower than the old four nodes at both bench shapes.
 //
 // Scatter indices follow XLA's mode="drop": an index in [-n, -1] counts
 // from the end of its own dimension (n + idx), one outside [-n, n) is
@@ -105,65 +123,6 @@ namespace {
 constexpr int32_t kSentinel = INT32_MIN;  // ops.quorum.PACK_SENTINEL
 constexpr int8_t kRoleFollower = 1;
 constexpr int8_t kRoleLeader = 3;
-
-// -- K6: the stateless tick in two flat passes ------------------------------
-
-// Scatter-max the E valid acks into the copies of match and ack.
-__global__ void apply_events(
-    const int32_t* __restrict__ ev_g, const int32_t* __restrict__ ev_p,
-    const int32_t* __restrict__ ev_m, const int32_t* __restrict__ ev_t,
-    const uint8_t* __restrict__ ev_valid, int E, int G, int P,
-    int32_t* match, int32_t* ack) {
-  int e = blockIdx.x * blockDim.x + threadIdx.x;
-  if (e >= E || ev_valid[e] == 0) return;
-  int g = wrap_index(ev_g[e], G);
-  int p = wrap_index(ev_p[e], P);
-  if (g < 0 || g >= G || p < 0 || p >= P) return;
-  size_t i = (size_t)g * P + p;
-  atomicMax(&match[i], ev_m[e]);
-  atomicMax(&ack[i], ev_t[e]);
-}
-
-// The row math of K6: new_commit [G] and flags bool [3, G]
-// (commit_changed, timeouts, stale); no input is written.
-__global__ void row_pass(
-    const int32_t* __restrict__ match, const int32_t* __restrict__ ack,
-    const uint8_t* __restrict__ self_mask, const uint8_t* __restrict__ cur,
-    const uint8_t* __restrict__ old, const int8_t* __restrict__ role,
-    const int32_t* __restrict__ flush, const int32_t* __restrict__ commit,
-    const int32_t* __restrict__ first, const int32_t* __restrict__ deadline,
-    int now, int timeout, int32_t* __restrict__ new_commit,
-    uint8_t* __restrict__ flags, int G, int P) {
-  int g = blockIdx.x * blockDim.x + threadIdx.x;
-  if (g >= G) return;
-  const size_t base = (size_t)g * P;
-  unsigned cb = row_bits(cur + base, P);
-  unsigned ob = row_bits(old + base, P);
-  unsigned sb = row_bits(self_mask + base, P);
-  int8_t r = role[g];
-  bool is_leader = r == kRoleLeader;
-  int32_t fl = flush[g];
-  int32_t eff[MAXP], eff_ack[MAXP];
-#pragma unroll
-  for (int i = 0; i < MAXP; ++i) {
-    bool self = (sb >> i) & 1u;
-    eff[i] = i < P ? (self ? fl : match[base + i]) : kIntMax;
-    eff_ack[i] = i < P ? (self ? now : ack[base + i]) : kIntMax;
-  }
-  // update_commit
-  int32_t c = commit[g];
-  int32_t cand = combined_majority_min(eff, cb, ob);
-  bool ok = is_leader && cand > c && cand >= first[g];
-  // election_timeout
-  bool timed_out = r == kRoleFollower && now >= deadline[g];
-  // check_leadership (int32 subtraction wraps, as in XLA)
-  int32_t quorum_ack = combined_majority_min(eff_ack, cb, ob);
-  bool stale = is_leader && wrap_sub(now, quorum_ack) > timeout;
-  new_commit[g] = ok ? cand : c;
-  flags[g] = ok;
-  flags[G + g] = timed_out;
-  flags[2 * G + g] = stale;
-}
 
 // -- K1, K2, K5: the tile kernel --------------------------------------------
 
@@ -755,6 +714,153 @@ int run_plan(const TickPlan& k, size_t nbytes, cudaStream_t s,
   return (int)err;
 }
 
+// -- K6: the stateless tick in one launch ----------------------------------
+
+// engine_step's inputs
+struct StepArgs {
+  const int32_t* match;
+  const int32_t* ack;
+  const int32_t* ev_g;
+  const int32_t* ev_p;
+  const int32_t* ev_m;
+  const int32_t* ev_t;
+  const uint8_t* ev_valid;
+  const uint8_t* self_mask;
+  const int32_t* flush;
+  const uint8_t* cur;
+  const uint8_t* old;
+  const int32_t* commit;
+  const int32_t* first;
+  const int8_t* role;
+  const int32_t* deadline;
+};
+
+// its outputs: match and ack [G, P], new_commit [G], flags bool [3, G]
+// (commit_changed, timeouts, stale)
+struct StepOut {
+  int32_t* match;
+  int32_t* ack;
+  int32_t* new_commit;
+  uint8_t* flags;
+};
+
+constexpr int kStepThreads = 256;
+constexpr int kStepWarps = kStepThreads / 32;
+// the ack columns a block lists (more, and each warp scans the columns
+// itself), and the blocks a grid aims at (rows per block: a multiple of
+// 32 that gives about this many)
+constexpr int kStepHits = 1024;
+constexpr int kStepBlocks = 256;
+
+// Land ack column e on local row lr of a warp's staged rows (wm, wt).
+__device__ __forceinline__ void step_land(const StepArgs& a, int e, int lr,
+                                          int32_t* wm, int32_t* wt, int P) {
+  const uint8_t valid = a.ev_valid[e];
+  const int p = wrap_index(a.ev_p[e], P);
+  const int32_t m = a.ev_m[e], t = a.ev_t[e];
+  if (valid == 0 || p < 0 || p >= P) return;
+  atomicMax(&wm[lr * P + p], m);
+  atomicMax(&wt[lr * P + p], t);
+}
+
+// Each block owns ``rows`` consecutive group rows: it lists the ack
+// columns that land in them (one pass over the group row of every column,
+// 16-byte loads), then each warp, 32 rows at a time, stages its rows of
+// match and ack in shared memory (coalesced), lands the listed acks
+// there (atomicMax), writes the rows out (coalesced) and runs the row
+// math on them, a lane per row.
+__global__ void __launch_bounds__(kStepThreads)
+    engine_step(StepArgs a, StepOut o, int now, int timeout, int G, int P,
+                int E, int rows) {
+  __shared__ int32_t s_match[kStepWarps][32 * MAXP];
+  __shared__ int32_t s_ack[kStepWarps][32 * MAXP];
+  __shared__ int hit_e[kStepHits];
+  __shared__ int hit_r[kStepHits];
+  __shared__ int n_hits;
+  const int r0 = blockIdx.x * rows;
+  const int n_rows = min(rows, G - r0);
+  if (threadIdx.x == 0) n_hits = 0;
+  __syncthreads();
+  for_each_index(a.ev_g, E, [&](int e, int32_t raw) {
+    const int g = wrap_index(raw, G);
+    if (g < 0 || g >= G || g < r0 || g >= r0 + n_rows) return;
+    const int k = atomicAdd(&n_hits, 1);
+    if (k < kStepHits) {
+      hit_e[k] = e;
+      hit_r[k] = g - r0;
+    }
+  });
+  __syncthreads();
+  const int listed = min(n_hits, kStepHits);
+  const bool overflow = n_hits > kStepHits;
+
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  int32_t* wm = s_match[warp];
+  int32_t* wt = s_ack[warp];
+  for (int t0 = warp * 32; t0 < n_rows; t0 += 32 * kStepWarps) {
+    const int row0 = r0 + t0;
+    const int n = min(32, n_rows - t0);
+    const int ne = n * P;
+    const size_t base = (size_t)row0 * P;
+#pragma unroll 4
+    for (int k = lane; k < ne; k += 32) {
+      wm[k] = a.match[base + k];
+      wt[k] = a.ack[base + k];
+    }
+    __syncwarp();
+    if (!overflow) {
+      for (int h = lane; h < listed; h += 32) {
+        const int lr = hit_r[h] - t0;
+        if (lr >= 0 && lr < n) step_land(a, hit_e[h], lr, wm, wt, P);
+      }
+    } else {  // more acks landed in the block than it listed
+      for (int e = lane; e < E; e += 32) {
+        const int lr = wrap_index(a.ev_g[e], G) - row0;
+        if (lr >= 0 && lr < n) step_land(a, e, lr, wm, wt, P);
+      }
+    }
+    __syncwarp();
+#pragma unroll 4
+    for (int k = lane; k < ne; k += 32) {
+      o.match[base + k] = wm[k];
+      o.ack[base + k] = wt[k];
+    }
+    if (lane < n) {
+      const int g = row0 + lane;
+      const size_t rb = (size_t)g * P;
+      const unsigned cb = row_bits(a.cur + rb, P);
+      const unsigned ob = row_bits(a.old + rb, P);
+      const unsigned sb = row_bits(a.self_mask + rb, P);
+      const int8_t r = a.role[g];
+      const int32_t fl = a.flush[g], c = a.commit[g], first = a.first[g];
+      const int32_t dl = a.deadline[g];
+      const bool is_leader = r == kRoleLeader;
+      int32_t eff[MAXP], eff_ack[MAXP];
+#pragma unroll
+      for (int i = 0; i < MAXP; ++i) {
+        eff[i] = eff_ack[i] = kIntMax;
+        if (i >= P) continue;
+        const bool self = (sb >> i) & 1u;
+        eff[i] = self ? fl : wm[lane * P + i];
+        eff_ack[i] = self ? now : wt[lane * P + i];
+      }
+      // update_commit
+      const int32_t cand = combined_majority_min(eff, cb, ob);
+      const bool ok = is_leader && cand > c && cand >= first;
+      // election_timeout
+      const bool timed_out = r == kRoleFollower && now >= dl;
+      // check_leadership (int32 subtraction wraps, as in XLA)
+      const int32_t quorum_ack = combined_majority_min(eff_ack, cb, ob);
+      const bool stale = is_leader && wrap_sub(now, quorum_ack) > timeout;
+      o.new_commit[g] = ok ? cand : c;
+      o.flags[g] = ok;
+      o.flags[G + g] = timed_out;
+      o.flags[2 * (size_t)G + g] = stale;
+    }
+    __syncwarp();
+  }
+}
+
 }  // namespace
 
 extern "C" {
@@ -888,10 +994,11 @@ int fast_tick(void* plan, int S, int E, int now_ms, int timeout_ms,
   });
 }
 
-// K6: the stateless tick, arguments in engine_step's order.  Copies match
-// and ack into match_out / ack_out, scatters the E unpacked acks there,
-// then the row pass writes new_commit [G] and flags bool [3, G]
-// (commit_changed, timeouts, stale).  No input is written.
+// K6: the stateless tick, arguments in engine_step's order, in ONE
+// launch: each block lists the acks landing in its rows, then copies its
+// rows of match and ack with those acks into match_out / ack_out and runs
+// the row math into new_commit [G] and flags bool [3, G] (commit_changed,
+// timeouts, stale).  No input is written.
 int k6_engine_step(const int32_t* match, const int32_t* ack,
                    const int32_t* ev_g, const int32_t* ev_p,
                    const int32_t* ev_m, const int32_t* ev_t,
@@ -903,23 +1010,17 @@ int k6_engine_step(const int32_t* match, const int32_t* ack,
                    int32_t* match_out, int32_t* ack_out,
                    int32_t* new_commit, uint8_t* flags, int G, int P, int E,
                    void* stream) {
-  cudaStream_t s = (cudaStream_t)stream;
-  const size_t gp = (size_t)G * P * sizeof(int32_t);
-  if (gp > 0) {
-    cudaError_t err = cudaMemcpyAsync(match_out, match, gp,
-                                      cudaMemcpyDeviceToDevice, s);
-    if (err == cudaSuccess)
-      err = cudaMemcpyAsync(ack_out, ack, gp, cudaMemcpyDeviceToDevice, s);
-    if (err != cudaSuccess) return (int)err;
-  }
-  if (E > 0)
-    apply_events<<<blocks(E), kThreads, 0, s>>>(ev_g, ev_p, ev_m, ev_t,
-                                                ev_valid, E, G, P, match_out,
-                                                ack_out);
-  if (G > 0)
-    row_pass<<<blocks(G), kThreads, 0, s>>>(
-        match_out, ack_out, self_mask, cur, old, role, flush, commit, first,
-        deadline, now_ms, timeout_ms, new_commit, flags, G, P);
+  if (P < 1 || P > MAXP || G < 0 || E < 0) return (int)cudaErrorInvalidValue;
+  if (G == 0) return (int)cudaSuccess;
+  // rows per block: a multiple of 32 giving about kStepBlocks blocks
+  const long long per = ((long long)G + kStepBlocks - 1) / kStepBlocks;
+  const int rows = (int)((per + 31) / 32 * 32);
+  const int grid = (G + rows - 1) / rows;
+  StepArgs a{match, ack, ev_g, ev_p, ev_m, ev_t, ev_valid, self_mask, flush,
+             cur, old, commit, first, role, deadline};
+  StepOut o{match_out, ack_out, new_commit, flags};
+  engine_step<<<grid, kStepThreads, 0, (cudaStream_t)stream>>>(
+      a, o, now_ms, timeout_ms, G, P, E, rows);
   return (int)cudaGetLastError();
 }
 

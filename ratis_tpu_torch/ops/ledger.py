@@ -6,7 +6,13 @@ indexes, conf masks, ack times, the dense ``peer_index`` map) into every
 per-group and per-peer observability quantity, packed into ONE int32
 vector so a sample costs one device-to-host copy.  ``ledger_pass`` runs the
 plain-torch version for CPU tensors and the hand-written CUDA kernel K4
-(``ops/kernels/ledger_pass.cu``) for CUDA tensors.
+(``ops/kernels/ledger_pass.cu``, one launch) for CUDA tensors.
+
+The engine's ledger reaches K4 through :class:`LedgerPlan` instead: a
+pinned host buffer it writes the mirrors into, its device copy and the
+packed output on both sides, so a sample is ONE call into the kernel
+library (copy up, one launch, copy down, synchronise).  On the CPU the
+same buffer feeds the plain version.
 
 Counts are int32, never float: the JAX version's f32 einsum is exact on
 the CPU, and a TF32 product on the card would not be.
@@ -14,11 +20,17 @@ the CPU, and a TF32 product on the card would not be.
 
 from __future__ import annotations
 
+from typing import NamedTuple
+
+import numpy as np
 import torch
 
 from ratis_tpu_torch.engine.roles import ROLE_LEADER, ROLE_UNUSED
-from ratis_tpu_torch.ops._build import INT, PTR, Kernel
-from ratis_tpu_torch.ops.quorum import _check, _device_of, wrap_i32
+from ratis_tpu_torch.ops._build import (INT, PTR, Kernel, c_function,
+                                        raise_on_error)
+from ratis_tpu_torch.ops.quorum import (_check, _check_peers, _device_of,
+                                        _layout_views, layout_offsets,
+                                        tick_offsets, wrap_i32)
 
 # log2 lag histogram width: bucket 0 = caught up (lag 0), bucket i >= 1 =
 # lag in [2^(i-1), 2^i) entries.  31 thresholds covers any int32 lag.
@@ -46,7 +58,13 @@ def pack_slices(g: int, num_peers: int) -> dict:
 
 
 def packed_size(g: int, num_peers: int) -> int:
-    return 4 * g + num_peers * (LAG_BUCKETS + 6) + 2
+    return 4 * g + n_counters(num_peers)
+
+
+def n_counters(num_peers: int) -> int:
+    """The packed vector's tail after the four [G] sections: the per-peer
+    sections and the two scalars (K4 sums them over every row)."""
+    return num_peers * (LAG_BUCKETS + 6) + 2
 
 
 def lag_buckets(lag: torch.Tensor) -> torch.Tensor:
@@ -135,7 +153,9 @@ def ledger_pass(role, match_index, commit_index, applied_index,
     - ``peer_* [num_peers]``: per-peer link counts across the groups this
       server leads (total, up, laggy, active, laggy_active) and max lag.
     - ``scalars [2]``: leader-row count, summed commit - applied gap.
-    """
+
+    CUDA tensors: one launch of K4 (the engine's samples go through
+    :class:`LedgerPlan` instead)."""
     arrays = (role, match_index, commit_index, applied_index, conf_cur,
               conf_old, self_mask, last_ack_ms, peer_index, prev_commit,
               prev_valid)
@@ -144,6 +164,7 @@ def ledger_pass(role, match_index, commit_index, applied_index,
         return _ledger_plain(*arrays, now_ms, lag_threshold, up_window_ms,
                              num_peers)
     g, p = match_index.shape
+    _check_peers(p)
     _check(role, torch.int8, (g,))
     for t in (commit_index, applied_index, prev_commit):
         _check(t, torch.int32, (g,))
@@ -160,3 +181,127 @@ def ledger_pass(role, match_index, commit_index, applied_index,
        int(lag_threshold), int(up_window_ms), out.data_ptr(), g, p,
        num_peers)
     return out
+
+
+# A ledger sample's packed inputs: int32 sections first, so each is
+# aligned.  ``k4_tick`` takes the sections' offsets in the order of
+# LedgerViews (ledger_pass's argument order)
+LEDGER_LAYOUT = (
+    ("match_index", np.int32, "GP"), ("last_ack_ms", np.int32, "GP"),
+    ("peer_index", np.int32, "GP"), ("commit_index", np.int32, "G"),
+    ("applied_index", np.int32, "G"), ("prev_commit", np.int32, "G"),
+    ("conf_cur", np.bool_, "GP"), ("conf_old", np.bool_, "GP"),
+    ("self_mask", np.bool_, "GP"), ("role", np.int8, "G"),
+    ("prev_valid", np.bool_, "G"))
+
+
+def ledger_shapes(g: int, p: int) -> dict:
+    return {"GP": (g, p), "G": (g,)}
+
+
+class LedgerViews(NamedTuple):
+    """The eleven inputs of a ledger sample, in ledger_pass's order."""
+
+    role: np.ndarray           # int8 [G]
+    match_index: np.ndarray    # int32 [G, P]
+    commit_index: np.ndarray   # int32 [G]
+    applied_index: np.ndarray  # int32 [G]
+    conf_cur: np.ndarray       # bool [G, P]
+    conf_old: np.ndarray       # bool [G, P]
+    self_mask: np.ndarray      # bool [G, P]
+    last_ack_ms: np.ndarray    # int32 [G, P]
+    peer_index: np.ndarray     # int32 [G, P]
+    prev_commit: np.ndarray    # int32 [G]
+    prev_valid: np.ndarray     # bool [G]
+
+
+class LedgerPlan:
+    """K4's prepared call (the engine's ledger samples) for ``capacity``
+    rows of ``peers`` slots, built once per capacity: a host buffer the
+    caller writes the eleven inputs into (``views``; pinned on a card), its
+    device copy and the packed output on both sides.  ``run(width, ...)``
+    is ONE call into the kernel library (copy in, one launch, copy out,
+    synchronise); the output, sized for a table of 8 at first, grows when
+    a wider peer table asks for it.  On the CPU the same buffer feeds the
+    plain version."""
+
+    _plan = None
+
+    def __init__(self, capacity: int, peers: int, device):
+        self.capacity, self.peers = capacity, peers
+        self.device = torch.device(device)
+        self._cuda = self.device.type == "cuda"
+        if self._cuda:
+            _check_peers(peers)
+        shapes = ledger_shapes(capacity, peers)
+        nbytes = layout_offsets(LEDGER_LAYOUT, shapes)[-1]
+        self._host = torch.zeros(nbytes, dtype=torch.uint8,
+                                 pin_memory=self._cuda)
+        views = dict(zip((name for name, _, _ in LEDGER_LAYOUT),
+                         _layout_views(self._host.numpy(), LEDGER_LAYOUT,
+                                       shapes)))
+        self.views = LedgerViews(**{f: views[f] for f in LedgerViews._fields})
+        self._tensors = LedgerViews(*map(torch.from_numpy, self.views))
+        self._offsets = tick_offsets(LEDGER_LAYOUT, shapes,
+                                     LedgerViews._fields)
+        if self._cuda:
+            self._dev_in = torch.empty(nbytes, dtype=torch.uint8,
+                                       device=self.device)
+            self.device = self._dev_in.device  # "cuda" names its index
+            self._tick = c_function("ledger_pass.cu", "k4_tick",
+                                    (PTR, INT, INT, INT, INT, PTR, PTR))
+            self._plan_new = c_function("ledger_pass.cu", "k4_plan_new",
+                                        (PTR,) * 4 + (INT,) * 4, PTR)
+            self._plan_free = c_function("ledger_pass.cu", "k4_plan_free",
+                                         (PTR,), None)
+            self._stream = torch.cuda.current_stream(
+                self.device).cuda_stream
+        self.width = 0
+        self._grow(8)
+
+    def _grow(self, width: int) -> None:
+        """Room for tables up to ``width`` peers wide."""
+        n = packed_size(self.capacity, width)
+        self._host_out = torch.zeros(n, dtype=torch.int32,
+                                     pin_memory=self._cuda)
+        self._out = self._host_out.numpy()
+        if self._cuda:
+            self._dev_out = torch.empty(n, dtype=torch.int32,
+                                        device=self.device)
+            plan = self._plan_new(
+                self._host.data_ptr(), self._dev_in.data_ptr(),
+                self._dev_out.data_ptr(), self._host_out.data_ptr(),
+                self.capacity, self.peers, width, self.device.index)
+            self._free()
+            self._plan = plan
+        self.width = width
+
+    def run(self, width: int, now_ms: int, lag_threshold: int,
+            up_window_ms: int) -> np.ndarray:
+        """The ledger pass on the inputs in ``views`` with a peer table
+        ``width`` wide: the packed int32 vector (:func:`pack_slices`), a
+        view of the plan's output buffer, valid until the next run."""
+        if width <= 0:
+            raise ValueError(f"num_peers {width}: the table needs a column")
+        if width > self.width:
+            self._grow(width)
+        out = self._out[:packed_size(self.capacity, width)]
+        if self._cuda:
+            if self._plan is None:
+                raise RuntimeError("the ledger plan's C plan was freed")
+            raise_on_error("ledger_pass.cu", "k4_tick", self._tick(
+                self._plan, width, now_ms, lag_threshold, up_window_ms,
+                self._offsets, self._stream))
+            K4.launches += 1
+        else:
+            out[...] = _ledger_plain(*self._tensors, now_ms, lag_threshold,
+                                     up_window_ms, width).numpy()
+        return out
+
+    def _free(self) -> None:
+        if self._plan:
+            self._plan_free(self._plan)
+            self._plan = None
+
+    def __del__(self):
+        self._free()

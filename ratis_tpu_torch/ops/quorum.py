@@ -620,6 +620,22 @@ K6 = Kernel("resident_step.cu", "k6_engine_step",
             (PTR,) * 15 + (INT, INT) + (PTR,) * 4 + (INT, INT, INT))
 
 
+@functools.lru_cache(maxsize=64)
+def _step_specs(g: int, p: int, e: int) -> tuple:
+    """(dtype, shape) of each of engine_step's 15 arrays, in its order,
+    and the byte offsets of its outputs in one buffer: match and ack
+    int32 [G, P], new_commit int32 [G], flags bool [3, G], then the
+    total, rounded up to whole int32 words so that the buffer also reads
+    as int32 for any G."""
+    shapes = {"GP": torch.Size((g, p)), "E": torch.Size((e,)),
+              "G": torch.Size((g,))}
+    specs = tuple((_TORCH_DTYPE[dt], shapes[code])
+                  for _, dt, code in ENGINE_STEP_ARRAYS)
+    gp = g * p
+    return specs, (0, 4 * gp, 8 * gp, 8 * gp + 4 * g,
+                   (8 * gp + 7 * g + 3) // 4 * 4)
+
+
 def engine_step(match_index, last_ack_ms, ev_group, ev_peer, ev_match,
                 ev_time_ms, ev_valid, self_mask, flush_index, conf_cur,
                 conf_old, commit_index, first_leader_index, role,
@@ -630,29 +646,41 @@ def engine_step(match_index, last_ack_ms, ev_group, ev_peer, ev_match,
     commits, fire election timeouts, find stale leaders.  No input is
     written.  Arrays as in ``ENGINE_STEP_ARRAYS``; ``now_ms`` and
     ``leadership_timeout_ms`` are host scalars (int, numpy int32).  CPU
-    tensors: plain torch; CUDA tensors: the kernel."""
+    tensors: plain torch; CUDA tensors: one launch of the kernel, its four
+    outputs views of one buffer."""
     arrays = (match_index, last_ack_ms, ev_group, ev_peer, ev_match,
               ev_time_ms, ev_valid, self_mask, flush_index, conf_cur,
               conf_old, commit_index, first_leader_index, role,
               election_deadline_ms)
-    dev = _device_of(*arrays)
     now, timeout = int(now_ms), int(leadership_timeout_ms)
-    if dev.type == "cpu":
+    dev = match_index.device
+    if dev.type != "cuda":
+        _device_of(*arrays)  # mixed devices and other types raise
         return _engine_step_plain(*arrays, now, timeout)
     g, p = match_index.shape
     _check_peers(p)
     e = ev_group.shape[0]
-    shapes = {"GP": (g, p), "E": (e,), "G": (g,)}
-    for (_, dt, shape), t in zip(ENGINE_STEP_ARRAYS, arrays):
-        _check(t, _TORCH_DTYPE[dt], shapes[shape])
-    match_out = torch.empty_like(match_index)
-    ack_out = torch.empty_like(last_ack_ms)
-    new_commit = torch.empty(g, dtype=torch.int32, device=dev)
-    flags = torch.empty((3, g), dtype=torch.bool, device=dev)
+    specs, offs = _step_specs(g, p, e)
+    card = dev.index
+    # every check in one pass; the first that fails names itself
+    for t, (dt, shape) in zip(arrays, specs):
+        if t.dtype is not dt or t.shape != shape or not t.is_contiguous() \
+                or t.get_device() != card:
+            _device_of(*arrays)
+            _check(t, dt, shape)
+    buf = torch.empty(offs[-1], dtype=torch.uint8, device=dev)
+    words, bools = buf.view(torch.int32), buf.view(torch.bool)
+    match_out = words.as_strided((g, p), (p, 1), 0)
+    ack_out = words.as_strided((g, p), (p, 1), offs[1] // 4)
+    new_commit = words.as_strided((g,), (1,), offs[2] // 4)
     K6(dev, *(t.data_ptr() for t in arrays), now, timeout,
        match_out.data_ptr(), ack_out.data_ptr(), new_commit.data_ptr(),
-       flags.data_ptr(), g, p, e)
-    return EngineStep(match_out, ack_out, new_commit, *flags)
+       buf.data_ptr() + offs[3], g, p, e)
+    flags = offs[3]
+    return EngineStep(match_out, ack_out, new_commit,
+                      bools.as_strided((g,), (1,), flags),
+                      bools.as_strided((g,), (1,), flags + g),
+                      bools.as_strided((g,), (1,), flags + 2 * g))
 
 
 class DeviceState(NamedTuple):
@@ -709,9 +737,10 @@ def upload(arrays: Sequence[np.ndarray], device) -> list[torch.Tensor]:
     """Copy host arrays to ``device`` in ONE transfer: their bytes are
     packed (4-byte aligned) into one buffer, copied once, and returned as
     typed views of the copy, one per array, with the arrays' shapes and
-    dtypes.  The ledger's upload goes through here, so a pass pays one
-    host-to-device copy, not one per array (the engine's fast and refresh
-    ticks and its vote pass pack into their plans' pinned buffers)."""
+    dtypes.  No route of the engine takes it any more (its ticks, vote
+    pass and ledger samples pack into their plans' pinned buffers): it is
+    the earlier route that ``chip_smoke.py`` and
+    ``tools/fast_tick_timing.py`` time beside them."""
     arrays = [np.ascontiguousarray(a) for a in arrays]
     offs, off = [], 0
     for a in arrays:

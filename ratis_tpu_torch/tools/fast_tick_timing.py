@@ -1,20 +1,35 @@
-"""Time the fast tick's public wrappers, K1 and K5, on one CUDA card; and
-the timing helpers ``chip_smoke.py`` times every kernel with.
+"""Time the redesigned kernels' public wrappers (the fast tick K1 and K5,
+the ledger pass K4, the stateless tick K6) on one CUDA card; and the
+timing helpers ``chip_smoke.py`` times every kernel and route with.
 
     python ratis_tpu_torch/tools/fast_tick_timing.py [--label NAME]
 
-Prints the card's name and power limit, then one JSON line: for each
-shape, the kernel's median CUDA-event ms over 200 calls (each call on the
+Prints the card's name and power limit, then one JSON line: for each K1
+and K5 shape, the kernel's median CUDA-event ms over 200 calls (each call on the
 same fresh state, restored outside the events), its device us per call
 from 20 calls captured in one CUDA graph, and the wrapper's host us per
-call issued back to back.  Shapes (``K1_SHAPES``): K1 at the main path's
-1024 x 8 rows with every event bucket the engine packs (64 * 4^k up to
+call issued back to back, and its bound in us (``bound_us``: the larger
+of the bytes one call must move over 3.35 TB/s and its integer
+operations over 33.5 TOP/s, as ``chip_smoke.py`` counts them for K1 and
+K5; the state bytes a call changes are counted on the CPU with the plain
+version, which the kernel equals).  Shapes (``K1_SHAPES``): K1 at the
+main path's 1024 x 8 rows with every event bucket the engine packs (64 * 4^k up to
 its cap of 16384 columns), the buckets from 1024 up both with
 ``cases.fast_events``' padding on row 0 and with the engine's (a slot
 that lands in no row), at 10240 x 8 x 1024, and on the ``mesh_100k``
 rung's batch as its flat control (102400 x 8 x 8192, global rows); K5 at
 the mesh path's 2048 rows x 8 in 8 slices x 64 and on the ``mesh_100k``
-batch (8 slices x 1024).
+batch (8 slices x 1024).  K4 (``ledger_pass``, ``K4_SHAPES``) on
+``cases.ledger_inputs`` at the served paths' 1024 rows x 8 peer slots with
+a table of 8, at 1000 x 16, 2048 x 8 (the mesh path's capacity), 10240 x 8
+and 1024 x 512 (a table whose counters do not fit in shared memory), and
+at 1024 x 8 the host ms of one call of K4's prepared call
+(``ops.ledger.LedgerPlan``, where the package has it: inputs up, the
+launch, the packed vector down, synchronised) beside the earlier route
+(``ledger_earlier_route``), medians of 200; K6 (``engine_step``) on the
+bench's own batches at its two kernel rungs' shapes (``K6_SHAPES[1:]``),
+its host us the median of five runs.  K4 and K6 are functional: every
+call sees the same inputs.
 
 It imports ``ratis_tpu_torch`` from the Python path, not from beside the
 script, so the same script times another checkout of the package::
@@ -60,6 +75,42 @@ def engine_padded(ev: np.ndarray) -> np.ndarray:
     gets the same inputs."""
     ev[0][(ev[4] == 0) & (ev[5] == SENT) & (ev[6] == SENT)] = SENT
     return ev
+
+
+# (key, G, P, table width) of the K4 shapes
+K4_SHAPES = (("K4_G1024_W8", 1024, 8, 8), ("K4_G1000_W16", 1000, 8, 16),
+             ("K4_G2048_W8", 2048, 8, 8), ("K4_G10240_W8", 10_240, 8, 8),
+             ("K4_G1024_W512", 1024, 8, 512))
+# (G, P, E) of K6: the bench's entry() and its two kernel rungs
+K6_SHAPES = ((1024, 8, 256), (10_240, 8, 4096), (102_400, 8, 8192))
+
+
+HBM_BYTES_S = 3.35e12
+PEAK_INT32_OPS_S = 33.5e12
+
+
+def bound_us(q, state_np, ev_np) -> float:
+    """The least time one fast tick (K1 on [7, E], K5 on [7, S, E]) could
+    take on an H100: each input read once (the state, the event columns,
+    meta), the state elements the call changes and the int32 [4, G]
+    output written once, against the integer operations of its row math
+    (``chip_smoke.py``'s count).  The changed elements come from the plain
+    version on the CPU, which the kernel equals."""
+    g, p = state_np[0].shape
+    before = q.device_state_from_numpy(state_np, "cpu")
+    after = q.device_state_from_numpy(state_np, "cpu")
+    ev = torch.from_numpy(np.ascontiguousarray(ev_np))
+    meta = torch.tensor([NOW, TIMEOUT_MS], dtype=torch.int32)
+    if ev.dim() == 3:
+        q._resident_fast_sliced_plain(after, ev, meta)
+    else:
+        q._resident_fast_plain(after, ev, meta)
+    wrote = sum(int((x != y).sum()) * x.element_size()
+                for x, y in zip(before, after))
+    cols = int(np.prod(ev_np.shape[1:]))
+    nbytes = g * p * 11 + g * 17 + 28 * cols + 8 + wrote + 16 * g
+    ops = g * (4 * p * p + 64) + 10 * cols
+    return max(nbytes / HBM_BYTES_S, ops / PEAK_INT32_OPS_S) * 1e6
 
 
 def timed(fn, setup=None, n: int = 200, warm: int = 5) -> float:
@@ -123,6 +174,66 @@ def host_us(fn, n: int = 200, warm: int = 10) -> float:
     return (t1 - t0) / n * 1e6
 
 
+def timed_host(fn, setup=None, n: int = 200, warm: int = 10) -> float:
+    """Median host wall ms of ``fn`` (each call ends synchronised: the
+    engine's routes wait for their results); ``setup`` runs before each
+    call, outside the clock."""
+    times = []
+    for i in range(warm + n):
+        if setup:
+            setup()
+        t0 = time.perf_counter()
+        fn()
+        t1 = time.perf_counter()
+        if i >= warm:
+            times.append((t1 - t0) * 1e3)
+    return statistics.median(times)
+
+
+def ledger_earlier_route(tl, tq, mirrors, scalars, width: int) -> np.ndarray:
+    """One ledger sample on the route the engine took before K4's prepared
+    call: the eleven mirrors uploaded in one pageable copy
+    (``ops.quorum.upload``), the public wrapper, a synchronising pageable
+    ``.cpu()``."""
+    return tl.ledger_pass(*tq.upload(mirrors, "cuda"), *scalars,
+                          num_peers=width).cpu().numpy()
+
+
+def time_call(fn) -> dict:
+    """ms, graph us and host us of a functional wrapper call; host us the
+    median of five runs of 200 calls (one run swings by tens of us on a
+    shared host)."""
+    return {"ms": timed(fn), "graph_us": graph_us(fn),
+            "host_us": statistics.median(host_us(fn) for _ in range(5))}
+
+
+def time_ledger_and_step(tl, tq, bench, cases) -> dict:
+    """K4 at ``K4_SHAPES`` (with the sample routes at 1024 x 8) and K6 at
+    the kernel rungs' shapes."""
+    res = {}
+    for key, g, p, w in K4_SHAPES:
+        arrays, scalars = cases.ledger_inputs(np.random.default_rng(g + w),
+                                              g, p, w)
+        dev = [torch.from_numpy(a).cuda() for a in arrays]
+        res[key] = time_call(lambda: tl.ledger_pass(*dev, *scalars,
+                                                    num_peers=w))
+        if key != "K4_G1024_W8":
+            continue
+        res[key]["earlier_route_ms"] = timed_host(
+            lambda: ledger_earlier_route(tl, tq, arrays, scalars, w))
+        if hasattr(tl, "LedgerPlan"):
+            plan = tl.LedgerPlan(g, p, "cuda")
+            for v, a in zip(plan.views, arrays):
+                np.copyto(v, a)
+            res[key]["plan_run_ms"] = timed_host(
+                lambda: plan.run(w, *scalars))
+    for key, (g, p, e) in zip(("K6", "K6_100k"), K6_SHAPES[1:]):
+        step = tq.engine_step_args_from_numpy(bench._example_batch(g, p, e),
+                                              "cuda")
+        res[key] = time_call(lambda: tq.engine_step(*step))
+    return res
+
+
 def time_shape(q, state_np, ev_np, sliced: bool) -> dict:
     """One wrapper on one packed tick: ms, graph us, host us."""
     fresh = q.device_state_from_numpy(state_np, "cuda")
@@ -141,7 +252,8 @@ def time_shape(q, state_np, ev_np, sliced: bool) -> dict:
 
     return {"shape": list(state_np[0].shape) + list(ev_np.shape[1:]),
             "ms": timed(call, restore), "graph_us": graph_us(call),
-            "host_us": host_us(call)}
+            "host_us": host_us(call),
+            "bound_us": bound_us(q, state_np, ev_np)}
 
 
 def main(argv=None) -> int:
@@ -156,6 +268,7 @@ def main(argv=None) -> int:
                           text=True, check=True).stdout.strip()
     print(card, flush=True)
     from ratis_tpu_torch.ops import _build
+    from ratis_tpu_torch.ops import ledger as tl
     from ratis_tpu_torch.ops import quorum as q
     from ratis_tpu_torch.tools import bench, cases
     _build.build_all()
@@ -172,6 +285,7 @@ def main(argv=None) -> int:
     state, evs, evf, _ = bench.mesh100k_batch()
     res["K1_100k"] = time_shape(q, state, evf, False)
     res["K5_100k"] = time_shape(q, state, evs, True)
+    res.update(time_ledger_and_step(tl, q, bench, cases))
     print(json.dumps({"label": args.label, "card": card,
                       "package": q.__file__, "timing": res}), flush=True)
     return 0

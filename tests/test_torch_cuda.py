@@ -361,14 +361,21 @@ def test_refresh_is_one_kernel_launch(card):
 
 def test_graph_nodes_lists_every_kernel_and_copy(card):
     """The graph listing behind the one-kernel checks, on a call known to
-    put four operations on the card: K6's two copies and two kernels."""
+    put a copy and a kernel on the card: a device-to-device ``copy_`` of
+    a tensor, then K7b on it.  (A node's label holds the start of the
+    kernel's mangled name only, cut short by the graph's own listing, so
+    the checks count nodes and read the launch counters.)"""
     from ratis_tpu_torch.tools.profile_main_path import (graph_nodes,
                                                          is_kernel_node)
-    fn, args = bench.entry(card)
-    nodes = graph_nodes(lambda: fn(*args))
-    assert [is_kernel_node(n) for n in nodes] == [False, False, True,
-                                                  True], nodes
-    assert "apply_events" in nodes[2] and "row_pass" in nodes[3]
+    args = _cuda(cases.replicated_inputs(np.random.default_rng(6), 1024, P))
+    match = torch.empty_like(args[0])
+
+    def call():
+        match.copy_(args[0])
+        tq.all_replicated_min(match, *args[1:])
+
+    nodes = graph_nodes(call)
+    assert [is_kernel_node(n) for n in nodes] == [False, True], nodes
 
 
 def test_public_tally_counts_apart_from_the_engines(card):
@@ -528,14 +535,41 @@ def _step_both(args):
     return k
 
 
-@pytest.mark.parametrize("g,e", [(1024, 256), (10240, 4096)])
+@pytest.mark.parametrize("p", [3, 5, 7, 8, 16])
+@pytest.mark.parametrize("g,e", [(1024, 256), (10240, 4096),
+                                 (102400, 8192), (1001, 256), (1023, 1024)])
 @pytest.mark.parametrize("seed", [0, 1])
-def test_engine_step_kernel_matches_plain(card, g, e, seed):
+def test_engine_step_kernel_matches_plain(card, g, e, seed, p):
+    """K6 against its plain version; G = 1001 and 1023 are no multiple of
+    4, so the outputs' one buffer ends on a partial int32 word."""
     rng = np.random.default_rng(seed)
     _step_both(tq.engine_step_args_from_numpy(
-        cases.step_args(rng, g, P, e, NOW), card))
+        cases.step_args(rng, g, p, e, NOW), card))
     _step_both(tq.engine_step_args_from_numpy(
-        bench._example_batch(g, P, e, seed), card))
+        bench._example_batch(g, p, e, seed), card))
+
+
+def test_engine_step_is_one_kernel(card):
+    """One K6 call captured in a CUDA graph is one node, the kernel (the
+    earlier design put two copies and two kernels), and calls back to
+    back agree with the plain version every time, also at a smaller batch
+    after a larger and with every ack on one row (more than a block
+    lists)."""
+    from ratis_tpu_torch.tools.profile_main_path import (graph_nodes,
+                                                         is_kernel_node)
+    fn, args = bench.entry(card)
+    n = tq.K6.launches
+    nodes = graph_nodes(lambda: fn(*args))
+    assert len(nodes) == 1 and is_kernel_node(nodes[0]), nodes
+    assert tq.K6.launches == n + 2  # the warm-up call and the captured
+    for g, p, e, hot in ((10240, 8, 4096, False), (100, 16, 5000, False),
+                         (10240, 8, 4096, False), (10240, 8, 4096, True)):
+        args_np = cases.step_args(np.random.default_rng(g + p), g, p, e, NOW)
+        if hot:
+            args_np[2][:] = 7  # every ack on one row
+        step = tq.engine_step_args_from_numpy(args_np, card)
+        for _ in range(3):
+            _step_both(step)
 
 
 def test_engine_step_kernel_counts_its_launches(card):
@@ -551,12 +585,87 @@ def test_tally_kernel_matches_plain(card):
 
 
 @pytest.mark.parametrize("big_cell", [False, True])
-def test_ledger_kernel_matches_plain(card, big_cell):
-    arrays, scalars = cases.ledger_inputs(np.random.default_rng(3), 1024, P,
-                                          8, big_cell=big_cell)
+@pytest.mark.parametrize("g,width", [(1024, 8), (1000, 16), (1024, 512),
+                                     (1000, 512)])
+def test_ledger_kernel_matches_plain(card, big_cell, g, width):
+    arrays, scalars = cases.ledger_inputs(np.random.default_rng(3), g, P,
+                                          width, big_cell=big_cell)
     dev = _cuda(arrays)
-    got = tl.ledger_pass(*dev, *scalars, num_peers=8)
-    assert torch.equal(got, tl._ledger_plain(*dev, *scalars, 8))
+    n = tl.K4.launches
+    got = tl.ledger_pass(*dev, *scalars, num_peers=width)
+    assert tl.K4.launches == n + 1
+    assert torch.equal(got, tl._ledger_plain(*dev, *scalars, width))
+
+
+@pytest.mark.parametrize("g,p", [(1024, 8), (1000, 5), (10240, 8), (64, 3),
+                                 (1024, 16)])
+def test_ledger_plan_matches_plain(card, g, p):
+    """K4 through the engine's prepared call, one call and one launch a
+    sample, against the plain pass, across table widths 8 -> 16 -> 512 ->
+    8 on one plan (the output grows), twice at each."""
+    plan = tl.LedgerPlan(g, p, card)
+    for seed, width in enumerate((8, 8, 16, 16, 512, 512, 8)):
+        arrays, scalars = cases.ledger_inputs(np.random.default_rng(seed),
+                                              g, p, width)
+        for v, a in zip(plan.views, arrays):
+            np.copyto(v, a)
+        calls = []
+        tick = plan._tick
+        plan._tick = lambda *a: calls.append(a) or tick(*a)
+        n = tl.K4.launches
+        got = plan.run(width, *scalars).copy()
+        plan._tick = tick
+        assert len(calls) == 1 and tl.K4.launches == n + 1
+        want = tl._ledger_plain(*_cuda(arrays), *scalars, width)
+        assert np.array_equal(got, want.cpu().numpy()), width
+
+
+def test_ledger_plan_without_its_c_plan_raises(card):
+    """A CUDA plan whose C plan was freed raises rather than computing the
+    pass on the CPU from its pinned views."""
+    plan = tl.LedgerPlan(64, P, card)
+    plan._free()
+    n = tl.K4.launches
+    with pytest.raises(RuntimeError, match="freed"):
+        plan.run(8, NOW, 100, 1000)
+    assert tl.K4.launches == n
+
+
+def test_ledger_is_one_kernel(card):
+    """One K4 wrapper call captured in a CUDA graph is one node, the
+    kernel; one prepared call is its two copies around the same one
+    kernel (captured, the call does not synchronise); replaying 20
+    captured calls leaves the result of one call."""
+    from ratis_tpu_torch.tools.profile_main_path import (graph_nodes,
+                                                         is_kernel_node)
+    arrays, scalars = cases.ledger_inputs(np.random.default_rng(4), 1024, P,
+                                          8)
+    dev = _cuda(arrays)
+    n = tl.K4.launches
+    nodes = graph_nodes(lambda: tl.ledger_pass(*dev, *scalars, num_peers=8))
+    assert len(nodes) == 1 and is_kernel_node(nodes[0]), nodes
+    assert tl.K4.launches == n + 2  # the warm-up call and the captured
+    plan = tl.LedgerPlan(1024, P, card)
+    for v, a in zip(plan.views, arrays):
+        np.copyto(v, a)
+
+    def plan_call():
+        plan._stream = torch.cuda.current_stream().cuda_stream
+        plan.run(8, *scalars)
+
+    n = tl.K4.launches
+    nodes = graph_nodes(plan_call)
+    assert [is_kernel_node(n) for n in nodes] == [False, True, False], nodes
+    assert tl.K4.launches == n + 2
+    want = tl._ledger_plain(*dev, *scalars, 8)
+    g = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(g):
+        for _ in range(20):
+            got = tl.ledger_pass(*dev, *scalars, num_peers=8)
+    g.replay()
+    g.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
 
 
 @pytest.mark.parametrize("p", [3, 5, 7, 8, 16])

@@ -56,6 +56,31 @@ def test_edge_cases_match_jax(seed, g, e):
     _both(cases.step_args(np.random.default_rng(100 + seed), g, 8, e))
 
 
+@pytest.mark.parametrize("p", [3, 5, 7, 16])
+@pytest.mark.parametrize("seed", [0, 1])
+def test_peer_counts_match_jax(seed, p):
+    """K6 at the other peer counts the kernel takes (1 <= P <= 16): the
+    bench's batch and the edge cases."""
+    tr = _both(bench._example_batch(1024, p, 2048, seed))
+    assert tr.commit_changed.any()
+    _both(cases.step_args(np.random.default_rng(200 + seed), 512, p, 4096))
+
+
+@pytest.mark.parametrize("g", [1, 1001, 1022, 1023, 1024])
+def test_output_buffer_reads_as_int32_at_any_group_count(g):
+    """On a card K6's four outputs are views of one byte buffer, read as
+    int32 for match, ack and new_commit: its size is whole int32 words
+    whatever G, with every section inside it and the int32 ones aligned."""
+    p, e = 8, 64
+    _, offs = tq._step_specs(g, p, e)
+    assert offs[-1] % 4 == 0
+    assert offs[1] == 4 * g * p and offs[2] == 8 * g * p
+    assert offs[3] == offs[2] + 4 * g and offs[3] + 3 * g <= offs[-1] < \
+        offs[3] + 3 * g + 4
+    assert torch.empty(offs[-1], dtype=torch.uint8).view(
+        torch.int32).numel() == offs[-1] // 4
+
+
 def test_negative_indices_count_from_the_end():
     """XLA's index normalisation: (group, peer) = (-1, 0) lands on row
     G - 1 and (1, -1) on peer P - 1; (-G - 1, 0) and (0, -P - 1) are
