@@ -27,10 +27,13 @@ result line:
    the engine's bucket with stale rows, through the prepared call and on
    the packed tensors; K3's public [G, P] entry (``K3_public``); K7a-c
    (the vote-reply scatter, the all-members replicated index, the lease
-   expiry) at G = 1024 and 102400 with P = 8 and at P = 3, 5, 7 and 16,
-   with the edge cases of ``cases.vote_event_edges`` and the wrapping
-   lease timeouts; the redesigned K4 (one cooperative launch) at G =
-   1024, 1000 and 10240 with tables of 8, 16 and 512 peers (512: the
+   expiry) at G = 1024 and 102400 with P = 8, at P = 3, 5, 7 and 16, and
+   at G = 1001 and 1023, with the edge cases of
+   ``cases.vote_event_edges``, every vote event on one row and the
+   wrapping lease timeouts (the redesigned K7a through its launch rule
+   and forced to each of its two designs); the redesigned K4 (one
+   cooperative launch) at G = 1024, 1000 and 10240 with tables of 8, 16
+   and 512 peers (512: the
    counters do not fit in shared memory and go straight to the output)
    and ``big_cell``, each case also through the engine's prepared call
    (``LedgerPlan``); the redesigned K6 (one launch) also at
@@ -80,6 +83,10 @@ result line:
    events, and one K1 call and one K5 call, each one node, ``tile_tick``
    on the fast events; one K4 call and one K6 call, each one kernel node,
    and one call of K4's prepared call, its two copies around one kernel;
+   one K7a call (by its rule and forced to each design) and one K7c
+   call, each one kernel node; one call of K3's row entry, K3's public
+   entry and K7b, their nodes counted (every kernel's count is its
+   ``nodes`` in the kernels line);
 5. kernel parity again at every shape the main paths gave K1-K5 (K3 at
    every padded row count of the vote passes); the
    engine's own routes on one card engine of 1024 rows, host clock,
@@ -108,7 +115,9 @@ result line:
    its host time per call issued back to back; K1 also with each tile
    size at G = 1024, 10240, 102400 and E = 64, 16384, and on the mesh100k
    rung's flat control (102400 x 8 x 8192); K7a-c at G = 1024, P = 8
-   (K7a with 2048 events; no path calls K7 or ``K3_public``: every path's
+   (K7a with 2048 events), K7a and K7c again at G = 102400 (``K7a_100k``
+   with 204800 events, ``K7c_100k``; no path calls K7 or ``K3_public``:
+   every path's
    run checks that they launched 0 times, so phases 3 and 5 make all of
    their launches); K2 also with each
    tile size at G = 1024, 10240, 102400 and (D, E) = (64, 64), (1024,
@@ -141,7 +150,8 @@ from ratis_tpu_torch.tools.fast_tick_timing import (K6_SHAPES,
                                                      engine_padded, graph_us,
                                                      host_us,
                                                      ledger_earlier_route,
-                                                     timed, timed_host)
+                                                     timed, timed_host,
+                                                     vote_design)
 
 P = 8
 NOW = 100_000
@@ -191,6 +201,8 @@ K7 = ("K7a", "K7b", "K7c")
 OFF_PATH = ("K3_public", *K7)
 K7_PEERS = (3, 5, 7, 16)
 K7_VOTE_EDGES = ((4, 3), (2, 3), (16, 8), (8, 16), (1024, 8))
+# K7a and K7c also at rows that fill no multiple of 4
+K7_ODD_ROWS = (1001, 1023)
 # the redesigned K1, K2, K5 (one launch per tick of one tile kernel) and
 # K3 (gathered rows): peers and tile sizes held against the plain
 # versions (and the tiles timed)
@@ -211,7 +223,14 @@ REDESIGNED = {
           "prepared call",
     "K6": "redesigned: one launch (each block lists the acks landing in "
           "its rows, then copies and runs them), its outputs views of one "
-          "buffer"}
+          "buffer",
+    "K7a": "redesigned: one launch, no copy node (blocks owning rows copy "
+           "them and land the events listed there, or one cooperative "
+           "launch with one grid sync, by G, P, E), its masks views of one "
+           "buffer",
+    "K7c": "redesigned: one launch, each row's peer slots over 8 lanes "
+           "(one or two a lane; ranks by shuffles, the majority member by "
+           "a ballot)"}
 # why no kernel has a library time: no one PyTorch call computes the same
 # function (``library_ms`` null in the kernels line)
 _TICK = ("none: no one PyTorch call scatter-maxes the acks and takes each "
@@ -430,17 +449,22 @@ def parity_k4(tl, cases, g, p, width, seed, big_cell=False, plan=False):
 
 
 def parity_k7a(tq, arrays):
-    """K7a against its plain version; raises if the kernel wrote any of
-    its inputs (it is functional, as in JAX)."""
+    """K7a against its plain version, through the wrapper's own launch and
+    forced to each of its two designs (blocks owning rows; one
+    cooperative launch); raises if the kernel wrote any of its inputs (it
+    is functional, as in JAX)."""
     args = cuda(arrays)
     before = [t.clone() for t in args]
-    got = tq.apply_vote_events(*args)
     want = tq._apply_vote_events_plain(*args)
+    got = list(tq.apply_vote_events(*args))
+    for rows in (tq.vote_block_rows(args[0].shape[0]), 0):
+        with vote_design(tq, rows):
+            got += tq.apply_vote_events(*args)
     torch.cuda.synchronize()
     for x, y in zip(args, before):
         if not torch.equal(x, y):
             raise AssertionError("K7a wrote one of its inputs")
-    return max_abs_err(list(got), list(want))
+    return max_abs_err(got, list(want) * 3)
 
 
 def parity_k7b(tq, arrays):
@@ -457,9 +481,11 @@ def parity_k7c(tq, arrays, timeout):
 
 def run_parity_k7(tq, cases, par) -> None:
     """K7a-c: seeded cases at G = 1024 and 102400 with P = 8, at P = 3,
-    5, 7, 16 with G = 1024, the hand-made vote edges, every lease
-    timeout of ``cases.LEASE_TIMEOUTS``."""
-    shapes = [(1024, P), (102_400, P)] + [(1024, p) for p in K7_PEERS]
+    5, 7, 16 with G = 1024, at G = 1001 and 1023, the hand-made vote
+    edges, every event on one row (more than a block of K7a's design (a)
+    lists), every lease timeout of ``cases.LEASE_TIMEOUTS``."""
+    shapes = [(1024, P), (102_400, P)] + [(1024, p) for p in K7_PEERS] \
+        + [(g, p) for g in K7_ODD_ROWS for p in (3, P)]
     for seed, (g, p) in enumerate(shapes):
         rng = np.random.default_rng(seed)
         for e in (g // 4, 2 * g):
@@ -470,6 +496,10 @@ def run_parity_k7(tq, cases, par) -> None:
             par.add("K7c", parity_k7c(tq, lease, t))
     for g, p in K7_VOTE_EDGES:
         par.add("K7a", parity_k7a(tq, cases.vote_event_edges(g, p)))
+    for g, e in ((1024, 2048), (102_400, 204_800)):
+        hot = cases.vote_events(np.random.default_rng(e), g, P, e)
+        hot[2][:] = 7  # every event on one row
+        par.add("K7a", parity_k7a(tq, hot))
 
 
 class Parity:
@@ -1195,6 +1225,52 @@ def ledger_step_one_launch(tq, tl, cases, bench) -> dict:
     return out
 
 
+def other_one_launch(tq, cases) -> dict:
+    """One call each of K3's row entry (``tally_rows`` at R = 64), K3's
+    public entry (G = 1024), K7a (1024 x 8 with 2048 events, by its rule
+    and forced to each design: ``K7a_rows``, ``K7a_grid``), K7b and K7c
+    (1024 x 8), each captured in a CUDA graph: every K7a and K7c call must
+    be one node, the kernel, and count two launches (the warm-up call and
+    the captured; K7a's earlier design put two copies before its kernel).
+    Returns each call's nodes' first lines."""
+    from ratis_tpu_torch.tools.profile_main_path import (graph_nodes,
+                                                         is_kernel_node)
+    rng = np.random.default_rng(41)
+    g = ROUTE_GROUPS
+    arrays = cases.tally_inputs(rng, g, P)
+    v = cases.tally_plan(arrays, np.arange(0, g, 16), "cpu", 64).views(64)
+    packed = cuda([v.masks, v.priority, v.self_priority])
+    tally = cuda(arrays)
+    votes = cuda(cases.vote_events(rng, g, P, 2 * g))
+    repl = cuda(cases.replicated_inputs(rng, g, P))
+    lease = cuda(cases.lease_inputs(rng, g, P, NOW))
+
+    def forced(rows):
+        def call():
+            with vote_design(tq, rows):
+                tq.apply_vote_events(*votes)
+        return call
+
+    out = {}
+    for key, call, kernel in (
+            ("K3", lambda: tq.tally_rows(*packed), None),
+            ("K3_public", lambda: tq.tally_votes_packed(*tally), None),
+            ("K7a", lambda: tq.apply_vote_events(*votes), tq.K7a),
+            ("K7a_rows", forced(tq.vote_block_rows(g)), tq.K7a),
+            ("K7a_grid", forced(0), tq.K7a),
+            ("K7b", lambda: tq.all_replicated_min(*repl), None),
+            ("K7c", lambda: tq.lease_expiry(*lease, 1000), tq.K7c)):
+        n = kernel.launches if kernel else 0
+        nodes = graph_nodes(call)
+        if kernel and ([is_kernel_node(x) for x in nodes] != [True]
+                       or kernel.launches != n + 2):
+            raise AssertionError(f"one {key} call put {len(nodes)} graph "
+                                 f"nodes on the card ({kernel.launches - n} "
+                                 f"launches counted): {nodes}")
+        out[key] = [" ".join(x.split())[:160] for x in nodes]
+    return out
+
+
 def run_main_path(tq, kernels, groups: int, writes: int, rec):
     from ratis_tpu_torch.tools.cluster import Cluster
     cluster = Cluster(groups, device="cuda")
@@ -1561,28 +1637,32 @@ def k5_timing(tq, st, ev_np, out, key, device_us) -> None:
 
 
 def k7_timing(tq, cases, g: int, p: int, out, device_us) -> None:
-    """K7a-c at the main paths' G and P (K7a with two replies per group):
+    """K7a-c at the main paths' G and P (K7a with two replies per group),
+    and K7a and K7c again at 102400 rows (``K7a_100k``, ``K7c_100k``):
     each input read once and each output written once (K7a: both [G, P]
     masks in and out, 10 bytes per event; K7b: the int32 and three bool
     [G, P] arrays and the flush index in, int32 [G] out; K7c: the int32
     and three bool [G, P] arrays in, int32 [G] out).  No PyTorch call
     computes any of the three alone, so there is no library time."""
     rng = np.random.default_rng(7)
-    e = 2 * g
-    votes = cuda(cases.vote_events(rng, g, p, e))
-    repl = cuda(cases.replicated_inputs(rng, g, p))
-    lease = cuda(cases.lease_inputs(rng, g, p, NOW))
     timeout = 1000
-    work = (
-        ("K7a", lambda: tq.apply_vote_events(*votes),
-         lambda: tq._apply_vote_events_plain(*votes),
-         4 * g * p + 10 * e, 10 * e, f"G={g} P={p} E={e}"),
-        ("K7b", lambda: tq.all_replicated_min(*repl),
-         lambda: tq._all_replicated_min_plain(*repl),
-         7 * g * p + 8 * g, g * (3 * p + 4), f"G={g} P={p}"),
-        ("K7c", lambda: tq.lease_expiry(*lease, timeout),
-         lambda: tq._lease_expiry_plain(*lease, timeout),
-         7 * g * p + 4 * g, g * (8 * p * p + 16), f"G={g} P={p}"))
+    repl = cuda(cases.replicated_inputs(rng, g, p))
+    work = [("K7b", lambda: tq.all_replicated_min(*repl),
+             lambda: tq._all_replicated_min_plain(*repl),
+             7 * g * p + 8 * g, g * (3 * p + 4), f"G={g} P={p}")]
+    for key, rows in ((("K7a", "K7c"), g), (("K7a_100k", "K7c_100k"),
+                                             102_400)):
+        e = 2 * rows
+        votes = cuda(cases.vote_events(rng, rows, p, e))
+        lease = cuda(cases.lease_inputs(rng, rows, p, NOW))
+        work += [
+            (key[0], lambda votes=votes: tq.apply_vote_events(*votes),
+             lambda votes=votes: tq._apply_vote_events_plain(*votes),
+             4 * rows * p + 10 * e, 10 * e, f"G={rows} P={p} E={e}"),
+            (key[1], lambda lease=lease: tq.lease_expiry(*lease, timeout),
+             lambda lease=lease: tq._lease_expiry_plain(*lease, timeout),
+             7 * rows * p + 4 * rows, rows * (8 * p * p + 16),
+             f"G={rows} P={p}")]
     for key, kernel, plain, nbytes, ops, shape in work:
         ms = timed(kernel)
         plain_ms = timed(plain)
@@ -1763,6 +1843,7 @@ def main(argv=None) -> int:
         f"{len(k2_nodes)} node, {k2_nodes[0]}")
     fast_nodes = fast_one_launch(tq, cases)
     fast_nodes.update(ledger_step_one_launch(tq, tl, cases, bench))
+    fast_nodes.update(other_one_launch(tq, cases))
     for key, nodes in fast_nodes.items():
         log(f"{key}: one call captured in a CUDA graph: {len(nodes)} "
             f"node(s): " + " | ".join(n[:100] for n in nodes))
@@ -1922,6 +2003,8 @@ def main(argv=None) -> int:
              "churn_1024": churn_launches}
     by_path = {k: {p: n[k] for p, n in paths.items() if k in n}
                for k in kernels}
+    # one call's CUDA-graph nodes, per kernel
+    graph_nodes_of = {"K2": k2_nodes, **fast_nodes}
     rows = []
     for name, key, source, replaces in KERNELS:
         ms, plain, b_ms, by, shape = timing[key]
@@ -1933,6 +2016,7 @@ def main(argv=None) -> int:
                      "max_abs_err": par.errs[key], "ms": ms, "plain_ms": plain,
                      "bound_ms": b_ms, "bound_by": by, "library_ms": None,
                      "library": NO_LIBRARY[key],
+                     "nodes": len(graph_nodes_of[key]),
                      "device_us": GRAPH_US.get(key),
                      "profiler_device_us": device_us.get(key),
                      "host_us": HOST_US.get(key)})

@@ -206,10 +206,6 @@ struct Tile {
   int acked;      // an ack landed
 };
 
-__device__ __forceinline__ bool aligned16(const void* p) {
-  return (reinterpret_cast<uintptr_t>(p) & 15) == 0;
-}
-
 __device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
   unsigned s = (unsigned)__cvta_generic_to_shared(smem);
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s),
@@ -248,62 +244,6 @@ __device__ __forceinline__ void unstage(void* gmem, const void* smem,
   }
   for (int i = head + threadIdx.x; i < nbytes; i += blockDim.x)
     ((char*)gmem)[i] = ((const char*)smem)[i];
-}
-
-// f(i, a[i]) for every i in [0, n), split over the block's threads, with
-// 16-byte loads when the array is aligned, kScanBatch of them issued
-// together before f runs on any (f's shared-memory atomics would
-// otherwise hold each load back until the one before had landed)
-constexpr int kScanBatch = 4;
-
-template <typename F>
-__device__ __forceinline__ void for_each_index(const int32_t* a, int n,
-                                               F&& f) {
-  int head = 0;
-  if (aligned16(a)) {
-    head = n & ~3;
-    const int4* v = reinterpret_cast<const int4*>(a);
-    const int nv = head / 4;
-    for (int base = threadIdx.x; base < nv;
-         base += kScanBatch * blockDim.x) {
-      int4 x[kScanBatch];
-#pragma unroll
-      for (int k = 0; k < kScanBatch; ++k) {
-        const int i = base + k * blockDim.x;
-        x[k] = i < nv ? __ldg(v + i) : make_int4(0, 0, 0, 0);
-      }
-#pragma unroll
-      for (int k = 0; k < kScanBatch; ++k) {
-        const int i = base + k * blockDim.x;
-        if (i < nv) {
-          f(4 * i, x[k].x);
-          f(4 * i + 1, x[k].y);
-          f(4 * i + 2, x[k].z);
-          f(4 * i + 3, x[k].w);
-        }
-      }
-    }
-  }
-  for (int i = head + threadIdx.x; i < n; i += blockDim.x) f(i, __ldg(a + i));
-}
-
-constexpr unsigned kFullWarp = 0xffffffffu;
-
-// The majority-min of one row whose peer values lie one per lane in a
-// segment of L lanes (lane i holds peer i): the member whose rank, counted
-// over ``mask`` with ties broken by peer index, is (k-1)/2; INT32_MIN for
-// an empty mask (ops.quorum.majority_min).  ``rank`` is the lane's rank
-// among the members; every lane of the warp must call it.
-template <int L>
-__device__ __forceinline__ int32_t lane_majority_min(int32_t v, int rank,
-                                                     unsigned mask,
-                                                     int lane, int shift) {
-  const int k = __popc(mask);
-  const bool pick = ((mask >> lane) & 1u) && rank == (k - 1) / 2;
-  const unsigned who =
-      (__ballot_sync(kFullWarp, pick) >> shift) & ((1u << L) - 1u);
-  const int32_t m = __shfl_sync(kFullWarp, v, who ? __ffs(who) - 1 : 0, L);
-  return who ? m : kIntMin;
 }
 
 // Step 1: start the copies of rows [r0, r0 + n) into the tile.

@@ -1,7 +1,11 @@
 // Row math shared by the kernel sources that reduce a group row: the
-// majority-min of K1, K5 and K6's row pass (resident_step.cu) and of
-// K7c (vote_lease.cu), the bitmask of a bool peer row, XLA's index
-// normalisation and int32 arithmetic that wraps as XLA's does.
+// majority-min of the row pass of K1, K2, K5 and K6 (resident_step.cu)
+// and of K7c (vote_lease.cu), in one thread per row (``majority_min``)
+// or with a row's slots spread over the lanes of a warp segment
+// (``lane_majority_min``, ``lane_pick``), the bitmask of a bool peer row,
+// XLA's index normalisation, int32 arithmetic that wraps as XLA's does,
+// and the block-wide scan of an int32 index array that K1, K2, K5, K6
+// and K7a run over their events' rows.
 //
 // A row holds at most MAXP peer slots, kept in registers.  Signed
 // overflow is undefined in C++, so every int32 sum or difference that XLA
@@ -43,6 +47,47 @@ __device__ __forceinline__ unsigned row_bits(const uint8_t* m, int P) {
   return bits;
 }
 
+__device__ __forceinline__ bool aligned16(const void* p) {
+  return (reinterpret_cast<uintptr_t>(p) & 15) == 0;
+}
+
+// f(i, a[i]) for every i in [0, n), split over the block's threads, with
+// 16-byte loads when the array is aligned, kScanBatch of them issued
+// together before f runs on any (f's shared-memory atomics would
+// otherwise hold each load back until the one before had landed)
+constexpr int kScanBatch = 4;
+
+template <typename F>
+__device__ __forceinline__ void for_each_index(const int32_t* a, int n,
+                                               F&& f) {
+  int head = 0;
+  if (aligned16(a)) {
+    head = n & ~3;
+    const int4* v = reinterpret_cast<const int4*>(a);
+    const int nv = head / 4;
+    for (int base = threadIdx.x; base < nv;
+         base += kScanBatch * blockDim.x) {
+      int4 x[kScanBatch];
+#pragma unroll
+      for (int k = 0; k < kScanBatch; ++k) {
+        const int i = base + k * blockDim.x;
+        x[k] = i < nv ? __ldg(v + i) : make_int4(0, 0, 0, 0);
+      }
+#pragma unroll
+      for (int k = 0; k < kScanBatch; ++k) {
+        const int i = base + k * blockDim.x;
+        if (i < nv) {
+          f(4 * i, x[k].x);
+          f(4 * i + 1, x[k].y);
+          f(4 * i + 2, x[k].z);
+          f(4 * i + 3, x[k].w);
+        }
+      }
+    }
+  }
+  for (int i = head + threadIdx.x; i < n; i += blockDim.x) f(i, __ldg(a + i));
+}
+
 // ascending-sorted member values at position (k-1)/2, found by counting
 // ranks (O(P^2) compares, no sort, no local memory); INT32_MIN when the
 // mask is empty (ops.quorum.majority_min)
@@ -72,6 +117,35 @@ __device__ __forceinline__ int32_t combined_majority_min(
   int32_t m = majority_min(v, cur);
   if (old != 0) m = min(m, majority_min(v, old));
   return m;
+}
+
+constexpr unsigned kFullWarp = 0xffffffffu;
+
+// The value ``cand`` of the first lane of this lane's L-lane segment
+// whose ``pick`` is set, INT32_MIN where none is; every lane of the warp
+// must call it.
+template <int L>
+__device__ __forceinline__ int32_t lane_pick(bool pick, int32_t cand,
+                                             int shift) {
+  const unsigned who =
+      (__ballot_sync(kFullWarp, pick) >> shift) & ((1u << L) - 1u);
+  const int32_t m = __shfl_sync(kFullWarp, cand, who ? __ffs(who) - 1 : 0,
+                                L);
+  return who ? m : kIntMin;
+}
+
+// The majority-min of one row whose peer values lie one per lane in a
+// segment of L lanes (lane i holds peer i): the member whose rank, counted
+// over ``mask`` with ties broken by peer index, is (k-1)/2; INT32_MIN for
+// an empty mask (ops.quorum.majority_min).  ``rank`` is the lane's rank
+// among the members; every lane of the warp must call it.
+template <int L>
+__device__ __forceinline__ int32_t lane_majority_min(int32_t v, int rank,
+                                                     unsigned mask,
+                                                     int lane, int shift) {
+  const int k = __popc(mask);
+  return lane_pick<L>(((mask >> lane) & 1u) && rank == (k - 1) / 2, v,
+                      shift);
 }
 
 }  // namespace

@@ -449,7 +449,20 @@ def _lease_expiry_plain(last_ack_ms, self_mask, conf_cur, conf_old,
 
 
 K7c = Kernel("vote_lease.cu", "k7c_lease_expiry",
-             (PTR, PTR, PTR, PTR, INT, PTR, INT, INT))
+             (PTR, PTR, PTR, PTR, INT, PTR, INT, INT, INT))
+
+
+def lease_slots(p: int) -> int:
+    """Peer slots each lane of K7c's rows of 8 lanes holds: 1 for up to 8
+    peer slots, else 2."""
+    return 1 if p <= 8 else 2
+
+
+@functools.lru_cache(maxsize=64)
+def _lease_specs(g: int, p: int) -> tuple:
+    """(dtype, shape) of ``lease_expiry``'s four arrays, in its order."""
+    gp = torch.Size((g, p))
+    return ((torch.int32, gp),) + ((torch.bool, gp),) * 3
 
 
 def lease_expiry(last_ack_ms, self_mask, conf_cur, conf_old,
@@ -461,21 +474,19 @@ def lease_expiry(last_ack_ms, self_mask, conf_cur, conf_old,
     does (a single-member conf gives INT32_MAX, an empty one INT32_MIN +
     t).  last_ack_ms: [G, P] int32; masks: [G, P] bool;
     ``lease_timeout_ms``: a host int32 scalar.  CPU tensors: plain torch;
-    CUDA tensors: kernel K7c."""
-    dev = _device_of(last_ack_ms, self_mask, conf_cur, conf_old)
+    CUDA tensors: one launch of kernel K7c."""
+    arrays = (last_ack_ms, self_mask, conf_cur, conf_old)
     timeout = _int32_scalar(lease_timeout_ms)
-    if dev.type == "cpu":
-        return _lease_expiry_plain(last_ack_ms, self_mask, conf_cur,
-                                   conf_old, timeout)
+    dev = last_ack_ms.device
+    if dev.type != "cuda":
+        _device_of(*arrays)  # mixed devices and other types raise
+        return _lease_expiry_plain(*arrays, timeout)
     g, p = last_ack_ms.shape
     _check_peers(p)
-    _check(last_ack_ms, torch.int32, (g, p))
-    for t in (self_mask, conf_cur, conf_old):
-        _check(t, torch.bool, (g, p))
+    _check_all(arrays, _lease_specs(g, p), dev)
     out = torch.empty(g, dtype=torch.int32, device=dev)
-    K7c(dev, last_ack_ms.data_ptr(), self_mask.data_ptr(),
-        conf_cur.data_ptr(), conf_old.data_ptr(), timeout, out.data_ptr(),
-        g, p)
+    K7c(dev, *(t.data_ptr() for t in arrays), timeout, out.data_ptr(), g, p,
+        lease_slots(p))
     return out
 
 
@@ -520,7 +531,46 @@ def _apply_vote_events_plain(grants, rejects, ev_group, ev_peer, ev_granted,
 
 
 K7a = Kernel("vote_lease.cu", "k7a_apply_vote_events",
-             (PTR,) * 8 + (INT, INT, INT))
+             (PTR,) * 8 + (INT,) * 4)
+
+# K7a's design (a): about VOTE_BLOCKS blocks, each owning a range of rows
+# (a multiple of VOTE_ROW_ALIGN), every block scanning every event's group
+# row, taken up to VOTE_ROWS_MAX_EVENTS events; design (b), one
+# cooperative launch, above (``vote_rows``)
+VOTE_BLOCKS = 256
+VOTE_ROW_ALIGN = 16
+VOTE_ROWS_MAX_EVENTS = 4096
+
+
+def vote_block_rows(g: int) -> int:
+    """The rows each block of K7a's design (a) owns at G rows: a multiple
+    of 16 giving about VOTE_BLOCKS blocks."""
+    per = -(-max(g, 1) // VOTE_BLOCKS)
+    return -(-per // VOTE_ROW_ALIGN) * VOTE_ROW_ALIGN
+
+
+def vote_rows(g: int, p: int, e: int) -> int:
+    """The launch K7a takes at G rows, P peer slots and E events: design
+    (a) with ``vote_block_rows(g)`` rows a block up to
+    VOTE_ROWS_MAX_EVENTS events, or 0 for design (b), one cooperative
+    launch, above.  Every block of (a) scans all E events, so E sets how
+    long each takes; on an H100 (a) was the faster at every G timed up to
+    4096 events and (b) from 8192 (``tools/fast_tick_timing.py``, PERF.md
+    PR 8).  ``p`` does not change the choice."""
+    return vote_block_rows(g) if e <= VOTE_ROWS_MAX_EVENTS else 0
+
+
+@functools.lru_cache(maxsize=64)
+def _vote_specs(g: int, p: int, e: int) -> tuple:
+    """(dtype, shape) of ``apply_vote_events``' six arrays, in its order,
+    and its one output buffer: the byte offset of the reject mask (the
+    grant mask's G * P bytes rounded up to 16, so both start 16-byte
+    aligned) and the buffer's size."""
+    gp, ev = torch.Size((g, p)), torch.Size((e,))
+    specs = ((torch.bool, gp), (torch.bool, gp), (torch.int32, ev),
+             (torch.int32, ev), (torch.bool, ev), (torch.bool, ev))
+    off = -(-g * p // 16) * 16
+    return specs, off, off + g * p
 
 
 def apply_vote_events(grants, rejects, ev_group, ev_peer, ev_granted,
@@ -534,26 +584,24 @@ def apply_vote_events(grants, rejects, ev_group, ev_peer, ev_granted,
     and pairs out of range write nothing; no input is written.
     grants/rejects: [G, P] bool; ev_group/ev_peer: [E] int32;
     ev_granted/ev_valid: [E] bool.  CPU tensors: plain torch; CUDA
-    tensors: kernel K7a."""
-    dev = _device_of(grants, rejects, ev_group, ev_peer, ev_granted,
-                     ev_valid)
-    if dev.type == "cpu":
-        return _apply_vote_events_plain(grants, rejects, ev_group, ev_peer,
-                                        ev_granted, ev_valid)
+    tensors: one launch of kernel K7a, the two masks contiguous views of
+    one new buffer."""
+    arrays = (grants, rejects, ev_group, ev_peer, ev_granted, ev_valid)
+    dev = grants.device
+    if dev.type != "cuda":
+        _device_of(*arrays)  # mixed devices and other types raise
+        return _apply_vote_events_plain(*arrays)
     g, p = grants.shape
     _check_peers(p)
-    _check(grants, torch.bool, (g, p))
-    _check(rejects, torch.bool, (g, p))
     e = ev_group.shape[0]
-    _check(ev_group, torch.int32, (e,))
-    _check(ev_peer, torch.int32, (e,))
-    _check(ev_granted, torch.bool, (e,))
-    _check(ev_valid, torch.bool, (e,))
-    new_grants = torch.empty_like(grants)
-    new_rejects = torch.empty_like(rejects)
-    K7a(dev, grants.data_ptr(), rejects.data_ptr(), ev_group.data_ptr(),
-        ev_peer.data_ptr(), ev_granted.data_ptr(), ev_valid.data_ptr(),
-        new_grants.data_ptr(), new_rejects.data_ptr(), g, p, e)
+    specs, off, size = _vote_specs(g, p, e)
+    _check_all(arrays, specs, dev)
+    buf = torch.empty(size, dtype=torch.bool, device=dev)
+    new_grants = buf.as_strided((g, p), (p, 1), 0)
+    new_rejects = buf.as_strided((g, p), (p, 1), off)
+    ptr = buf.data_ptr()
+    K7a(dev, *(t.data_ptr() for t in arrays), ptr, ptr + off, g, p, e,
+        vote_rows(g, p, e))
     return new_grants, new_rejects
 
 
@@ -661,13 +709,7 @@ def engine_step(match_index, last_ack_ms, ev_group, ev_peer, ev_match,
     _check_peers(p)
     e = ev_group.shape[0]
     specs, offs = _step_specs(g, p, e)
-    card = dev.index
-    # every check in one pass; the first that fails names itself
-    for t, (dt, shape) in zip(arrays, specs):
-        if t.dtype is not dt or t.shape != shape or not t.is_contiguous() \
-                or t.get_device() != card:
-            _device_of(*arrays)
-            _check(t, dt, shape)
+    _check_all(arrays, specs, dev)
     buf = torch.empty(offs[-1], dtype=torch.uint8, device=dev)
     words, bools = buf.view(torch.int32), buf.view(torch.bool)
     match_out = words.as_strided((g, p), (p, 1), 0)
@@ -1233,6 +1275,19 @@ def _check(t: torch.Tensor, dtype: torch.dtype, shape: tuple) -> None:
         raise ValueError(f"shape {tuple(t.shape)}, kernel takes {shape}")
     if not t.is_contiguous():
         raise ValueError("kernel takes contiguous tensors")
+
+
+def _check_all(arrays: Sequence[torch.Tensor], specs: tuple,
+               dev: torch.device) -> None:
+    """Every array against its (dtype, shape) in ``specs``, contiguous and
+    on ``dev``, in one pass; the first that fails raises with its own
+    message."""
+    card = dev.index
+    for t, (dt, shape) in zip(arrays, specs):
+        if t.dtype is not dt or t.shape != shape or not t.is_contiguous() \
+                or t.get_device() != card:
+            _device_of(*arrays)
+            _check(t, dt, shape)
 
 
 def _check_peers(p: int) -> None:

@@ -1,8 +1,9 @@
 """Time the redesigned kernels' public wrappers (the fast tick K1 and K5,
-the ledger pass K4, the stateless tick K6) on one CUDA card; and the
-timing helpers ``chip_smoke.py`` times every kernel and route with.
+the ledger pass K4, the stateless tick K6, the vote-reply scatter K7a and
+the lease expiry K7c) on one CUDA card; and the timing helpers
+``chip_smoke.py`` times every kernel and route with.
 
-    python ratis_tpu_torch/tools/fast_tick_timing.py [--label NAME]
+    python ratis_tpu_torch/tools/fast_tick_timing.py [--label NAME] [--only k7]
 
 Prints the card's name and power limit, then one JSON line: for each K1
 and K5 shape, the kernel's median CUDA-event ms over 200 calls (each call on the
@@ -28,8 +29,18 @@ at 1024 x 8 the host ms of one call of K4's prepared call
 launch, the packed vector down, synchronised) beside the earlier route
 (``ledger_earlier_route``), medians of 200; K6 (``engine_step``) on the
 bench's own batches at its two kernel rungs' shapes (``K6_SHAPES[1:]``),
-its host us the median of five runs.  K4 and K6 are functional: every
-call sees the same inputs.
+its host us the median of five runs.  K7c (``lease_expiry``,
+``K7C_SHAPES``) on ``cases.lease_inputs`` at 1024, 10240 and 102400 rows
+x 8, and K7a (``apply_vote_events``, ``K7A_SHAPES``) on
+``cases.vote_events`` at 1024 x 8 with 256 and 2048 events, 10240 x 8
+with 20480 and 102400 x 8 with 204800, and at the shapes around its
+choice between its two designs (``K7A_RULE_SHAPES``), each with
+``bound_us`` as ``chip_smoke.py`` counts it (K7c also at 102400 x 16);
+where the package has K7a's launch rule (``ops.quorum.vote_rows``), K7a
+also forced to each of its designs (``_rows``: blocks owning rows,
+``_grid``: one cooperative launch).  K4,
+K6, K7a and K7c are functional: every call sees the same inputs.
+``--only k7`` times K7a and K7c alone.
 
 It imports ``ratis_tpu_torch`` from the Python path, not from beside the
 script, so the same script times another checkout of the package::
@@ -45,6 +56,7 @@ without it.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import statistics
 import subprocess
@@ -83,6 +95,15 @@ K4_SHAPES = (("K4_G1024_W8", 1024, 8, 8), ("K4_G1000_W16", 1000, 8, 16),
              ("K4_G1024_W512", 1024, 8, 512))
 # (G, P, E) of K6: the bench's entry() and its two kernel rungs
 K6_SHAPES = ((1024, 8, 256), (10_240, 8, 4096), (102_400, 8, 8192))
+# (G, P) of K7c; (G, P, E) of K7a, then the shapes around its choice
+# between its designs (design (a)'s blocks read 1-8 MB of event rows)
+K7C_SHAPES = ((1024, 8), (10_240, 8), (102_400, 8), (102_400, 16))
+K7A_SHAPES = ((1024, 8, 256), (1024, 8, 2048), (10_240, 8, 20_480),
+              (102_400, 8, 204_800))
+K7A_RULE_SHAPES = ((1024, 8, 8192), (4096, 8, 4096), (4096, 8, 8192),
+                   (10_240, 8, 5120), (102_400, 8, 1024),
+                   (102_400, 8, 4096))
+LEASE_TIMEOUT_MS = 1000
 
 
 HBM_BYTES_S = 3.35e12
@@ -234,6 +255,79 @@ def time_ledger_and_step(tl, tq, bench, cases) -> dict:
     return res
 
 
+def k7_bound_us(key: str, g: int, p: int, e: int = 0) -> float:
+    """K7a's or K7c's bound as ``chip_smoke.py`` counts it: K7a both
+    [G, P] masks in and out and 10 bytes per event; K7c the int32 and
+    three bool [G, P] arrays in and int32 [G] out, against its
+    ``G * (8 P^2 + 16)`` integer operations."""
+    if key == "K7a":
+        nbytes, ops = 4 * g * p + 10 * e, 10 * e
+    else:
+        nbytes, ops = 7 * g * p + 4 * g, g * (8 * p * p + 16)
+    return max(nbytes / HBM_BYTES_S, ops / PEAK_INT32_OPS_S) * 1e6
+
+
+def time_votes_and_lease(q, cases) -> dict:
+    """K7c at ``K7C_SHAPES`` and K7a at ``K7A_SHAPES`` and
+    ``K7A_RULE_SHAPES`` (and, where the package has ``vote_rows``, K7a
+    forced to each design, and the rows a block its rule gave)."""
+    res = {}
+    for g, p in K7C_SHAPES:
+        args = [torch.from_numpy(a).cuda() for a in cases.lease_inputs(
+            np.random.default_rng(g), g, p, NOW)]
+        res[f"K7c_G{g}" + ("" if p == 8 else f"_P{p}")] = {
+            **time_call(lambda: q.lease_expiry(*args, LEASE_TIMEOUT_MS)),
+            "bound_us": k7_bound_us("K7c", g, p)}
+    rule = getattr(q, "vote_rows", None)
+    for g, p, e in K7A_SHAPES + K7A_RULE_SHAPES:
+        args = [torch.from_numpy(a).cuda() for a in cases.vote_events(
+            np.random.default_rng(g + e), g, p, e)]
+        key = f"K7a_G{g}_E{e}"
+        res[key] = {**time_call(lambda: q.apply_vote_events(*args)),
+                    "bound_us": k7_bound_us("K7a", g, p, e)}
+        if rule is None:
+            continue
+        res[key]["rows"] = rule(g, p, e)
+        for design, rows in (("rows", q.vote_block_rows(g)), ("grid", 0)):
+            with vote_design(q, rows):
+                res[f"{key}_{design}"] = time_call(
+                    lambda: q.apply_vote_events(*args))
+    return res
+
+
+@contextlib.contextmanager
+def vote_design(q, rows: int):
+    """K7a's launch rule ``q.vote_rows`` replaced by one that always
+    answers ``rows`` (> 0: design (a) with that many rows a block; 0:
+    design (b)) while the block runs, to time or check each design at any
+    shape."""
+    rule = q.vote_rows
+    q.vote_rows = lambda *_: rows
+    try:
+        yield
+    finally:
+        q.vote_rows = rule
+
+
+def time_fast_ticks(q, bench, cases) -> dict:
+    """K1 at ``K1_SHAPES`` and on the mesh100k batch's flat control, K5 at
+    2048 x 8 in 8 slices x 64 and on the mesh100k batch."""
+    rng = np.random.default_rng(0)
+    res = {}
+    for key, g, e, engine in K1_SHAPES:
+        ev = cases.fast_events(rng, g, 8, e, NOW)
+        res[key] = time_shape(q, cases.resident_state(rng, g, 8, NOW),
+                              engine_padded(ev) if engine else ev,
+                              False)
+    res["K5_G2048_S8_E64"] = time_shape(
+        q, cases.resident_state(rng, 2048, 8, NOW),
+        cases.sliced_events(rng, 2048, 8, 8, 64, NOW), True)
+    state, evs, evf, _ = bench.mesh100k_batch()
+    res["K1_100k"] = time_shape(q, state, evf, False)
+    res["K5_100k"] = time_shape(q, state, evs, True)
+    return res
+
+
 def time_shape(q, state_np, ev_np, sliced: bool) -> dict:
     """One wrapper on one packed tick: ms, graph us, host us."""
     fresh = q.device_state_from_numpy(state_np, "cuda")
@@ -259,6 +353,8 @@ def time_shape(q, state_np, ev_np, sliced: bool) -> dict:
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--label", default="", help="a name for this run")
+    ap.add_argument("--only", choices=("all", "k7"), default="all",
+                    help="k7: time K7a and K7c alone")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("fast_tick_timing: CUDA is not available", file=sys.stderr)
@@ -272,20 +368,10 @@ def main(argv=None) -> int:
     from ratis_tpu_torch.ops import quorum as q
     from ratis_tpu_torch.tools import bench, cases
     _build.build_all()
-    rng = np.random.default_rng(0)
-    res = {}
-    for key, g, e, engine in K1_SHAPES:
-        ev = cases.fast_events(rng, g, 8, e, NOW)
-        res[key] = time_shape(q, cases.resident_state(rng, g, 8, NOW),
-                              engine_padded(ev) if engine else ev,
-                              False)
-    res["K5_G2048_S8_E64"] = time_shape(
-        q, cases.resident_state(rng, 2048, 8, NOW),
-        cases.sliced_events(rng, 2048, 8, 8, 64, NOW), True)
-    state, evs, evf, _ = bench.mesh100k_batch()
-    res["K1_100k"] = time_shape(q, state, evf, False)
-    res["K5_100k"] = time_shape(q, state, evs, True)
-    res.update(time_ledger_and_step(tl, q, bench, cases))
+    res = time_votes_and_lease(q, cases)
+    if args.only == "all":
+        res.update(time_fast_ticks(q, bench, cases))
+        res.update(time_ledger_and_step(tl, q, bench, cases))
     print(json.dumps({"label": args.label, "card": card,
                       "package": q.__file__, "timing": res}), flush=True)
     return 0

@@ -713,6 +713,104 @@ def test_lease_kernel_matches_plain(card, p, timeout):
     assert torch.equal(got, tq._lease_expiry_plain(*args, timeout))
 
 
+# K7a and K7c, redesigned: rows that fill no multiple of 4 (1001, 1023),
+# a block's worth and beyond, and the P that leave slots of K7c's rows of
+# 8 lanes unfilled (P > 8: two slots a lane)
+K7_ROWS = (1, 2, 1001, 1023, 1024, 10240, 102400)
+K7_PEERS = (3, 5, 7, 8, 9, 12, 16)
+
+
+@pytest.mark.parametrize("p", K7_PEERS)
+@pytest.mark.parametrize("g", K7_ROWS)
+def test_lease_kernel_matches_plain_at_every_shape(card, g, p):
+    args = _cuda(cases.lease_inputs(np.random.default_rng(g * p), g, p))
+    before = [t.clone() for t in args]
+    for timeout in cases.LEASE_TIMEOUTS:
+        n = tq.K7c.launches
+        got = tq.lease_expiry(*args, timeout)
+        assert tq.K7c.launches == n + 1
+        assert torch.equal(got, tq._lease_expiry_plain(*args, timeout)), \
+            timeout
+    for x, y in zip(args, before):
+        assert torch.equal(x, y)
+
+
+def _span(t: torch.Tensor) -> tuple:
+    return t.data_ptr(), t.data_ptr() + t.numel() * t.element_size()
+
+
+def _votes_every_design(monkeypatch, args) -> None:
+    """K7a through its wrapper's own launch and forced to each design
+    (blocks owning rows; one cooperative launch), one launch each,
+    against the plain version: no input written, the two outputs
+    contiguous and apart from each other and from every input."""
+    before = [t.clone() for t in args]
+    want = tq._apply_vote_events_plain(*args)
+    g, p = args[0].shape
+    rule = tq.vote_rows
+    for rows in (None, tq.vote_block_rows(g), 0):
+        if rows is not None:
+            monkeypatch.setattr(tq, "vote_rows", lambda *_: rows)
+        n = tq.K7a.launches
+        got = tq.apply_vote_events(*args)
+        monkeypatch.setattr(tq, "vote_rows", rule)
+        assert tq.K7a.launches == n + 1
+        for x, y in zip(got, want):
+            assert x.is_contiguous() and x.shape == (g, p)
+            assert torch.equal(x, y), rows
+        spans = [_span(t) for t in (*got, *args)]
+        for i in (0, 1):
+            for j, other in enumerate(spans):
+                if j != i:
+                    assert spans[i][1] <= other[0] or other[1] <= spans[i][0]
+    for x, y in zip(args, before):
+        assert torch.equal(x, y)
+
+
+@pytest.mark.parametrize("p", K7_PEERS)
+@pytest.mark.parametrize("g", K7_ROWS)
+def test_vote_events_kernel_matches_plain_at_every_shape(card, monkeypatch,
+                                                         g, p):
+    for e in sorted({0, 1, g // 4, 2 * g}):
+        _votes_every_design(monkeypatch, _cuda(cases.vote_events(
+            np.random.default_rng(g + p + e), g, p, e)))
+
+
+@pytest.mark.parametrize("g,p,e", [(1024, 8, 2048), (1001, 3, 5000),
+                                   (102400, 8, 4096), (10240, 16, 20480)])
+def test_vote_events_on_one_row(card, monkeypatch, g, p, e):
+    """Every event on one row (7): more than a block of design (a) lists
+    (1024), so it scans the events again; and on the last row through
+    -1."""
+    for row in (7, -1):
+        args = cases.vote_events(np.random.default_rng(e), g, p, e)
+        args[2][:] = row
+        _votes_every_design(monkeypatch, _cuda(args))
+
+
+def test_vote_and_lease_are_one_kernel(card, monkeypatch):
+    """One K7a call (either design) and one K7c call, each captured in a
+    CUDA graph, are one node each, the kernel (K7a's earlier design put
+    two copies before its kernel)."""
+    from ratis_tpu_torch.tools.profile_main_path import (graph_nodes,
+                                                         is_kernel_node)
+    votes = _cuda(cases.vote_events(np.random.default_rng(8), 1024, P,
+                                    2048))
+    lease = _cuda(cases.lease_inputs(np.random.default_rng(9), 1024, P))
+    rule = tq.vote_rows
+    calls = [(tq.K7c, lambda: tq.lease_expiry(*lease, 1000))]
+    for rows in (tq.vote_block_rows(1024), 0):
+        calls.append((tq.K7a, lambda rows=rows: (
+            monkeypatch.setattr(tq, "vote_rows", lambda *_: rows),
+            tq.apply_vote_events(*votes))))
+    for kernel, call in calls:
+        n = kernel.launches
+        nodes = graph_nodes(call)
+        assert len(nodes) == 1 and is_kernel_node(nodes[0]), nodes
+        assert kernel.launches == n + 2  # the warm-up call and the captured
+    monkeypatch.setattr(tq, "vote_rows", rule)
+
+
 @pytest.mark.parametrize("transport", ["sim", "tcp"])
 def test_cluster_runs_on_the_card(card, transport):
     from ratis_tpu_torch.tools.cluster import Cluster
