@@ -25,13 +25,15 @@ result line:
    each case also through the engine's prepared call, and K3 (the row
    entry the engine runs) on gathered rows at every peer count, padded to
    the engine's bucket with stale rows, through the prepared call and on
-   the packed tensors; K3's public [G, P] entry (``K3_public``); K7a-c
+   the packed tensors; K3's public [G, P] entry (``K3_public``) and K7a-c
    (the vote-reply scatter, the all-members replicated index, the lease
-   expiry) at G = 1024 and 102400 with P = 8, at P = 3, 5, 7 and 16, and
-   at G = 1001 and 1023, with the edge cases of
-   ``cases.vote_event_edges``, every vote event on one row and the
-   wrapping lease timeouts (the redesigned K7a through its launch rule
-   and forced to each of its two designs); the redesigned K4 (one
+   expiry) at G = 1024 and 102400 with P = 8, at P = 3, 5, 7 and 16 (K7b
+   and K3 public at 1024 and 102400 rows), and at G = 1001 and 1023, with
+   the edge cases of ``cases.vote_event_edges``, every vote event on one
+   row, the wrapping lease timeouts, K7b's rows of no self bit and of two
+   and K3's ``cases.tally_edges`` (the redesigned K7a and K3 public
+   through their launch rules and forced to each of their two designs);
+   the redesigned K4 (one
    cooperative launch) at G = 1024, 1000 and 10240 with tables of 8, 16
    and 512 peers (512: the
    counters do not fit in shared memory and go straight to the output)
@@ -83,10 +85,11 @@ result line:
    events, and one K1 call and one K5 call, each one node, ``tile_tick``
    on the fast events; one K4 call and one K6 call, each one kernel node,
    and one call of K4's prepared call, its two copies around one kernel;
-   one K7a call (by its rule and forced to each design) and one K7c
-   call, each one kernel node; one call of K3's row entry, K3's public
-   entry and K7b, their nodes counted (every kernel's count is its
-   ``nodes`` in the kernels line);
+   one K7a call (by its rule and forced to each design), one K7c call,
+   one K7b call and one call of K3's public entry (the last two also at
+   102400 rows), each one kernel node; one call of K3's row entry, its
+   nodes counted (every kernel's count is its ``nodes`` in the kernels
+   line);
 5. kernel parity again at every shape the main paths gave K1-K5 (K3 at
    every padded row count of the vote passes); the
    engine's own routes on one card engine of 1024 rows, host clock,
@@ -115,8 +118,9 @@ result line:
    its host time per call issued back to back; K1 also with each tile
    size at G = 1024, 10240, 102400 and E = 64, 16384, and on the mesh100k
    rung's flat control (102400 x 8 x 8192); K7a-c at G = 1024, P = 8
-   (K7a with 2048 events), K7a and K7c again at G = 102400 (``K7a_100k``
-   with 204800 events, ``K7c_100k``; no path calls K7 or ``K3_public``:
+   (K7a with 2048 events), K7a-c and ``K3_public`` again at G = 102400
+   (``K7a_100k`` with 204800 events, ``K7b_100k``, ``K7c_100k``,
+   ``K3_public_100k``; no path calls K7 or ``K3_public``:
    every path's
    run checks that they launched 0 times, so phases 3 and 5 make all of
    their launches); K2 also with each
@@ -150,8 +154,8 @@ from ratis_tpu_torch.tools.fast_tick_timing import (K6_SHAPES,
                                                      engine_padded, graph_us,
                                                      host_us,
                                                      ledger_earlier_route,
-                                                     timed, timed_host,
-                                                     vote_design)
+                                                     tally_design, timed,
+                                                     timed_host, vote_design)
 
 P = 8
 NOW = 100_000
@@ -230,7 +234,14 @@ REDESIGNED = {
            "buffer",
     "K7c": "redesigned: one launch, each row's peer slots over 8 lanes "
            "(one or two a lane; ranks by shuffles, the majority member by "
-           "a ballot)"}
+           "a ballot)",
+    "K7b": "redesigned: one launch, each row's peer slots over 8 lanes "
+           "(one or two a lane, every load issued before any is used; the "
+           "row's min by three shuffle steps, the empty union by a ballot)",
+    "K3_public": "redesigned: one launch by one of two designs, by G: "
+                 "rows of 8 lanes (five ballots give a row's bit words) "
+                 "or tiles of 128 rows staged in shared memory, one thread "
+                 "a row; the verdict shared with K3's row entry"}
 # why no kernel has a library time: no one PyTorch call computes the same
 # function (``library_ms`` null in the kernels line)
 _TICK = ("none: no one PyTorch call scatter-maxes the acks and takes each "
@@ -408,9 +419,8 @@ def parity_k6(tq, args_np):
 
 
 def parity_k3(tq, cases, g, p, seed):
-    args = cuda(cases.tally_inputs(np.random.default_rng(seed), g, p))
-    return max_abs_err([tq.tally_votes_packed(*args)],
-                       [tq._tally_plain(*args)])
+    return parity_k3_public(tq, cases.tally_inputs(
+        np.random.default_rng(seed), g, p))
 
 
 def parity_k3_rows(tq, cases, g, p, r, cap, seed):
@@ -473,6 +483,18 @@ def parity_k7b(tq, arrays):
                        [tq._all_replicated_min_plain(*args)])
 
 
+def parity_k3_public(tq, arrays):
+    """K3's public tally against its plain version, through the wrapper's
+    own launch and forced to each of its two designs (rows of 8 lanes;
+    staged tiles)."""
+    args = cuda(arrays)
+    got = [tq.tally_votes_packed(*args)]
+    for tile in (0, tq.TALLY_TILE):
+        with tally_design(tq, tile):
+            got.append(tq.tally_votes_packed(*args))
+    return max_abs_err(got, [tq._tally_plain(*args)] * 3)
+
+
 def parity_k7c(tq, arrays, timeout):
     args = cuda(arrays)
     return max_abs_err([tq.lease_expiry(*args, timeout)],
@@ -480,10 +502,13 @@ def parity_k7c(tq, arrays, timeout):
 
 
 def run_parity_k7(tq, cases, par) -> None:
-    """K7a-c: seeded cases at G = 1024 and 102400 with P = 8, at P = 3,
-    5, 7, 16 with G = 1024, at G = 1001 and 1023, the hand-made vote
-    edges, every event on one row (more than a block of K7a's design (a)
-    lists), every lease timeout of ``cases.LEASE_TIMEOUTS``."""
+    """K7a-c and K3's public tally: seeded cases at G = 1024 and 102400
+    with P = 8, at P = 3, 5, 7, 16 with G = 1024 and 102400, at G = 1001
+    and 1023, the hand-made vote edges, every event on one row (more than
+    a block of K7a's design (a) lists), every lease timeout of
+    ``cases.LEASE_TIMEOUTS``; K7b also with rows of no self bit and of
+    two, K3 also on ``cases.tally_edges`` (extreme priorities, empty
+    current confs, joint rounds, every member or none replied)."""
     shapes = [(1024, P), (102_400, P)] + [(1024, p) for p in K7_PEERS] \
         + [(g, p) for g in K7_ODD_ROWS for p in (3, P)]
     for seed, (g, p) in enumerate(shapes):
@@ -491,9 +516,21 @@ def run_parity_k7(tq, cases, par) -> None:
         for e in (g // 4, 2 * g):
             par.add("K7a", parity_k7a(tq, cases.vote_events(rng, g, p, e)))
         par.add("K7b", parity_k7b(tq, cases.replicated_inputs(rng, g, p)))
+        par.add("K7b", parity_k7b(tq, cases.replicated_self_edges(rng, g,
+                                                                  p)))
+        par.add("K3_public", parity_k3_public(tq, cases.tally_inputs(
+            rng, g, p)))
+        par.add("K3_public", parity_k3_public(tq, cases.tally_edges(rng, g,
+                                                                    p)))
         lease = cases.lease_inputs(rng, g, p, NOW)
         for t in cases.LEASE_TIMEOUTS:
             par.add("K7c", parity_k7c(tq, lease, t))
+    for seed, p in enumerate(K7_PEERS):  # the other peer counts at 100k
+        rng = np.random.default_rng(100 + seed)
+        par.add("K7b", parity_k7b(tq, cases.replicated_self_edges(
+            rng, 102_400, p)))
+        par.add("K3_public", parity_k3_public(tq, cases.tally_edges(
+            rng, 102_400, p)))
     for g, p in K7_VOTE_EDGES:
         par.add("K7a", parity_k7a(tq, cases.vote_event_edges(g, p)))
     for g, e in ((1024, 2048), (102_400, 204_800)):
@@ -1227,12 +1264,15 @@ def ledger_step_one_launch(tq, tl, cases, bench) -> dict:
 
 def other_one_launch(tq, cases) -> dict:
     """One call each of K3's row entry (``tally_rows`` at R = 64), K3's
-    public entry (G = 1024), K7a (1024 x 8 with 2048 events, by its rule
-    and forced to each design: ``K7a_rows``, ``K7a_grid``), K7b and K7c
-    (1024 x 8), each captured in a CUDA graph: every K7a and K7c call must
-    be one node, the kernel, and count two launches (the warm-up call and
-    the captured; K7a's earlier design put two copies before its kernel).
-    Returns each call's nodes' first lines."""
+    public entry (G = 1024, and 102400: ``K3_public_100k``; at 1024 also
+    forced to each design: ``K3_public_lanes``, ``K3_public_tile``), K7a
+    (1024 x 8 with 2048 events, by its rule and forced to each design:
+    ``K7a_rows``, ``K7a_grid``), K7b (1024 x 8, and 102400:
+    ``K7b_100k``) and K7c (1024 x 8), each captured in a CUDA graph: every
+    call but K3's row entry must be one node, the kernel, and count two
+    launches (the warm-up call and the captured; K7a's earlier design put
+    two copies before its kernel).  Returns each call's nodes' first
+    lines."""
     from ratis_tpu_torch.tools.profile_main_path import (graph_nodes,
                                                          is_kernel_node)
     rng = np.random.default_rng(41)
@@ -1244,6 +1284,8 @@ def other_one_launch(tq, cases) -> dict:
     votes = cuda(cases.vote_events(rng, g, P, 2 * g))
     repl = cuda(cases.replicated_inputs(rng, g, P))
     lease = cuda(cases.lease_inputs(rng, g, P, NOW))
+    tally_100k = cuda(cases.tally_inputs(rng, 102_400, P))
+    repl_100k = cuda(cases.replicated_inputs(rng, 102_400, P))
 
     def forced(rows):
         def call():
@@ -1251,14 +1293,27 @@ def other_one_launch(tq, cases) -> dict:
                 tq.apply_vote_events(*votes)
         return call
 
+    def tally_forced(tile, args):
+        def call():
+            with tally_design(tq, tile):
+                tq.tally_votes_packed(*args)
+        return call
+
     out = {}
     for key, call, kernel in (
             ("K3", lambda: tq.tally_rows(*packed), None),
-            ("K3_public", lambda: tq.tally_votes_packed(*tally), None),
+            ("K3_public", lambda: tq.tally_votes_packed(*tally),
+             tq.K3_PUBLIC),
+            ("K3_public_100k", lambda: tq.tally_votes_packed(*tally_100k),
+             tq.K3_PUBLIC),
+            ("K3_public_lanes", tally_forced(0, tally), tq.K3_PUBLIC),
+            ("K3_public_tile", tally_forced(tq.TALLY_TILE, tally),
+             tq.K3_PUBLIC),
             ("K7a", lambda: tq.apply_vote_events(*votes), tq.K7a),
             ("K7a_rows", forced(tq.vote_block_rows(g)), tq.K7a),
             ("K7a_grid", forced(0), tq.K7a),
-            ("K7b", lambda: tq.all_replicated_min(*repl), None),
+            ("K7b", lambda: tq.all_replicated_min(*repl), tq.K7b),
+            ("K7b_100k", lambda: tq.all_replicated_min(*repl_100k), tq.K7b),
             ("K7c", lambda: tq.lease_expiry(*lease, 1000), tq.K7c)):
         n = kernel.launches if kernel else 0
         nodes = graph_nodes(call)
@@ -1638,7 +1693,7 @@ def k5_timing(tq, st, ev_np, out, key, device_us) -> None:
 
 def k7_timing(tq, cases, g: int, p: int, out, device_us) -> None:
     """K7a-c at the main paths' G and P (K7a with two replies per group),
-    and K7a and K7c again at 102400 rows (``K7a_100k``, ``K7c_100k``):
+    and again at 102400 rows (``K7a_100k``, ``K7b_100k``, ``K7c_100k``):
     each input read once and each output written once (K7a: both [G, P]
     masks in and out, 10 bytes per event; K7b: the int32 and three bool
     [G, P] arrays and the flush index in, int32 [G] out; K7c: the int32
@@ -1646,16 +1701,18 @@ def k7_timing(tq, cases, g: int, p: int, out, device_us) -> None:
     computes any of the three alone, so there is no library time."""
     rng = np.random.default_rng(7)
     timeout = 1000
-    repl = cuda(cases.replicated_inputs(rng, g, p))
-    work = [("K7b", lambda: tq.all_replicated_min(*repl),
-             lambda: tq._all_replicated_min_plain(*repl),
-             7 * g * p + 8 * g, g * (3 * p + 4), f"G={g} P={p}")]
-    for key, rows in ((("K7a", "K7c"), g), (("K7a_100k", "K7c_100k"),
-                                             102_400)):
+    work = []
+    for key, rows in ((("K7a", "K7c", "K7b"), g),
+                      (("K7a_100k", "K7c_100k", "K7b_100k"), 102_400)):
         e = 2 * rows
         votes = cuda(cases.vote_events(rng, rows, p, e))
         lease = cuda(cases.lease_inputs(rng, rows, p, NOW))
+        repl = cuda(cases.replicated_inputs(rng, rows, p))
         work += [
+            (key[2], lambda repl=repl: tq.all_replicated_min(*repl),
+             lambda repl=repl: tq._all_replicated_min_plain(*repl),
+             7 * rows * p + 8 * rows, rows * (3 * p + 4),
+             f"G={rows} P={p}"),
             (key[0], lambda votes=votes: tq.apply_vote_events(*votes),
              lambda votes=votes: tq._apply_vote_events_plain(*votes),
              4 * rows * p + 10 * e, 10 * e, f"G={rows} P={p} E={e}"),
@@ -1739,15 +1796,17 @@ def run_timing(tq, tl, cases, bench, main, shapes, mesh_main,
                  f"R={r3} ({len(rows)} open rounds) P={p}")
     device_us["K3"] = per_call("K3", lambda: tq.tally_rows(*packed))
 
-    # K3's public [G, P] entry (no path launches it): four bool and one
-    # int32 [G, P] inputs, int32 [G], bool [4, G] out
-    args = cuda(cases.tally_inputs(rng, g, p))
-    ms = timed(lambda: tq.tally_votes_packed(*args))
-    plain = timed(lambda: tq._tally_plain(*args))
-    out["K3_public"] = (ms, plain, *bound(g * p * 8 + 4 * g + 4 * g,
-                                          g * (8 * p + 40)), f"G={g} P={p}")
-    device_us["K3_public"] = per_call(
-        "K3_public", lambda: tq.tally_votes_packed(*args))
+    # K3's public [G, P] entry (no path launches it) at the main paths' G
+    # and at 102400 rows: four bool and one int32 [G, P] inputs, int32
+    # [G], bool [4, G] out
+    for key, g3 in (("K3_public", g), ("K3_public_100k", 102_400)):
+        args = cuda(cases.tally_inputs(rng, g3, p))
+        ms = timed(lambda: tq.tally_votes_packed(*args))
+        plain = timed(lambda: tq._tally_plain(*args))
+        out[key] = (ms, plain, *bound(g3 * p * 8 + 4 * g3 + 4 * g3,
+                                      g3 * (8 * p + 40)), f"G={g3} P={p}")
+        device_us[key] = per_call(key,
+                                  lambda: tq.tally_votes_packed(*args))
 
     # K4: role (int8), commit, applied, prev_commit (int32), prev_valid
     # (bool) per row; match, last_ack, peer_index (int32) and three bool
@@ -2042,8 +2101,11 @@ def main(argv=None) -> int:
                                   for k, v in shapes.items()},
                        "mesh_shapes": {k: {str(s): n for s, n in v.items()}
                                        for k, v in rec_mesh.shapes.items()},
-                       "timing": {k: dict(zip(("ms", "plain_ms", "bound_ms",
-                                               "bound_by", "shape"), v))
+                       "timing": {k: {**dict(zip(("ms", "plain_ms",
+                                                  "bound_ms", "bound_by",
+                                                  "shape"), v)),
+                                      "nodes": len(graph_nodes_of[k])
+                                      if k in graph_nodes_of else None}
                                   for k, v in timing.items()},
                        "device_us": GRAPH_US,
                        "profiler_device_us": device_us, "host_us": HOST_US,

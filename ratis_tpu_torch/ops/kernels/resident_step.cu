@@ -206,32 +206,6 @@ struct Tile {
   int acked;      // an ack landed
 };
 
-__device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
-  unsigned s = (unsigned)__cvta_generic_to_shared(smem);
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s),
-               "l"(gmem));
-}
-
-// Copy nbytes of global memory into shared memory with the block's
-// threads: 16-byte asynchronous copies for the aligned bulk (complete
-// after cp_async_wait_all), plain byte loads for the rest.
-__device__ __forceinline__ void stage(void* smem, const void* gmem,
-                                      int nbytes) {
-  int head = 0;
-  if (aligned16(gmem)) {
-    head = nbytes & ~15;
-    for (int i = threadIdx.x * 16; i < head; i += blockDim.x * 16)
-      cp_async16((char*)smem + i, (const char*)gmem + i);
-  }
-  for (int i = head + threadIdx.x; i < nbytes; i += blockDim.x)
-    ((char*)smem)[i] = ((const char*)gmem)[i];
-}
-
-__device__ __forceinline__ void cp_async_wait_all() {
-  asm volatile("cp.async.commit_group;\ncp.async.wait_group 0;\n" ::
-                   : "memory");
-}
-
 // Write nbytes of shared memory back to global memory: 16-byte stores for
 // the aligned bulk, bytes for the rest.
 __device__ __forceinline__ void unstage(void* gmem, const void* smem,

@@ -2,10 +2,14 @@
 // majority-min of the row pass of K1, K2, K5 and K6 (resident_step.cu)
 // and of K7c (vote_lease.cu), in one thread per row (``majority_min``)
 // or with a row's slots spread over the lanes of a warp segment
-// (``lane_majority_min``, ``lane_pick``), the bitmask of a bool peer row,
-// XLA's index normalisation, int32 arithmetic that wraps as XLA's does,
-// and the block-wide scan of an int32 index array that K1, K2, K5, K6
-// and K7a run over their events' rows.
+// (``lane_majority_min``, ``lane_pick``); the launch of a kernel in rows
+// of kRowLanes lanes and the bit word of one of its slot planes
+// (``lane_row_blocks``, ``lane_bits``: K7b, K7c and K3's public tally);
+// the bitmask of a bool peer row, XLA's index normalisation, int32
+// arithmetic that wraps as XLA's does, the staging of rows into shared
+// memory with 16-byte asynchronous copies (K1, K2, K5 and K3's public
+// tally), and the block-wide scan of an int32 index array that K1, K2,
+// K5, K6 and K7a run over their events' rows.
 //
 // A row holds at most MAXP peer slots, kept in registers.  Signed
 // overflow is undefined in C++, so every int32 sum or difference that XLA
@@ -15,6 +19,8 @@
 
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <climits>
 
 #define MAXP 16
 
@@ -49,6 +55,32 @@ __device__ __forceinline__ unsigned row_bits(const uint8_t* m, int P) {
 
 __device__ __forceinline__ bool aligned16(const void* p) {
   return (reinterpret_cast<uintptr_t>(p) & 15) == 0;
+}
+
+__device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
+  unsigned s = (unsigned)__cvta_generic_to_shared(smem);
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s),
+               "l"(gmem));
+}
+
+// Copy nbytes of global memory into shared memory with the block's
+// threads: 16-byte asynchronous copies for the aligned bulk (complete
+// after cp_async_wait_all), plain byte loads for the rest.
+__device__ __forceinline__ void stage(void* smem, const void* gmem,
+                                      int nbytes) {
+  int head = 0;
+  if (aligned16(gmem)) {
+    head = nbytes & ~15;
+    for (int i = threadIdx.x * 16; i < head; i += blockDim.x * 16)
+      cp_async16((char*)smem + i, (const char*)gmem + i);
+  }
+  for (int i = head + threadIdx.x; i < nbytes; i += blockDim.x)
+    ((char*)smem)[i] = ((const char*)gmem)[i];
+}
+
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.commit_group;\ncp.async.wait_group 0;\n" ::
+                   : "memory");
 }
 
 // f(i, a[i]) for every i in [0, n), split over the block's threads, with
@@ -146,6 +178,30 @@ __device__ __forceinline__ int32_t lane_majority_min(int32_t v, int rank,
   const int k = __popc(mask);
   return lane_pick<L>(((mask >> lane) & 1u) && rank == (k - 1) / 2, v,
                       shift);
+}
+
+// Rows of kRowLanes lanes, 4 rows a warp: lane l of a row holds peer
+// slot l, and slot l + 8 where a lane holds two (``slots``, 1 or 2;
+// ops.quorum.lease_slots).
+constexpr int kRowLanes = 8;
+
+// The blocks that cover G rows of kRowLanes lanes, kThreads threads a
+// block; -1 where the launch cannot hold them (G < 0, P outside [1, 8 *
+// slots], slots not 1 or 2, or more threads than an int counts).
+inline int lane_row_blocks(int G, int P, int slots) {
+  if (G < 0 || P < 1 || (slots != 1 && slots != 2) ||
+      P > slots * kRowLanes || (long long)G * kRowLanes > INT_MAX)
+    return -1;
+  return (int)(((long long)G * kRowLanes + kThreads - 1) / kThreads);
+}
+
+// One slot plane of a row held over L lanes as a bit word: bit (l + L s)
+// is ``v`` on lane l of this lane's segment (``shift``: the segment's
+// first lane in the warp).  Every lane of the warp must call it.
+template <int L>
+__device__ __forceinline__ unsigned lane_bits(bool v, int shift, int s) {
+  return ((__ballot_sync(kFullWarp, v) >> shift) & ((1u << L) - 1u))
+         << (L * s);
 }
 
 }  // namespace

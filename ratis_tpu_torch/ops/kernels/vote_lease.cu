@@ -17,9 +17,9 @@
 // from the end of its own dimension, one outside [-n, n) is dropped, and
 // an invalid event writes nothing.
 //
-// K7b: one thread per row: the min over the members of conf_cur |
-// conf_old, the leader's own slot counted at its flush index; INT32_MIN
-// for an empty union.
+// K7b: the min over the members of conf_cur | conf_old, each slot's
+// value ``self ? flush : match`` (so several self bits in a row, or none,
+// behave as in JAX); INT32_MIN for an empty union.
 //
 // K7c: the joint majority-min of the ack times with the leader's slot set
 // to INT32_MAX, then min(q, INT32_MAX - t) + t.  Both int32 operations
@@ -31,10 +31,21 @@
 // K7c ~57 KB (~0.02 us at 3.35 TB/s); K7a reads and writes the two bool
 // masks (~33 KB) plus 10 bytes per event.  At 1024 rows latency binds
 // them: of the launch, and of the dependent steps inside it.  At 102400
-// rows K7c must move 5.7 MB (1.7 us) and K7a with 2G events 5.3 MB
-// (1.6 us), so there the loads must be coalesced and spread over the
-// whole card.  So:
+// rows K7b must move 6.6 MB (2.0 us), K7c 5.7 MB (1.7 us) and K7a with
+// 2G events 5.3 MB (1.6 us), so there the loads must be coalesced and
+// spread over the whole card.  So:
 //
+// - K7b (``replicated_min``) is one launch in rows of 8 lanes, 4 rows a
+//   warp, G * 8 / 256 blocks (3200 at 102400 rows); a lane holds one
+//   slot (P <= 8) or two (slots l and l + 8).  A lane issues all of its
+//   loads before it uses any: its slots' match index and three mask
+//   bytes, and the row's flush index (one address on the row's 8 lanes),
+//   so a row's loads are in flight together and a warp's cover 4 rows of
+//   neighbouring bytes (128 B of match at P = 8).  The row's min is three
+//   shuffle steps over the 8 lanes, the empty union one ballot; lane 0
+//   stores.  Staged tiles of rows with one thread a row (as K3's design
+//   (b), tally_votes.cu) measured no faster at 102400 x 8 and slower at
+//   1024 rows.
 // - K7c (``lease``) is one launch with a row's peer slots spread over
 //   the lanes of a warp segment, as the tile kernel's row math
 //   (resident_step.cu): rows of 8 lanes, 4 rows a warp, G * 8 / 256
@@ -74,7 +85,6 @@
 #include <cooperative_groups.h>
 
 #include <algorithm>
-#include <climits>
 
 #include "row_math.cuh"
 
@@ -212,38 +222,68 @@ int launch_vote_grid(const VoteArgs& a, int G, int P, int E,
 
 // -- K7b ---------------------------------------------------------------------
 
-__global__ void replicated_min(const int32_t* __restrict__ match,
-                               const uint8_t* __restrict__ self_mask,
-                               const int32_t* __restrict__ flush,
-                               const uint8_t* __restrict__ cur,
-                               const uint8_t* __restrict__ old,
-                               int32_t* __restrict__ out, int G, int P) {
-  int g = blockIdx.x * blockDim.x + threadIdx.x;
-  if (g >= G) return;
-  const size_t base = (size_t)g * P;
-  unsigned u = row_bits(cur + base, P) | row_bits(old + base, P);
-  unsigned sb = row_bits(self_mask + base, P);
-  int32_t fl = flush[g];
-  int32_t m = kIntMax;
+// Rows of kRowLanes lanes, S slots a lane (lane l holds slots l and, for
+// S = 2, l + 8; S * 8 >= P).
+template <int S>
+__global__ void __launch_bounds__(kThreads)
+    replicated_min(const int32_t* __restrict__ match,
+                   const uint8_t* __restrict__ self_mask,
+                   const int32_t* __restrict__ flush,
+                   const uint8_t* __restrict__ cur,
+                   const uint8_t* __restrict__ old,
+                   int32_t* __restrict__ out, int G, int P) {
+  constexpr int L = kRowLanes;
+  const int lane = threadIdx.x % L;
+  const int shift = (threadIdx.x % 32) / L * L;
+  const int g = (blockIdx.x * blockDim.x + threadIdx.x) / L;
+  // every load issued before any is used; a slot past P or a row past G
+  // is no member
+  int32_t m[S];
+  uint8_t self[S], c[S], o[S];
+  int32_t fl = 0;
 #pragma unroll
-  for (int i = 0; i < MAXP; ++i)
-    if ((u >> i) & 1u) m = min(m, (sb >> i) & 1u ? fl : match[base + i]);
-  out[g] = u != 0 ? m : kIntMin;
+  for (int s = 0; s < S; ++s) {
+    const int slot = lane + L * s;
+    m[s] = 0;
+    self[s] = c[s] = o[s] = 0;
+    if (g < G && slot < P) {
+      const size_t i = (size_t)g * P + slot;
+      m[s] = match[i];
+      self[s] = self_mask[i];
+      c[s] = cur[i];
+      o[s] = old[i];
+    }
+  }
+  if (g < G) fl = flush[g];  // the same address on the row's lanes
+  // a member counts its match index, or the flush index in a self slot
+  int32_t v = kIntMax;
+  bool member = false;
+#pragma unroll
+  for (int s = 0; s < S; ++s) {
+    if (c[s] | o[s]) {
+      v = min(v, self[s] ? fl : m[s]);
+      member = true;
+    }
+  }
+  // the row's min over its 8 lanes, and whether it has any member
+#pragma unroll
+  for (int d = L / 2; d > 0; d /= 2)
+    v = min(v, __shfl_xor_sync(kFullWarp, v, d, L));
+  const bool any = lane_bits<L>(member, shift, 0) != 0;
+  if (lane == 0 && g < G) out[g] = any ? v : kIntMin;
 }
 
 // -- K7c ---------------------------------------------------------------------
 
-// Rows of kLeaseLanes lanes, S slots a lane (lane l holds slots l and,
-// for S = 2, l + 8; S * 8 >= P).
-constexpr int kLeaseLanes = 8;
-
+// Rows of kRowLanes lanes, S slots a lane (lane l holds slots l and, for
+// S = 2, l + 8; S * 8 >= P).
 template <int S>
 __global__ void __launch_bounds__(kThreads)
     lease(const int32_t* __restrict__ ack,
           const uint8_t* __restrict__ self_mask,
           const uint8_t* __restrict__ cur, const uint8_t* __restrict__ old,
           int timeout, int32_t* __restrict__ out, int G, int P) {
-  constexpr int L = kLeaseLanes;
+  constexpr int L = kRowLanes;
   const int lane = threadIdx.x % L;
   const int shift = (threadIdx.x % 32) / L * L;
   const int g = (blockIdx.x * blockDim.x + threadIdx.x) / L;
@@ -270,8 +310,8 @@ __global__ void __launch_bounds__(kThreads)
 #pragma unroll
   for (int s = 0; s < S; ++s) {
     v[s] = self[s] ? kIntMax : a[s];
-    cb |= ((__ballot_sync(kFullWarp, c[s]) >> shift) & 0xffu) << (L * s);
-    ob |= ((__ballot_sync(kFullWarp, o[s]) >> shift) & 0xffu) << (L * s);
+    cb |= lane_bits<L>(c[s], shift, s);
+    ob |= lane_bits<L>(o[s], shift, s);
   }
   // before[s]: the slots ordered before slot lane + L s (by value, ties
   // by slot), so its rank among either conf's members is a popcount
@@ -343,14 +383,22 @@ int k7a_apply_vote_events(const uint8_t* grants, const uint8_t* rejects,
 }
 
 // K7b: match int32 [G, P], self/cur/old bool [G, P], flush int32 [G];
-// out int32 [G]
+// out int32 [G]; rows of 8 lanes, ``slots`` (1 or 2, slots * 8 >= P)
+// slots a lane, ``blocks`` blocks (at least the rows' G * 8 / kThreads)
 int k7b_all_replicated_min(const int32_t* match, const uint8_t* self_mask,
                            const int32_t* flush, const uint8_t* cur,
                            const uint8_t* old, int32_t* out, int G, int P,
-                           void* stream) {
-  if (G > 0)
-    replicated_min<<<blocks(G), kThreads, 0, (cudaStream_t)stream>>>(
-        match, self_mask, flush, cur, old, out, G, P);
+                           int slots, int blocks, void* stream) {
+  const int need = lane_row_blocks(G, P, slots);
+  if (need < 0 || blocks < need) return (int)cudaErrorInvalidValue;
+  if (G == 0) return (int)cudaSuccess;
+  cudaStream_t s = (cudaStream_t)stream;
+  if (slots == 1)
+    replicated_min<1><<<blocks, kThreads, 0, s>>>(match, self_mask, flush,
+                                                  cur, old, out, G, P);
+  else
+    replicated_min<2><<<blocks, kThreads, 0, s>>>(match, self_mask, flush,
+                                                  cur, old, out, G, P);
   return (int)cudaGetLastError();
 }
 
@@ -360,12 +408,9 @@ int k7b_all_replicated_min(const int32_t* match, const uint8_t* self_mask,
 int k7c_lease_expiry(const int32_t* ack, const uint8_t* self_mask,
                      const uint8_t* cur, const uint8_t* old, int timeout_ms,
                      int32_t* out, int G, int P, int slots, void* stream) {
-  if (P < 1 || G < 0 || (slots != 1 && slots != 2) ||
-      P > slots * kLeaseLanes || (long long)G * kLeaseLanes > INT_MAX)
-    return (int)cudaErrorInvalidValue;
+  const int grid = lane_row_blocks(G, P, slots);
+  if (grid < 0) return (int)cudaErrorInvalidValue;
   if (G == 0) return (int)cudaSuccess;
-  const int grid =
-      (int)(((long long)G * kLeaseLanes + kThreads - 1) / kThreads);
   cudaStream_t s = (cudaStream_t)stream;
   if (slots == 1)
     lease<1><<<grid, kThreads, 0, s>>>(ack, self_mask, cur, old, timeout_ms,

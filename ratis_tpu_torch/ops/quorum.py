@@ -126,7 +126,28 @@ def _all_replicated_min_plain(match_index, self_mask, flush_index, conf_cur,
 
 
 K7b = Kernel("vote_lease.cu", "k7b_all_replicated_min",
-             (PTR, PTR, PTR, PTR, PTR, PTR, INT, INT))
+             (PTR,) * 6 + (INT,) * 4)
+
+# K7b, K7c and the public K3 run in rows of ROW_LANES lanes, 4 rows to a
+# warp, in blocks of KERNEL_THREADS threads
+ROW_LANES = 8
+KERNEL_THREADS = 256
+
+
+def lane_blocks(g: int) -> int:
+    """The blocks of a launch in rows of ROW_LANES lanes over ``g`` rows
+    (K7b, the public K3): every row in one, no block without a row."""
+    return -(-g * ROW_LANES // KERNEL_THREADS)
+
+
+@functools.lru_cache(maxsize=64)
+def _replicated_specs(g: int, p: int) -> tuple:
+    """(dtype, shape) of ``all_replicated_min``'s five arrays, in its
+    order."""
+    gp = torch.Size((g, p))
+    return ((torch.int32, gp), (torch.bool, gp),
+            (torch.int32, torch.Size((g,))), (torch.bool, gp),
+            (torch.bool, gp))
 
 
 def all_replicated_min(match_index, self_mask, flush_index, conf_cur,
@@ -135,22 +156,19 @@ def all_replicated_min(match_index, self_mask, flush_index, conf_cur,
     ``conf_cur | conf_old`` (watch levels ALL / ALL_COMMITTED), the
     leader's own slot counted at its flush index; INT32_MIN for an empty
     union.  match_index: [G, P] int32; masks: [G, P] bool; flush_index:
-    [G] int32.  CPU tensors: plain torch; CUDA tensors: kernel K7b."""
-    dev = _device_of(match_index, self_mask, flush_index, conf_cur,
-                     conf_old)
-    if dev.type == "cpu":
-        return _all_replicated_min_plain(match_index, self_mask,
-                                         flush_index, conf_cur, conf_old)
+    [G] int32.  CPU tensors: plain torch; CUDA tensors: one launch of
+    kernel K7b."""
+    arrays = (match_index, self_mask, flush_index, conf_cur, conf_old)
+    dev = match_index.device
+    if dev.type != "cuda":
+        _device_of(*arrays)  # mixed devices and other types raise
+        return _all_replicated_min_plain(*arrays)
     g, p = match_index.shape
     _check_peers(p)
-    _check(match_index, torch.int32, (g, p))
-    for t in (self_mask, conf_cur, conf_old):
-        _check(t, torch.bool, (g, p))
-    _check(flush_index, torch.int32, (g,))
+    _check_all(arrays, _replicated_specs(g, p), dev)
     out = torch.empty(g, dtype=torch.int32, device=dev)
-    K7b(dev, match_index.data_ptr(), self_mask.data_ptr(),
-        flush_index.data_ptr(), conf_cur.data_ptr(), conf_old.data_ptr(),
-        out.data_ptr(), g, p)
+    K7b(dev, *(t.data_ptr() for t in arrays), out.data_ptr(), g, p,
+        lease_slots(p), lane_blocks(g))
     return out
 
 
@@ -196,29 +214,58 @@ def _tally_plain(grants, rejects, conf_cur, conf_old, priority,
 # the public [G, P] tally (``tally`` in tally_votes.cu); no path of the
 # server launches it: the engine's vote pass runs K3 below
 K3_PUBLIC = Kernel("tally_votes.cu", "k3_tally_votes",
-                   (PTR, PTR, PTR, PTR, PTR, PTR, PTR, INT, INT))
+                   (PTR,) * 7 + (INT,) * 5)
+
+# the public K3's two designs (``tally_votes.cu``): (a) rows of ROW_LANES
+# lanes, as K7b; (b) tiles of TALLY_TILE rows staged in shared memory,
+# one thread a row, from TALLY_TILE_FROM rows (``tally_tile``)
+TALLY_TILE = 128
+TALLY_TILE_FROM = 24_576
+
+
+def tally_tile(g: int) -> int:
+    """The public K3's design at ``g`` rows: 0 for rows of 8 lanes (a),
+    TALLY_TILE for staged tiles (b) from TALLY_TILE_FROM rows.  On an H100
+    (a) was the faster up to 10240 rows and (b) from 40960
+    (``tools/fast_tick_timing.py``; PERF.md): (a) spreads a row's
+    loads over 8 lanes, so its latency is short, but issues 8 threads a
+    row; (b) issues one thread a row and 16-byte copies, so it moves the
+    bytes of many rows with fewer instructions."""
+    return TALLY_TILE if g >= TALLY_TILE_FROM else 0
+
+
+def tally_blocks(g: int, tile: int) -> int:
+    """The blocks of the public K3's launch at ``g`` rows by design
+    ``tile`` (``tally_tile``): every row in one, no block without a row."""
+    return lane_blocks(g) if tile == 0 else -(-g // tile)
+
+
+@functools.lru_cache(maxsize=64)
+def _tally_specs(g: int, p: int) -> tuple:
+    """(dtype, shape) of ``tally_votes_packed``'s six arrays, in its
+    order."""
+    gp = torch.Size((g, p))
+    return ((torch.bool, gp),) * 4 + ((torch.int32, gp),
+                                      (torch.int32, torch.Size((g,))))
 
 
 def tally_votes_packed(grants, rejects, conf_cur, conf_old, priority,
                        self_priority) -> torch.Tensor:
     """The tally as one bool [4, G] tensor (rows in VoteTally order), so
     the engine downloads it in one copy.  CPU tensors: plain torch; CUDA
-    tensors: the kernel ``tally`` (K3_PUBLIC)."""
-    dev = _device_of(grants, rejects, conf_cur, conf_old, priority,
-                     self_priority)
-    if dev.type == "cpu":
-        return _tally_plain(grants, rejects, conf_cur, conf_old, priority,
-                            self_priority)
+    tensors: one launch of K3_PUBLIC by the design ``tally_tile`` picks."""
+    arrays = (grants, rejects, conf_cur, conf_old, priority, self_priority)
+    dev = grants.device
+    if dev.type != "cuda":
+        _device_of(*arrays)  # mixed devices and other types raise
+        return _tally_plain(*arrays)
     g, p = grants.shape
-    for t in (grants, rejects, conf_cur, conf_old):
-        _check(t, torch.bool, (g, p))
-    _check(priority, torch.int32, (g, p))
-    _check(self_priority, torch.int32, (g,))
     _check_peers(p)
+    _check_all(arrays, _tally_specs(g, p), dev)
     out = torch.empty((4, g), dtype=torch.bool, device=dev)
-    K3_PUBLIC(dev, grants.data_ptr(), rejects.data_ptr(), conf_cur.data_ptr(),
-              conf_old.data_ptr(), priority.data_ptr(),
-              self_priority.data_ptr(), out.data_ptr(), g, p)
+    tile = tally_tile(g)
+    K3_PUBLIC(dev, *(t.data_ptr() for t in arrays), out.data_ptr(), g, p,
+              lease_slots(p), tile, tally_blocks(g, tile))
     return out
 
 
@@ -453,8 +500,8 @@ K7c = Kernel("vote_lease.cu", "k7c_lease_expiry",
 
 
 def lease_slots(p: int) -> int:
-    """Peer slots each lane of K7c's rows of 8 lanes holds: 1 for up to 8
-    peer slots, else 2."""
+    """Peer slots each lane of a row of ROW_LANES lanes holds (K7b, K7c,
+    the public K3): 1 for up to 8 peer slots, else 2."""
     return 1 if p <= 8 else 2
 
 
@@ -1281,13 +1328,16 @@ def _check_all(arrays: Sequence[torch.Tensor], specs: tuple,
                dev: torch.device) -> None:
     """Every array against its (dtype, shape) in ``specs``, contiguous and
     on ``dev``, in one pass; the first that fails raises with its own
-    message."""
+    message, prefixed with its position among ``arrays``."""
     card = dev.index
-    for t, (dt, shape) in zip(arrays, specs):
+    for i, (t, (dt, shape)) in enumerate(zip(arrays, specs)):
         if t.dtype is not dt or t.shape != shape or not t.is_contiguous() \
                 or t.get_device() != card:
             _device_of(*arrays)
-            _check(t, dt, shape)
+            try:
+                _check(t, dt, shape)
+            except (TypeError, ValueError) as exc:
+                raise type(exc)(f"argument {i}: {exc}") from None
 
 
 def _check_peers(p: int) -> None:

@@ -26,8 +26,12 @@ versions on the card), so both hold the kernels to the same cases:
   reject for one (group, peer) in one batch, invalid events, indices in
   ``[-n, -1]``, below ``-n`` and at or past ``n``), the hand-made edge
   batches of ``vote_event_edges``, replicated-index and lease inputs with
-  joint, single-member and empty confs, and lease timeouts that wrap
+  joint, single-member and empty confs (and rows with no self bit or two:
+  ``replicated_self_edges``), and lease timeouts that wrap
   (``LEASE_TIMEOUTS``);
+- K3's public tally: ``tally_edges``, rows with priorities at INT32_MIN
+  and INT32_MAX, empty current confs, joint rounds, every member or none
+  replied;
 - the engine's prepared calls: a fast tick, a refresh tick or a vote
   pass's rows packed into a ``FastPlan`` / ``RefreshPlan`` /
   ``TallyPlan`` as the engine packs them;
@@ -252,6 +256,34 @@ def tally_inputs(rng, g: int, p: int) -> list:
     return [grants, rejects, conf_cur, conf_old, priority, self_priority]
 
 
+def tally_edges(rng, g: int, p: int) -> list:
+    """``tally_inputs`` with most rows cut to an edge of the tally, each
+    kind on about a seventh of the rows: priorities at INT32_MIN and
+    INT32_MAX (the candidate's and the peers'), an empty conf_cur (alone,
+    or beside a conf_old), a joint round, every member replied, none
+    replied, every member granted."""
+    grants, rejects, cur, old, prio, self_prio = tally_inputs(rng, g, p)
+    kind = rng.integers(0, 7, size=g)
+    extreme = np.array([INT32_MIN, INT32_MAX, 0, 1], np.int32)
+    rows = kind == 0
+    prio[rows] = rng.choice(extreme, size=(int(rows.sum()), p))
+    self_prio[rows] = rng.choice(extreme, size=int(rows.sum()))
+    cur[kind == 1] = False
+    joint = kind == 2
+    old[joint] = _mask(rng, int(joint.sum()), p, 0.0)
+    members = cur | old
+    granted = members & (rng.random((g, p)) < 0.6)
+    every = kind == 3
+    grants[every] = granted[every]
+    rejects[every] = (members & ~granted)[every]
+    none = kind == 4
+    grants[none] = rejects[none] = False
+    all_granted = kind == 5
+    grants[all_granted] = members[all_granted]
+    rejects[all_granted] = False
+    return [grants, rejects, cur, old, prio, self_prio]
+
+
 def ledger_inputs(rng, g: int, p: int, width: int, now: int = 100_000,
                   big_cell: bool = False) -> tuple[list, tuple]:
     """(the eleven array args of ops.ledger.ledger_pass, (now_ms,
@@ -357,6 +389,20 @@ def replicated_inputs(rng, g: int, p: int) -> list:
     flush = rng.integers(-1, 2000, size=g).astype(np.int32)
     flush[rng.random(g) < 0.01] = INT32_MAX
     return [match, self_mask, flush, conf_cur, conf_old]
+
+
+def replicated_self_edges(rng, g: int, p: int) -> list:
+    """``replicated_inputs`` with no self bit on a fifth of the rows and
+    two on another fifth (where ``p`` > 1): each slot counts its own
+    value, the flush index wherever its self bit is set."""
+    arrays = replicated_inputs(rng, g, p)
+    self_mask = arrays[1]
+    kind = rng.integers(0, 5, size=g)
+    self_mask[kind == 0] = False
+    if p > 1:
+        two = np.flatnonzero(kind == 1)
+        self_mask[two, (np.argmax(self_mask[two], axis=1) + 1) % p] = True
+    return arrays
 
 
 def lease_inputs(rng, g: int, p: int, now: int = 100_000) -> list:

@@ -1,7 +1,8 @@
 """Time the redesigned kernels' public wrappers (the fast tick K1 and K5,
-the ledger pass K4, the stateless tick K6, the vote-reply scatter K7a and
-the lease expiry K7c) on one CUDA card; and the timing helpers
-``chip_smoke.py`` times every kernel and route with.
+the ledger pass K4, the stateless tick K6, the vote-reply scatter K7a, the
+all-members replicated index K7b, the lease expiry K7c and the public
+vote tally K3) on one CUDA card; and the timing helpers ``chip_smoke.py``
+times every kernel and route with.
 
     python ratis_tpu_torch/tools/fast_tick_timing.py [--label NAME] [--only k7]
 
@@ -38,9 +39,17 @@ choice between its two designs (``K7A_RULE_SHAPES``), each with
 ``bound_us`` as ``chip_smoke.py`` counts it (K7c also at 102400 x 16);
 where the package has K7a's launch rule (``ops.quorum.vote_rows``), K7a
 also forced to each of its designs (``_rows``: blocks owning rows,
-``_grid``: one cooperative launch).  K4,
-K6, K7a and K7c are functional: every call sees the same inputs.
-``--only k7`` times K7a and K7c alone.
+``_grid``: one cooperative launch).  K7b (``all_replicated_min``, on
+``cases.replicated_inputs``) and the public K3 (``tally_votes_packed``,
+on ``cases.tally_inputs``) at ``LANE_SHAPES``: 1024, 10240, 20480,
+40960 and 102400 rows x 8, and 102400 x 16 and x 3, each with
+``bound_us``; where the package has the public K3's launch rule
+(``ops.quorum.tally_tile``), K3 also forced to each of its designs
+(``_lanes``: rows of 8 lanes, ``_tile``: staged tiles); and K3's row
+entry (``tally_rows``, the engine's) at R = 64 x 8 packed as the engine's
+vote pass packs it.  K4, K6, K7a-c and K3 are functional: every
+call sees the same inputs.  ``--only k7`` times K7a-c and K3 (public and
+row entry) alone.
 
 It imports ``ratis_tpu_torch`` from the Python path, not from beside the
 script, so the same script times another checkout of the package::
@@ -104,6 +113,11 @@ K7A_RULE_SHAPES = ((1024, 8, 8192), (4096, 8, 4096), (4096, 8, 8192),
                    (10_240, 8, 5120), (102_400, 8, 1024),
                    (102_400, 8, 4096))
 LEASE_TIMEOUT_MS = 1000
+# (G, P) of K7b and the public K3, both in rows of 8 lanes; K3's row entry
+# at the engine's usual bucket of 64 rows
+LANE_SHAPES = ((1024, 8), (10_240, 8), (20_480, 8), (40_960, 8),
+               (102_400, 8), (102_400, 16), (102_400, 3))
+K3_ROWS = 64
 
 
 HBM_BYTES_S = 3.35e12
@@ -256,15 +270,52 @@ def time_ledger_and_step(tl, tq, bench, cases) -> dict:
 
 
 def k7_bound_us(key: str, g: int, p: int, e: int = 0) -> float:
-    """K7a's or K7c's bound as ``chip_smoke.py`` counts it: K7a both
-    [G, P] masks in and out and 10 bytes per event; K7c the int32 and
-    three bool [G, P] arrays in and int32 [G] out, against its
-    ``G * (8 P^2 + 16)`` integer operations."""
-    if key == "K7a":
-        nbytes, ops = 4 * g * p + 10 * e, 10 * e
-    else:
-        nbytes, ops = 7 * g * p + 4 * g, g * (8 * p * p + 16)
+    """K7a's, K7b's, K7c's or the public K3's bound as ``chip_smoke.py``
+    counts it: K7a both [G, P] masks in and out and 10 bytes per event;
+    K7b the int32 and three bool [G, P] arrays and int32 [G] in, int32
+    [G] out, against ``G * (3 P + 4)`` integer operations; K7c the int32
+    and three bool [G, P] arrays in and int32 [G] out, against its
+    ``G * (8 P^2 + 16)``; K3 four bool and one int32 [G, P] array and
+    int32 [G] in, bool [4, G] out, against ``G * (8 P + 40)``."""
+    nbytes, ops = {
+        "K7a": (4 * g * p + 10 * e, 10 * e),
+        "K7b": (7 * g * p + 8 * g, g * (3 * p + 4)),
+        "K7c": (7 * g * p + 4 * g, g * (8 * p * p + 16)),
+        "K3_public": (8 * g * p + 8 * g, g * (8 * p + 40))}[key]
     return max(nbytes / HBM_BYTES_S, ops / PEAK_INT32_OPS_S) * 1e6
+
+
+def time_rows_of_lanes(q, cases) -> dict:
+    """K7b and the public K3 at ``LANE_SHAPES``, and K3's row entry at
+    ``K3_ROWS`` rows x 8 (a quarter of them open rounds, the rest stale
+    padding, as the engine's vote pass packs them)."""
+    res = {}
+    for g, p in LANE_SHAPES:
+        tag = f"_G{g}" + ("" if p == 8 else f"_P{p}")
+        repl = [torch.from_numpy(a).cuda() for a in cases.replicated_inputs(
+            np.random.default_rng(g + p), g, p)]
+        res["K7b" + tag] = {
+            **time_call(lambda: q.all_replicated_min(*repl)),
+            "bound_us": k7_bound_us("K7b", g, p)}
+        tally = [torch.from_numpy(a).cuda() for a in cases.tally_inputs(
+            np.random.default_rng(g * p), g, p)]
+        res["K3_public" + tag] = {
+            **time_call(lambda: q.tally_votes_packed(*tally)),
+            "bound_us": k7_bound_us("K3_public", g, p)}
+        if not hasattr(q, "tally_tile"):
+            continue
+        res["K3_public" + tag]["tile"] = q.tally_tile(g)
+        for design, tile in (("lanes", 0), ("tile", q.TALLY_TILE)):
+            with tally_design(q, tile):
+                res[f"K3_public{tag}_{design}"] = time_call(
+                    lambda: q.tally_votes_packed(*tally))
+    arrays = cases.tally_inputs(np.random.default_rng(3), 1024, 8)
+    v = cases.tally_plan(arrays, np.arange(0, 1024, 64), "cpu",
+                         K3_ROWS).views(K3_ROWS)
+    packed = [torch.from_numpy(np.ascontiguousarray(a)).cuda()
+              for a in (v.masks, v.priority, v.self_priority)]
+    res[f"K3_rows_R{K3_ROWS}"] = time_call(lambda: q.tally_rows(*packed))
+    return res
 
 
 def time_votes_and_lease(q, cases) -> dict:
@@ -307,6 +358,20 @@ def vote_design(q, rows: int):
         yield
     finally:
         q.vote_rows = rule
+
+
+@contextlib.contextmanager
+def tally_design(q, tile: int):
+    """The public K3's launch rule ``q.tally_tile`` replaced by one that
+    always answers ``tile`` (0: rows of 8 lanes; ``q.TALLY_TILE``: staged
+    tiles) while the block runs, to time or check each design at any
+    shape."""
+    rule = q.tally_tile
+    q.tally_tile = lambda *_: tile
+    try:
+        yield
+    finally:
+        q.tally_tile = rule
 
 
 def time_fast_ticks(q, bench, cases) -> dict:
@@ -354,7 +419,8 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--label", default="", help="a name for this run")
     ap.add_argument("--only", choices=("all", "k7"), default="all",
-                    help="k7: time K7a and K7c alone")
+                    help="k7: time K7a-c and K3 (public and row entry) "
+                         "alone")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("fast_tick_timing: CUDA is not available", file=sys.stderr)
@@ -368,7 +434,8 @@ def main(argv=None) -> int:
     from ratis_tpu_torch.ops import quorum as q
     from ratis_tpu_torch.tools import bench, cases
     _build.build_all()
-    res = time_votes_and_lease(q, cases)
+    res = time_rows_of_lanes(q, cases)
+    res.update(time_votes_and_lease(q, cases))
     if args.only == "all":
         res.update(time_fast_ticks(q, bench, cases))
         res.update(time_ledger_and_step(tl, q, bench, cases))

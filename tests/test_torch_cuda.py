@@ -811,6 +811,94 @@ def test_vote_and_lease_are_one_kernel(card, monkeypatch):
     monkeypatch.setattr(tq, "vote_rows", rule)
 
 
+# K7b and the public K3, redesigned: rows of 8 lanes, one slot a lane up
+# to 8 peers and two from 9; rows that fill no whole warp (1, 2, 31) or
+# block (1001, 1023), a block's worth and beyond
+LANE_ROWS = (1, 2, 31, 1001, 1023, 1024, 10240, 102400)
+LANE_PEERS = (1, 3, 5, 7, 8, 9, 12, 16)
+
+
+def _one_launch_matches(kernel, wrapper, plain, arrays) -> None:
+    """One wrapper call is one launch of ``kernel``, equal to the plain
+    version on the same card tensors, and writes none of its inputs."""
+    args = _cuda(arrays)
+    before = [t.clone() for t in args]
+    n = kernel.launches
+    got = wrapper(*args)
+    assert kernel.launches == n + 1
+    assert torch.equal(got, plain(*args))
+    for x, y in zip(args, before):
+        assert torch.equal(x, y)
+
+
+@pytest.mark.parametrize("p", LANE_PEERS)
+@pytest.mark.parametrize("g", LANE_ROWS)
+def test_replicated_min_kernel_matches_plain_at_every_shape(card, g, p):
+    rng = np.random.default_rng(g * p + 3)
+    for arrays in (cases.replicated_inputs(rng, g, p),
+                   cases.replicated_self_edges(rng, g, p)):
+        _one_launch_matches(tq.K7b, tq.all_replicated_min,
+                            tq._all_replicated_min_plain, arrays)
+
+
+@pytest.mark.parametrize("p", LANE_PEERS)
+@pytest.mark.parametrize("g", LANE_ROWS)
+def test_public_tally_kernel_matches_plain_at_every_shape(card, monkeypatch,
+                                                          g, p):
+    """The public K3 by its launch rule and forced to each of its designs
+    (rows of 8 lanes; staged tiles)."""
+    rng = np.random.default_rng(g * p + 5)
+    rule = tq.tally_tile
+    for arrays in (cases.tally_inputs(rng, g, p),
+                   cases.tally_edges(rng, g, p)):
+        for tile in (None, 0, tq.TALLY_TILE):
+            monkeypatch.setattr(tq, "tally_tile", rule if tile is None
+                                else lambda *_, tile=tile: tile)
+            _one_launch_matches(tq.K3_PUBLIC, tq.tally_votes_packed,
+                                tq._tally_plain, arrays)
+
+
+@pytest.mark.parametrize("g", [1024, 102400])
+def test_replicated_min_and_public_tally_are_one_kernel(card, monkeypatch,
+                                                        g):
+    """One K7b call and one public K3 call (either design), each captured
+    in a CUDA graph, are one node each, the kernel."""
+    from ratis_tpu_torch.tools.profile_main_path import (graph_nodes,
+                                                         is_kernel_node)
+    rng = np.random.default_rng(g)
+    repl = _cuda(cases.replicated_inputs(rng, g, P))
+    tally = _cuda(cases.tally_inputs(rng, g, P))
+    calls = [(tq.K7b, lambda: tq.all_replicated_min(*repl))]
+    for tile in (0, tq.TALLY_TILE):
+        calls.append((tq.K3_PUBLIC, lambda tile=tile: (
+            monkeypatch.setattr(tq, "tally_tile", lambda *_: tile),
+            tq.tally_votes_packed(*tally))))
+    for kernel, call in calls:
+        n = kernel.launches
+        nodes = graph_nodes(call)
+        assert len(nodes) == 1 and is_kernel_node(nodes[0]), nodes
+        assert kernel.launches == n + 2  # the warm-up call and the captured
+
+
+@pytest.mark.parametrize("g", [1, 1001, 102400])
+def test_row_launches_refuse_a_grid_short_of_the_rows(card, g):
+    """K7b's and the public K3's C entries take their grid from the host
+    and refuse one that leaves a row out (and an unknown K3 design)."""
+    repl = _cuda(cases.replicated_inputs(np.random.default_rng(g), g, P))
+    tally = _cuda(cases.tally_inputs(np.random.default_rng(g), g, P))
+    out = torch.empty(4 * g, dtype=torch.int32, device=card)
+    ptrs = [t.data_ptr() for t in repl]
+    short = tq.lane_blocks(g) - 1
+    with pytest.raises(RuntimeError, match="invalid argument"):
+        tq.K7b(card, *ptrs, out.data_ptr(), g, P, 1, short)
+    ptrs = [t.data_ptr() for t in tally]
+    for tile, blocks in ((0, short), (tq.TALLY_TILE,
+                                      tq.tally_blocks(g, tq.TALLY_TILE) - 1),
+                         (64, tq.lane_blocks(g))):
+        with pytest.raises(RuntimeError, match="invalid argument"):
+            tq.K3_PUBLIC(card, *ptrs, out.data_ptr(), g, P, 1, tile, blocks)
+
+
 @pytest.mark.parametrize("transport", ["sim", "tcp"])
 def test_cluster_runs_on_the_card(card, transport):
     from ratis_tpu_torch.tools.cluster import Cluster

@@ -5,9 +5,9 @@ The same seeded numpy inputs (``ratis_tpu_torch.tools.cases``) go through
 the jitted JAX function on the CPU and through the port's plain-torch
 version on CPU tensors; every output must be EQUAL (the math is int32 and
 bool).  Peer widths 3, 5, 7, 8 and 16 (BASELINE configs 2-5 use 3, 5 and
-7 peers; the kernels take up to 16 slots).  The CUDA kernels run only on
-a card: ``test_torch_cuda.py`` and ``chip_smoke.py`` hold them against
-these plain versions there.
+7 peers; the kernels take up to 16 slots); K7b also at 1, 2, 9 and 12.
+The CUDA kernels run only on a card: ``test_torch_cuda.py`` and
+``chip_smoke.py`` hold them against these plain versions there.
 """
 
 import jax
@@ -107,7 +107,12 @@ def test_vote_events_write_no_input():
 
 # -- K7b ----------------------------------------------------------------------
 
-@pytest.mark.parametrize("p", PEERS)
+# K7b also at 1 and 2 slots, and at 9 and 12 (two slots a lane of the
+# kernel's rows of 8 lanes, some of them past P)
+REPL_PEERS = PEERS + (1, 2, 9, 12)
+
+
+@pytest.mark.parametrize("p", REPL_PEERS)
 @pytest.mark.parametrize("seed", [0, 1])
 def test_all_replicated_min_matches_jax(seed, p):
     arrays = cases.replicated_inputs(np.random.default_rng(seed), 256, p)
@@ -117,6 +122,33 @@ def test_all_replicated_min_matches_jax(seed, p):
         want = ref.all_replicated_min(match[i], int(np.argmax(self_mask[i])),
                                       int(flush[i]), cur[i], old[i])
         assert int(got[i]) == want, i
+
+
+@pytest.mark.parametrize("p", REPL_PEERS)
+def test_all_replicated_min_self_bits_match_jax(p):
+    """Rows with no self bit (every member counts its match index) and
+    with two (both count the flush index), against JAX."""
+    arrays = cases.replicated_self_edges(np.random.default_rng(50 + p), 256,
+                                         p)
+    got = _repl_both(arrays)
+    match, self_mask, flush, cur, old = arrays
+    bits = self_mask.sum(axis=1)
+    assert (bits == 0).any() and (p == 1 or (bits == 2).any())
+    union = cur | old
+    for i in range(256):
+        eff = np.where(self_mask[i], flush[i], match[i])[union[i]]
+        assert int(got[i]) == (int(eff.min()) if eff.size else INT32_MIN), i
+
+
+def test_all_replicated_min_two_self_bits():
+    # slots 0 and 2 both flagged self: both count the flush index 4, so
+    # the min over the union is 4, not slot 2's match 1
+    match = np.array([[5, 6, 1]], np.int32)
+    self_mask = np.array([[1, 0, 1]], bool)
+    got = _repl_both([match, self_mask, np.array([4], np.int32),
+                      np.array([[1, 1, 1]], bool),
+                      np.array([[0, 0, 0]], bool)])
+    assert got.tolist() == [4]
 
 
 def test_all_replicated_min_empty_union_is_int32_min():
