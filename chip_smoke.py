@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Run the PyTorch/CUDA port's main path on one CUDA card and check it.
 
-    python3 chip_smoke.py [--groups 1024] [--writes 4] [--out FILE]
+    python3 chip_smoke.py [--groups 1024] [--writes 4] [--seed 0] [--out FILE]
 
 Phases, in order; any failure raises, exits non-zero and prints no
 result line:
@@ -78,7 +78,32 @@ result line:
       configuration (K1-K4 > 0, K5 0, and K1/K2 launched while the
       calling engine led a row with a non-empty ``conf_old`` more than 0
       times);
-   on every served path (a, c-g) each ledger sample must make exactly one
+   h. ``stream``, the bench's ``stream`` rung: 4 streams of 32 MB at once
+      (1 MB packets, window 32) into 3 servers x 4 FileStore groups, the
+      DataStream plane over localhost TCP; every stream acknowledged and
+      its bytes (seeded, ``--seed``) equal on all three replicas (K1-K4 >
+      0, K5 0);
+   i. ``filestore5_1024``, the bench's ``filestore5`` rung (BASELINE
+      config 3) at 1024 groups: 5 servers over localhost TCP,
+      ``FileStoreStateMachine``, DataStream on every server; one warm-up
+      write of a 128-byte file per group and every replica's files held to
+      it, one measured write per group and the files held again, then 16
+      streams of 4 MB (window 32) and the files held again on all five
+      replicas (K1-K4 > 0, K5 0, and the vote passes tallied rounds of 5
+      members);
+   j. ``telemetry_1024``, the bench's ``telemetry`` rung (the TCP
+      headline's deployment with the telemetry sampler on, one sample a
+      second) with every server's HTTP endpoint on a port it binds: every
+      route (``/metrics``, ``/health``, ``/divisions``, ``/events``,
+      ``/lag``, ``/timeseries``, ``/hotgroups``, ``/flightrecorder``)
+      fetched over HTTP from every server during the measured writes and
+      after them, each answering 200 and parsing; ``/timeseries`` holding a
+      sample for each second of the writes but one; after the writes
+      settle, every row a server leads carrying its division's own commit
+      index in the ledger sample its ``/lag`` request took (K1-K4 > 0, K5
+      0);
+   on every served path (a, c-j) each ledger sample (the watchdogs', the
+   telemetry samplers' and each ``GET /lag``'s) must make exactly one
    call into the kernel library, its prepared call's, and launch K4 once;
    Before the paths, one K2 call captured in a CUDA graph, which must
    hold exactly one node, the kernel ``tile_tick`` on K2's refresh
@@ -91,7 +116,8 @@ result line:
    nodes counted (every kernel's count is its ``nodes`` in the kernels
    line);
 5. kernel parity again at every shape the main paths gave K1-K5 (K3 at
-   every padded row count of the vote passes); the
+   every padded row count of the vote passes; on the ``filestore5_1024``
+   path's shapes also with every row's conf of exactly 5 members); the
    engine's own routes on one card engine of 1024 rows, host clock,
    median of 200: the refresh dispatch (K2's prepared call, D = E = 64)
    and its prepared call alone, the fast dispatch (K1's prepared call,
@@ -282,6 +308,16 @@ MESH_GROUPS = 1024
 MESH_SLICES = 8
 MESH_MAX_GROUPS = 2048
 MESH_WRITES = 4
+# the FileStore paths (BASELINE config 3): the stream rung as the bench runs
+# it; 5 servers x 1024 groups over TCP, one warm-up write and one write per
+# group, then 16 streams of 4 MB (window 32); the telemetry path: the TCP
+# headline's deployment with the sampler on and every server's HTTP
+# endpoint on a port it binds, fetched during and after the writes
+FS5_GROUPS = 1024
+FS5_SERVERS = 5
+FS5_WRITES = 1
+TEL_GROUPS = 1024
+TEL_WRITES = 8
 
 
 def log(*a) -> None:
@@ -316,14 +352,15 @@ def fast_plan_err(tq, cases, st, ev_np, sliced, k, a):
 
 
 def parity_k1(tq, cases, g, p, e, seed, negative=False, plan=False,
-              hot=False, engine_padding=False):
+              hot=False, engine_padding=False, members=None):
     """K1's public wrapper (one launch) against its plain version; with
     ``plan``, also the engine's prepared call on the same tick, against
     the wrapper; with ``hot``, every ack aimed at three rows of one tile
     (``cases.hot_acks``); with ``engine_padding``, padded as the engine
-    pads (``fast_tick_timing.engine_padded``)."""
+    pads (``fast_tick_timing.engine_padded``); with ``members``, every
+    row's conf of exactly that many peers."""
     rng = np.random.default_rng(seed)
-    st = cases.resident_state(rng, g, p, NOW)
+    st = cases.resident_state(rng, g, p, NOW, members)
     ev_np = cases.fast_events(rng, g, p, e, NOW, negative)
     if hot:
         cases.hot_acks(rng, ev_np)
@@ -340,12 +377,13 @@ def parity_k1(tq, cases, g, p, e, seed, negative=False, plan=False,
     return err
 
 
-def parity_k2(tq, cases, g, p, d, e, seed, negative=False, plan=False):
+def parity_k2(tq, cases, g, p, d, e, seed, negative=False, plan=False,
+              members=None):
     """K2's public wrapper (one launch) against its plain version; with
     ``plan``, also the engine's prepared call on the same tick packed into
-    a plan's buffer, against the wrapper."""
+    a plan's buffer, against the wrapper; ``members`` as K1's."""
     rng = np.random.default_rng(seed)
-    st = cases.resident_state(rng, g, p, NOW)
+    st = cases.resident_state(rng, g, p, NOW, members)
     rf_idx_np, rf_np, acks_np = cases.refresh(rng, g, p, d, e, NOW, negative)
     rf_idx, *rf = cuda([rf_idx_np, *rf_np])
     acks = cuda(acks_np)
@@ -363,14 +401,15 @@ def parity_k2(tq, cases, g, p, d, e, seed, negative=False, plan=False):
 
 
 def parity_k5(tq, cases, g, p, s, e, seed, negative=False, plan=False,
-              hot=False, engine_padding=False):
+              hot=False, engine_padding=False, members=None):
     """K5 against its plain version; at one slice also against K1 on the
     same plane; with ``plan``, also the engine's prepared call on the same
     tick, against the wrapper; with ``hot``, every ack aimed at three rows
     of each slice (``cases.hot_acks``); with ``engine_padding``, padded as
-    the engine pads (``fast_tick_timing.engine_padded``)."""
+    the engine pads (``fast_tick_timing.engine_padded``); ``members`` as
+    K1's."""
     rng = np.random.default_rng(seed)
-    st = cases.resident_state(rng, g, p, NOW)
+    st = cases.resident_state(rng, g, p, NOW, members)
     ev_np = cases.sliced_events(rng, g, p, s, e, NOW, negative)
     if hot:
         cases.hot_acks(rng, ev_np)
@@ -423,13 +462,14 @@ def parity_k3(tq, cases, g, p, seed):
         np.random.default_rng(seed), g, p))
 
 
-def parity_k3_rows(tq, cases, g, p, r, cap, seed):
+def parity_k3_rows(tq, cases, g, p, r, cap, seed, members=None):
     """K3 (the row entry) on ``r`` gathered rows packed as the engine's
     vote pass packs them, padded to ``cap`` rows with stale rows: through
     the engine's prepared call and launched on the packed tensors, each
-    against the plain tally of the same ``cap`` rows."""
+    against the plain tally of the same ``cap`` rows; ``members`` as
+    K1's."""
     rng = np.random.default_rng(seed)
-    arrays = cases.tally_inputs(rng, g, p)
+    arrays = cases.tally_inputs(rng, g, p, members)
     rows = np.sort(rng.permutation(g)[:r])
     plan = cases.tally_plan(arrays, rows, "cuda", cap)
     got = torch.from_numpy(plan.run(cap).copy()).cuda()
@@ -440,13 +480,15 @@ def parity_k3_rows(tq, cases, g, p, r, cap, seed):
     return max_abs_err([got, k], [want, want])
 
 
-def parity_k4(tl, cases, g, p, width, seed, big_cell=False, plan=False):
+def parity_k4(tl, cases, g, p, width, seed, big_cell=False, plan=False,
+              members=None):
     """K4's wrapper against its plain version on the same card tensors;
     with ``plan``, also the engine's prepared call on the same inputs
     written into its buffer (a plan built for a table of 8, so a wider
-    one grows it)."""
+    one grows it); ``members`` as K1's."""
     arrays, scalars = cases.ledger_inputs(np.random.default_rng(seed), g, p,
-                                          width, big_cell=big_cell)
+                                          width, big_cell=big_cell,
+                                          members=members)
     dev = cuda(arrays)
     want = tl._ledger_plain(*dev, *scalars, width)
     got = [tl.ledger_pass(*dev, *scalars, num_peers=width)]
@@ -696,23 +738,29 @@ def run_parity_fast(tq, cases, par) -> None:
 
 
 def run_parity_observed(tq, tl, cases, main, shapes, par: Parity,
-                        what: str) -> None:
+                        what: str, members=None) -> None:
     """Every shape a main path gave a kernel, after the main path (K3: at
     every padded row count R the vote passes ran, with a quarter and all
-    of the rows real, the rest stale padding)."""
+    of the rows real, the rest stale padding); with ``members``, every
+    row's conf also of exactly that many peers (the path's groups)."""
     g, p, w = main["capacity"], main["peers"], main["ledger_width"]
     for seed in (10, 11):
-        for e in shapes["K1"]:
-            par.add("K1", parity_k1(tq, cases, g, p, e, seed))
-        for d, e in shapes["K2"]:
-            par.add("K2", parity_k2(tq, cases, g, p, d, e, seed))
-        for s, e in shapes["K5"]:
-            par.add("K5", parity_k5(tq, cases, g, p, s, e, seed))
-        for cap in shapes["K3"]:
-            for r in (max(1, cap // 4), cap):
-                par.add("K3", parity_k3_rows(tq, cases, max(g, cap), p, r,
-                                             cap, seed))
-        par.add("K4", parity_k4(tl, cases, g, p, w, seed, plan=True))
+        for m in (None, members) if members else (None,):
+            for e in shapes["K1"]:
+                par.add("K1", parity_k1(tq, cases, g, p, e, seed,
+                                        members=m))
+            for d, e in shapes["K2"]:
+                par.add("K2", parity_k2(tq, cases, g, p, d, e, seed,
+                                        members=m))
+            for s, e in shapes["K5"]:
+                par.add("K5", parity_k5(tq, cases, g, p, s, e, seed,
+                                        members=m))
+            for cap in shapes["K3"]:
+                for r in (max(1, cap // 4), cap):
+                    par.add("K3", parity_k3_rows(tq, cases, max(g, cap), p,
+                                                 r, cap, seed, m))
+            par.add("K4", parity_k4(tl, cases, g, p, w, seed, plan=True,
+                                    members=m))
     par.check(f"{what} shapes")
 
 
@@ -763,12 +811,15 @@ class ShapeRecorder:
     runs), K2 (D, E of the refresh plan's runs), K3 (the rows R of the
     tally plan's runs, padding included) and K5 ((S, E) of the sliced fast
     plan's runs) while active (the plans' ``run`` are swapped for counting
-    ones and restored on exit); and checks that every ledger sample taken
-    meanwhile (the watchdogs', once a second on every server) made ONE
-    call into the kernel library, its prepared call's ``k4_tick``, that
-    launched K4 once (``LagLedger.sample`` and ``LedgerPlan.run`` swapped
-    likewise): on exit it raises if a sample did not, or if none was
-    taken."""
+    ones and restored on exit), and the members of every round the vote
+    passes tallied (``members``: count of rounds by the size of their
+    current conf; ``QuorumEngine._tally_rounds`` swapped likewise); and
+    checks that every ledger sample taken meanwhile (the watchdogs', once
+    a second on every server, the telemetry samplers' and each ``GET
+    /lag``'s) made ONE call into the kernel library, its prepared call's
+    ``k4_tick``, that launched K4 once (``LagLedger.sample`` and
+    ``LedgerPlan.run`` swapped likewise): on exit it raises if a sample
+    did not, or if none was taken."""
 
     def __init__(self, tq, tl):
         self.tq, self.tl = tq, tl
@@ -776,6 +827,7 @@ class ShapeRecorder:
                        "K2": collections.Counter(),
                        "K3": collections.Counter(),
                        "K5": collections.Counter()}
+        self.members = collections.Counter()
         # samples taken, and the (library calls, K4 launches) of those
         # that were not (1, 1)
         self.ledger_samples = 0
@@ -783,8 +835,15 @@ class ShapeRecorder:
         self._ledger_calls = 0
 
     def __enter__(self):
+        from ratis_tpu_torch.engine.engine import QuorumEngine
         from ratis_tpu_torch.engine.ledger import LagLedger
         tq, tl, shapes = self.tq, self.tl, self.shapes
+        self.tally_rounds = tally_rounds = QuorumEngine._tally_rounds
+
+        def rec_tally_rounds(engine, slots):
+            self.members.update(
+                engine.state.conf_cur[slots].sum(axis=1).tolist())
+            return tally_rounds(engine, slots)
         self.fast, self.refresh, self.tally = (
             tq.FastPlan.run, tq.RefreshPlan.run, tq.TallyPlan.run)
         self.ledger_run, self.sample = tl.LedgerPlan.run, LagLedger.sample
@@ -833,10 +892,13 @@ class ShapeRecorder:
         tq.TallyPlan.run = rec_tally
         tl.LedgerPlan.run = rec_ledger_run
         LagLedger.sample = rec_sample
+        QuorumEngine._tally_rounds = rec_tally_rounds
         return self
 
     def __exit__(self, exc_type, *exc):
+        from ratis_tpu_torch.engine.engine import QuorumEngine
         from ratis_tpu_torch.engine.ledger import LagLedger
+        QuorumEngine._tally_rounds = self.tally_rounds
         self.tq.FastPlan.run = self.fast
         self.tq.RefreshPlan.run = self.refresh
         self.tq.TallyPlan.run = self.tally
@@ -1505,6 +1567,149 @@ def run_churn_path(tq, kernels, bench, shapes):
     return res, launches
 
 
+def run_stream_path(kernels, fb, seed: int, rec):
+    """The bench's stream rung: 4 streams of 32 MB at once into 3 servers
+    x 4 FileStore groups; every stream acknowledged and its bytes equal on
+    all three replicas."""
+    load = fb.LOADS["stream"]
+    cluster = fb.filestore_cluster("cuda", max(load["streams"], 4))
+    with rec:
+        res, launches = counted(
+            kernels, ("K1", "K2", "K3", "K4"),
+            lambda: asyncio.run(fb.run_stream_throughput_bench(
+                cluster, load["streams"], load["stream_bytes"],
+                load["packet"], load["window"], seed)), never=("K5",))
+    n = load["streams"]
+    if (res["streams_ok"], res["streams_failed"]) != (n, 0) \
+            or res["files"] != n or res["replicas_checked"] != 4 * 3:
+        raise AssertionError(f"stream path: {res}")
+    if not res["engine_device"].startswith("cuda"):
+        raise AssertionError(f"stream path: engine on {res['engine_device']}")
+    res["engine"] = engine_shape(cluster)
+    return res, launches
+
+
+def run_filestore5_path(kernels, fb, seed: int, rec):
+    """BASELINE config 3 at 5 x 1024: the filestore5 rung's deployment
+    (5 servers over localhost TCP, FileStore, DataStream on every server),
+    one warm-up write per group and every replica's files held to it, one
+    write per group and the files held again, then 16 streams of 4 MB and
+    the files held a third time; the vote passes must have tallied rounds
+    of 5 members."""
+    load = fb.LOADS["filestore5"]
+    cluster = fb.filestore_cluster("cuda", FS5_GROUPS, FS5_SERVERS, "tcp")
+    with rec:
+        res, launches = counted(
+            kernels, ("K1", "K2", "K3", "K4"),
+            lambda: asyncio.run(fb.run_mixed_bench(
+                cluster, FS5_WRITES, load["streams"], load["stream_bytes"],
+                stream_window=load["window"], warmup=1, overlap=False,
+                seed=seed)), never=("K5",))
+    res["vote_round_members"] = dict(rec.members)
+    want = FS5_GROUPS * (1 + FS5_WRITES)
+    replicas = FS5_GROUPS * FS5_SERVERS
+    if res["acked"] != want or res["peers"] != FS5_SERVERS \
+            or res["replicas_checked"] != [replicas] * 3 \
+            or (res["streams_ok"], res["streams_failed"]) \
+            != (load["streams"], 0) \
+            or res["files"] != want + load["streams"]:
+        raise AssertionError(f"filestore5 path: {res['acked']} of {want} "
+                             f"writes acked, replicas checked "
+                             f"{res['replicas_checked']}, streams ok "
+                             f"{res['streams_ok']} failed "
+                             f"{res['streams_failed']} "
+                             f"{res['stream_failures']}, files "
+                             f"{res['files']}")
+    if rec.members.get(FS5_SERVERS, 0) == 0:
+        raise AssertionError(f"filestore5 path: no vote round of "
+                             f"{FS5_SERVERS} members: {dict(rec.members)}")
+    if not res["engine_device"].startswith("cuda"):
+        raise AssertionError(f"filestore5 path: engine on "
+                             f"{res['engine_device']}")
+    res["engine"] = engine_shape(cluster)
+    return res, launches
+
+
+def _route_summary(routes: dict) -> dict:
+    """{route: servers that answered it} of one ``fetch_routes()``."""
+    out = collections.Counter()
+    for got in routes.values():
+        out.update(got.keys())
+    return dict(out)
+
+
+def run_telemetry_path(kernels, bench, rec):
+    """The bench's telemetry rung with every server's HTTP endpoint on a
+    port it binds: every route fetched over HTTP from every server during
+    the measured writes and after them (each must answer 200 and parse);
+    ``/timeseries`` holding a sample for each second of the writes but
+    one; after the writes settle, every row a server leads carrying its
+    division's own commit index in the ledger sample its ``/lag`` request
+    took."""
+    from ratis_tpu_torch.tools.cluster import HTTP_ROUTES
+    watched = {}
+
+    async def during(cluster):
+        watched["lag"] = cluster.watch_lag()
+        await asyncio.sleep(1.0)
+        t0 = time.monotonic()
+        routes = await cluster.fetch_routes()
+        watched["fetch_s"] = time.monotonic() - t0
+        return _route_summary(routes)
+
+    async def after(cluster):
+        n = len(watched["lag"])
+        routes = await cluster.fetch_routes()
+        settled = watched["lag"][n:]
+        mismatched = [(peer, str(gid), ledger, own)
+                      for peer, rows, _ in settled
+                      for gid, (ledger, own) in rows.items() if ledger != own]
+        led = sum(len(rows) for _, rows, _ in settled)
+        return {"routes": _route_summary(routes),
+                "timeseries": {p: got["/timeseries"]["count"]
+                               for p, got in routes.items()},
+                "lag_gets": len(watched["lag"]), "lag_rows": led,
+                "lag_mismatched": mismatched[:10],
+                "lag_listed": sum(len(payload["groups"])
+                                  for _, _, payload in settled),
+                "ports": [s.metrics_http.bound_port
+                          for s in cluster.servers],
+                # every route of every server, fetched once in the writes
+                "fetch_during_s": watched["fetch_s"]}
+
+    cluster = bench.telemetry_cluster("cuda", TEL_GROUPS, http_port=0)
+    with rec:
+        res, launches = counted(
+            kernels, ("K1", "K2", "K3", "K4"),
+            lambda: asyncio.run(bench.e2e_rung(cluster, TEL_WRITES,
+                                               during=during, after=after)),
+            never=("K5",))
+    servers = len(cluster.servers)
+    every = {r: servers for r in HTTP_ROUTES}
+    got = res["after"]
+    least = int(res["elapsed_s"]) - 1
+    want = TEL_GROUPS * (bench.WARMUP_WRITES + TEL_WRITES)
+    if res["during"] != every or got["routes"] != every:
+        raise AssertionError(f"telemetry path: routes answered during "
+                             f"{res['during']}, after {got['routes']}")
+    if min(got["timeseries"].values()) < least:
+        raise AssertionError(f"telemetry path: /timeseries samples "
+                             f"{got['timeseries']} over {res['elapsed_s']} "
+                             f"s of writes")
+    if got["lag_mismatched"] or got["lag_rows"] != TEL_GROUPS:
+        raise AssertionError(f"telemetry path: /lag led rows "
+                             f"{got['lag_rows']} of {TEL_GROUPS}, commit "
+                             f"indexes unlike the divisions' "
+                             f"{got['lag_mismatched']}")
+    if res["acked"] != want or res["replicas_read_back"] != TEL_GROUPS * 3 \
+            or not all(got["ports"]) or res["telemetry"]["samples"] == 0:
+        raise AssertionError(f"telemetry path: {res['acked']} of {want} "
+                             f"writes acked, ports {got['ports']}, "
+                             f"telemetry {res['telemetry']}")
+    res["engine"] = engine_shape(cluster)
+    return res, launches
+
+
 # -- phase 5: timing ---------------------------------------------------------
 
 def state_bytes(g, p):
@@ -1857,6 +2062,8 @@ def main(argv=None) -> int:
     ap.add_argument("--groups", type=int, default=1024)
     ap.add_argument("--writes", type=int, default=4)
     ap.add_argument("--out", help="also write the results as JSON here")
+    ap.add_argument("--seed", type=int, default=0,
+                    help="seed of the FileStore streams' bytes")
     args = ap.parse_args(argv)
 
     # 1. environment
@@ -1912,8 +2119,10 @@ def main(argv=None) -> int:
 
     # 4a. the main path over the simulated transport
     recs = {k: ShapeRecorder(tq, tl) for k in ("sim", "tcp", "mesh",
-                                           "durable_1024", "shared_256",
-                                           "churn_1024")}
+                                               "durable_1024", "shared_256",
+                                               "churn_1024", "stream",
+                                               "filestore5_1024",
+                                               "telemetry_1024")}
     main_res, sim_launches = run_main_path(tq, kernels, args.groups,
                                            args.writes, recs["sim"])
     log(f"main path (sim): {card} | 3 servers x {args.groups} groups | "
@@ -2012,6 +2221,61 @@ def main(argv=None) -> int:
         f"(unmatched calls "
         f"{churn_res['joint_unmatched_calls']})")
 
+    # 4h. the stream rung; 4i. BASELINE config 3 at 5 x 1024; 4j. the
+    # telemetry plane over HTTP
+    from ratis_tpu_torch.tools import filestore_bench as fb
+    stream_res, stream_launches = run_stream_path(kernels, fb, args.seed,
+                                                  recs["stream"])
+    log(f"stream: {card} | {stream_res['streams']} streams x "
+        f"{stream_res['stream_mb']:g} MB in {stream_res['packet_kb']:g} KB "
+        f"packets, window {stream_res['window']}, into 3 servers x 4 "
+        f"FileStore groups (sim raft, DataStream over localhost TCP) | ok "
+        f"{stream_res['streams_ok']} failed {stream_res['streams_failed']} "
+        f"| bytes equal on all 3 replicas | "
+        f"{stream_res['stream_mb_per_s']:.2f} MB/s over "
+        f"{stream_res['elapsed_s']:.3f} s")
+    log(f"stream launches: {stream_launches}")
+    fs5_res, fs5_launches = run_filestore5_path(kernels, fb, args.seed,
+                                                recs["filestore5_1024"])
+    log(f"filestore5_1024: {card} | {FS5_SERVERS} servers x {FS5_GROUPS} "
+        f"FileStore groups over TCP, DataStream on every server | bring-up "
+        f"{fs5_res['election_convergence_s']:.3f} s | {fs5_res['acked']} "
+        f"writes acked (1 warm-up + {FS5_WRITES} a group) | "
+        f"{fs5_res['commits_per_sec']:.1f} commits/s | p50 "
+        f"{fs5_res['p50_ms']:.2f} ms | p99 {fs5_res['p99_ms']:.2f} ms | "
+        f"streams {fs5_res['streams']} x "
+        f"{fs5_res['stream_bytes'] >> 20} MB ok {fs5_res['streams_ok']} "
+        f"failed {fs5_res['streams_failed']} | "
+        f"{fs5_res['stream_mb_per_s']:.2f} MB/s | files equal on all "
+        f"{FS5_SERVERS} replicas after the warm-up, the writes and the "
+        f"streams "
+        f"{fs5_res['replicas_checked']} | election timeouts (bring-up, "
+        f"warm-up, writes) {fs5_res['election_timeouts']}")
+    log(f"filestore5_1024 launches: {fs5_launches}; vote rounds by "
+        f"members {fs5_res['vote_round_members']}")
+    tel_res, tel_launches = run_telemetry_path(kernels, bench,
+                                               recs["telemetry_1024"])
+    tel, got = tel_res["telemetry"], tel_res["after"]
+    log(f"telemetry_1024: {card} | 3 servers x {TEL_GROUPS} groups over "
+        f"TCP, telemetry 1 s, HTTP on ports {got['ports']} | bring-up "
+        f"{tel_res['election_convergence_s']:.3f} s | {tel_res['acked']} "
+        f"writes acked | {tel_res['commits_per_sec']:.1f} commits/s | p50 "
+        f"{tel_res['p50_ms']:.2f} ms | p99 {tel_res['p99_ms']:.2f} ms | "
+        f"routes 200 on every server during {tel_res['during']} and after "
+        f"the writes (one fetch of all in the writes: "
+        f"{got['fetch_during_s']:.3f} s) | /timeseries samples "
+        f"{got['timeseries']} over "
+        f"{tel_res['elapsed_s']:.3f} s of writes | /lag: {got['lag_rows']} "
+        f"led rows at their divisions' commit index, {got['lag_gets']} "
+        f"GETs | sampler {tel['samples']} samples, pass "
+        f"{tel['sampler_pass_ms']:.3f} ms thread CPU, "
+        f"{tel['sampler_pass_wall_ms']:.3f} ms wall (walk "
+        f"{tel['walk_pass_ms']:.3f}, {tel['walk_pass_wall_ms']:.3f} ms), "
+        f"p99 cost {tel['sample_cost_p99_ms']:.3f} ms, ledger fetch "
+        f"p50 {tel['ledger_fetch_ms']:.3f} ms | election timeouts "
+        f"(bring-up, warm-up, writes) {tel_res['election_timeouts']}")
+    log(f"telemetry_1024 launches: {tel_launches}")
+
     ledger_checks = {k: r.ledger_samples for k, r in recs.items()}
     log(f"ledger samples by path, each one call into the kernel library "
         f"and K4 +1: {ledger_checks}")
@@ -2020,6 +2284,11 @@ def main(argv=None) -> int:
     run_parity_observed(tq, tl, cases, main_res, shapes, par, "main path")
     run_parity_observed(tq, tl, cases, mesh_res, rec_mesh.shapes, par,
                         "mesh path")
+    for key, res, members in (("stream", stream_res, None),
+                              ("filestore5_1024", fs5_res, FS5_SERVERS),
+                              ("telemetry_1024", tel_res, None)):
+        run_parity_observed(tq, tl, cases, res["engine"], recs[key].shapes,
+                            par, f"{key} path", members)
     routes = run_route_timing(tq, card)
     timing, device_us = run_timing(tq, tl, cases, bench, main_res, shapes,
                                    mesh_res, rec_mesh.shapes)
@@ -2059,7 +2328,9 @@ def main(argv=None) -> int:
              "tcp": tcp_launches, "mesh": mesh_launches,
              "mesh_rungs": mesh_rung_launches,
              **{k: launches for k, (_, launches) in durable.items()},
-             "churn_1024": churn_launches}
+             "churn_1024": churn_launches, "stream": stream_launches,
+             "filestore5_1024": fs5_launches,
+             "telemetry_1024": tel_launches}
     by_path = {k: {p: n[k] for p, n in paths.items() if k in n}
                for k in kernels}
     # one call's CUDA-graph nodes, per kernel
@@ -2096,6 +2367,9 @@ def main(argv=None) -> int:
                        "durable_paths": {k: r for k, (r, _) in
                                          durable.items()},
                        "churn_path": churn_res,
+                       "stream_path": stream_res,
+                       "filestore5_path": fs5_res,
+                       "telemetry_path": tel_res,
                        "seconds": time.monotonic() - t_start,
                        "shapes": {k: {str(s): n for s, n in v.items()}
                                   for k, v in shapes.items()},

@@ -6,6 +6,8 @@ headline end-to-end rung, run on the port.
     python -m ratis_tpu_torch.tools.bench --rungs mesh_100k,sim_10240
     python -m ratis_tpu_torch.tools.bench --rungs mesh
     python -m ratis_tpu_torch.tools.bench --rungs durable    # or shared, churn
+    python -m ratis_tpu_torch.tools.bench --rungs filestore5  # or mixed, stream
+    python -m ratis_tpu_torch.tools.bench --rungs telemetry   # or traced
 
 Prints exactly one JSON line on stdout, with the key names of ``bench.py``'s
 rungs (the first three by default, the mesh rungs when ``--rungs`` names
@@ -61,7 +63,41 @@ them; at most one rung that brings up a cluster per run):
   again): ``transfers_ok`` / ``transfers_failed``, ``joint_ok`` /
   ``joint_failed``, commits/s, p50/p99, election timeouts, ``dispatch``,
   and every counter read back from every replica in the final
-  configuration.
+  configuration;
+- ``mixed`` (``child_mixed`` -> ``run_mixed_bench(1024, 4, streams=32,
+  stream_bytes=256 << 10)``, ``tools/filestore_bench.py``): 3 servers x
+  ``--groups`` (1024) FileStore groups, memory log, simulated transport,
+  every server serving the DataStream plane on localhost TCP; 4 writes
+  of a 128-byte file per group at 128 in flight while 32 streams of 256
+  KB (64 KB packets, window 16, 8 at a time) run; every replica's files
+  held to the acknowledged writes and streams: ``commits_per_sec``,
+  ``p50_ms``, ``p99_ms``, ``streams_ok``, ``streams_failed``,
+  ``stream_failures``, ``stream_mb_per_s``;
+- ``stream`` (``child_stream`` -> ``run_stream_throughput_bench(4, 32,
+  packet_kb=1024)``): 4 streams of 32 MB at once in 1 MB packets, window
+  32, into 3 servers x 4 FileStore groups, DataStream over localhost TCP;
+  every replica's files checked: ``stream_mb_per_s`` and the stream
+  counts;
+- ``filestore5`` (``child_filestore5``, BASELINE config 3): 5 servers x
+  ``--groups`` (10240) FileStore groups over localhost TCP, 1 write per
+  group at 128 in flight while 16 streams of 4 MB (window 32) run; the
+  ``mixed`` keys;
+- ``telemetry`` (``bench.py``'s ``tel_on`` leg): the ``e2e`` rung with
+  ``raft.tpu.telemetry.enabled=true`` and ``raft.tpu.telemetry.interval=1s``;
+  the e2e metrics plus ``telemetry``: ``samples``, ``sample_cost_p99_ms``,
+  ``hot_share``, ``hot_group``, ``sampler_pass_ms`` and ``walk_pass_ms``
+  (best-of-3 thread-CPU ms of a forced sampler pass and of the retired
+  per-division walk, worst server; ``_wall_ms`` the same on the wall
+  clock) and ``ledger_fetch_ms`` (p50 of the ledger's sample, worst
+  server); ``e2e`` is its control, run in its own process;
+- ``traced`` (``bench.py``'s host-path decomposition rung): 3 x 1024 over
+  the simulated transport with host-path tracing on (every 16th write),
+  1 + 8 writes per group; the e2e metrics plus
+  ``host_path_decomposition`` (``trace/export.py``) over the measured
+  writes, and ``--trace-out FILE`` writes their Chrome trace.
+
+``--seed`` seeds the streams' bytes.  A rung whose streams failed prints
+its line and exits 1.
 
 ``dryrun_multichip(n)`` is the counterpart of
 ``__graft_entry__.dryrun_multichip``: the stateless tick through
@@ -91,7 +127,8 @@ from ratis_tpu_torch.ops import quorum
 from ratis_tpu_torch.ops import reference as ref
 
 RUNGS = ("kernel", "kernel_100k", "e2e", "mesh_100k", "mesh", "sim_10240",
-         "durable", "shared", "churn")
+         "durable", "shared", "churn", "mixed", "stream", "filestore5",
+         "telemetry", "traced")
 # what a run without --rungs measures: the headline and the kernel rungs
 # (the mesh pair's bring-up of 2 x 10240 groups takes minutes)
 DEFAULT_RUNGS = RUNGS[:3]
@@ -106,7 +143,14 @@ MESH_WRITES = 2
 # rungs that bring up a cluster: one per process, as bench.py runs one
 # child per rung (a second cluster in one process inherits the first's
 # sealed heap and was measured churning elections)
-E2E_RUNGS = ("e2e", "sim_10240", "mesh", "durable", "shared", "churn")
+E2E_RUNGS = ("e2e", "sim_10240", "mesh", "durable", "shared", "churn",
+             "mixed", "stream", "filestore5", "telemetry", "traced")
+# groups of the rungs that bring up a cluster when --groups is not given
+GROUPS = 1024
+FILESTORE5_GROUPS = 10_240
+# bench.py's tel_on leg: the sampler on, one sample a second
+TELEMETRY = {"raft.tpu.telemetry.enabled": "true",
+             "raft.tpu.telemetry.interval": "1s"}
 
 
 def _example_batch(num_groups: int, num_peers: int, num_events: int,
@@ -402,15 +446,85 @@ def dryrun_multichip(n_devices: int, device="cuda") -> dict:
 
 
 def e2e_cluster(device="cuda", groups: int = 1024, transport: str = "tcp",
-                mesh_devices: int = 0):
+                mesh_devices: int = 0, extra: dict = None,
+                trace: bool = False):
     """An e2e rung's cluster: 3 servers x ``groups`` groups over
-    ``transport``, engines in ``mesh_devices`` slices when > 0, its kernels
-    built and launched once (``Cluster.prewarm``), not yet started."""
-    from ratis_tpu_torch.tools.cluster import Cluster
-    cluster = Cluster(groups, device=str(_device(device)),
-                      transport=transport, mesh_devices=mesh_devices)
+    ``transport``, engines in ``mesh_devices`` slices when > 0, host-path
+    tracing on with ``trace``, the properties ``extra`` set over the
+    cluster's, its kernels built and launched once (``Cluster.prewarm``),
+    not yet started."""
+    from ratis_tpu_torch.tools.cluster import Cluster, cluster_properties
+    dev = str(_device(device))
+    props = cluster_properties(groups, 3, dev, transport, mesh_devices,
+                               trace=trace)
+    for k, v in (extra or {}).items():
+        props.set(k, v)
+    cluster = Cluster(groups, device=dev, transport=transport,
+                      properties=props)
     cluster.prewarm()
     return cluster
+
+
+def telemetry_cluster(device="cuda", groups: int = 1024,
+                      http_port: int = None):
+    """The telemetry rung's cluster: the e2e rung's with ``TELEMETRY``
+    set, and each server's HTTP endpoint on ``http_port`` when given (0:
+    a port the kernel picks)."""
+    extra = dict(TELEMETRY)
+    if http_port is not None:
+        extra[RaftServerConfigKeys.Metrics.HTTP_PORT_KEY] = str(http_port)
+    return e2e_cluster(device, groups, "tcp", extra=extra)
+
+
+def traced_cluster(device="cuda", groups: int = 1024):
+    """The traced rung's cluster: the e2e rung's over the simulated
+    transport with host-path tracing of every 16th write."""
+    return e2e_cluster(device, groups, "sim", trace=True)
+
+
+def _blocking_best_of_3(fn, clock=time.thread_time) -> float:
+    """Best of 3 seconds of ``fn()`` on ``clock``: by default thread CPU,
+    the time a pass holds the event loop's thread
+    (``bench_cluster._blocking_best_of_3``)."""
+    best = None
+    for _ in range(3):
+        t0 = clock()
+        fn()
+        dt = clock() - t0
+        best = dt if best is None else min(best, dt)
+    return best or 0.0
+
+
+def telemetry_summary(cluster) -> dict:
+    """``run_bench``'s ``telemetry`` block: samples taken, the sampler's
+    p99 cost, the hottest group's guaranteed share of the sketched commit
+    load, a forced sampler pass against the retired per-division walk
+    (best-of-3 thread-CPU ms, worst server; ``_pass_cost_pair_ms``; and
+    the same on the wall clock, ``_wall_ms``: a host whose thread-CPU
+    clock ticks coarsely reads 0 there) and the ledger sample's p50
+    (worst server)."""
+    from ratis_tpu_torch.metrics.aggregate import merge_hotgroups
+    from ratis_tpu_torch.metrics.timeseries import legacy_division_walk
+    servers = [s for s in cluster.servers if s.telemetry is not None]
+    tel = [s.telemetry for s in servers]
+    hot = merge_hotgroups([t.hotgroups_info() for t in tel], n=4)
+    top = hot["groups"][0] if hot["groups"] else None
+    # the run's cost percentiles before the forced passes below add theirs
+    cost_p99 = max(t._sample_cost.percentile_s(0.99) for t in tel) * 1e3
+    out = {"sample_cost_p99_ms": cost_p99,
+           "hot_share": top["share_min"] if top else 0.0,
+           "hot_group": top["group"] if top else None}
+    for suffix, clock in (("ms", time.thread_time),
+                          ("wall_ms", time.perf_counter)):
+        out[f"sampler_pass_{suffix}"] = 1e3 * max(
+            _blocking_best_of_3(t.sample, clock) for t in tel)
+        out[f"walk_pass_{suffix}"] = 1e3 * max(
+            _blocking_best_of_3(lambda: legacy_division_walk(s, {}), clock)
+            for s in servers)
+    # the samples, as run_bench counts them, after the forced passes
+    return {**out, "samples": sum(t._samples_taken.count for t in tel),
+            "ledger_fetch_ms": max(s.engine.ledger.fetch_timer.percentile_s(
+                0.5) for s in servers) * 1e3}
 
 
 # bench.py's durable rungs (child_mixed_durable, bench.py:396-410): fsync
@@ -538,14 +652,21 @@ def _check_engines(engines, dev: torch.device, n_slices: int = 1) -> None:
                                  f"{e.state.n_slices} slices")
 
 
-async def e2e_rung(cluster, writes: int = 8,
-                   warmup: int = WARMUP_WRITES) -> dict:
+async def e2e_rung(cluster, writes: int = 8, warmup: int = WARMUP_WRITES,
+                   trace_out: str = None, during=None, after=None) -> dict:
     """``run_bench`` on an ``e2e_cluster``: bring it up (elections in
     waves of a tenth of the groups, at least 128), warm up with ``warmup``
     writes per group, measure ``writes`` writes per group, read every
-    counter back from every replica, close it."""
+    counter back from every replica, close it.  With telemetry on, the
+    result carries ``telemetry`` (``telemetry_summary``); with tracing on,
+    ``host_path_decomposition`` over the measured writes (and their Chrome
+    trace in ``trace_out``).  ``during(cluster)`` (a coroutine function)
+    runs beside the measured writes and ``after(cluster)`` after the
+    read-back; their results are ``during`` and ``after``."""
+    from ratis_tpu_torch.trace import get_tracer
     dev = torch.device(cluster.device)
     groups = cluster.num_groups
+    tracing = RaftServerConfigKeys.Trace.enabled(cluster.properties)
     try:
         await _sealed(cluster, cluster.start(wave=_wave(cluster),
                                              timeout=600))
@@ -556,7 +677,17 @@ async def e2e_rung(cluster, writes: int = 8,
         timeouts.append(cluster.election_timeouts())
         engines = [s.engine for s in cluster.servers]
         saved = _fresh_dispatch_timers(engines)
-        stats = await cluster.write_all(writes, CONCURRENCY)
+        if tracing:
+            # decompose the measured writes only
+            get_tracer().reset()
+        probe = {}
+        if during is None:
+            stats = await cluster.write_all(writes, CONCURRENCY)
+        else:
+            stats, probe["during"] = await asyncio.gather(
+                cluster.write_all(writes, CONCURRENCY), during(cluster))
+        if tracing:
+            records = get_tracer().snapshot()
         timeouts.append(cluster.election_timeouts())
         dispatch = _dispatch_summary(engines, saved, stats["elapsed_s"])
         acked += stats["commits"]
@@ -575,7 +706,13 @@ async def e2e_rung(cluster, writes: int = 8,
             await asyncio.sleep(0.1)
         mesh_n = RaftServerConfigKeys.Engine.mesh_devices(cluster.properties)
         _check_engines(engines, dev, max(1, mesh_n))
-        return {"groups": groups, "servers": len(cluster.servers),
+        if after is not None:
+            probe["after"] = await after(cluster)
+        if any(s.telemetry is not None for s in cluster.servers):
+            probe["telemetry"] = telemetry_summary(cluster)
+        if tracing:
+            probe.update(_trace_blocks(records, trace_out))
+        return {**probe, "groups": groups, "servers": len(cluster.servers),
                 "transport": cluster.transport, "writes": writes,
                 "warmup": warmup, "concurrency": CONCURRENCY,
                 "mesh_devices": mesh_n,
@@ -829,6 +966,25 @@ async def churn_rung(cluster, writes: int = 8) -> dict:
         await cluster.close()
 
 
+def _trace_blocks(records, trace_out: str = None) -> dict:
+    """``host_path_decomposition`` of the traced writes' span records (and
+    the rings' drops, when any), and their Chrome trace written to
+    ``trace_out``."""
+    import os
+
+    from ratis_tpu_torch.trace import get_tracer
+    from ratis_tpu_torch.trace.export import (host_path_decomposition,
+                                              write_chrome_trace)
+    out = {"host_path_decomposition": host_path_decomposition(records)}
+    dropped = get_tracer().stage_dropped()
+    if dropped:
+        out["host_path_decomposition"]["rings_dropped"] = dropped
+    if trace_out:
+        write_chrome_trace(trace_out, records)
+        out["trace_out"] = os.path.abspath(trace_out)
+    return out
+
+
 def _shape(text: str) -> tuple[int, int, int]:
     g, p, e = (int(x) for x in text.split(","))
     return g, p, e
@@ -850,9 +1006,15 @@ def main(argv=None) -> int:
     ap.add_argument("--scalar-groups", type=int, default=2048)
     ap.add_argument("--mesh-100k", type=_shape, default=(102_400, 8, 8192),
                     metavar="G,P,E", help="mesh_100k rung shape")
-    ap.add_argument("--groups", type=int, default=1024,
-                    help="groups of the e2e, durable, shared and churn rungs")
+    ap.add_argument("--groups", type=int, default=None,
+                    help=f"groups of the rungs that bring up a cluster "
+                         f"(default {GROUPS}; filestore5 "
+                         f"{FILESTORE5_GROUPS}; not the mesh pair's)")
     ap.add_argument("--writes", type=int, default=8)
+    ap.add_argument("--seed", type=int, default=0,
+                    help="seed of the streams' bytes")
+    ap.add_argument("--trace-out", default=None, metavar="FILE",
+                    help="the traced rung's Chrome trace")
     ap.add_argument("--mesh-groups", type=int, default=10_240,
                     help="groups of the mesh and sim_10240 rungs")
     args = ap.parse_args(argv)
@@ -865,6 +1027,7 @@ def main(argv=None) -> int:
                  f"own process")
     out = {"metric": "aggregate_commits_per_sec", "value": None,
            "unit": "commits/s", "device": device_info(args.device)}
+    groups = args.groups or GROUPS
     if "kernel" in rungs:
         g, p, e = args.kernel
         out["kernel"] = kernel_rung(args.device, g, p, e, iters=args.iters,
@@ -874,7 +1037,7 @@ def main(argv=None) -> int:
         out["kernel_100k"] = kernel_100k_rung(args.device, g, p, e)
     if "e2e" in rungs:
         out["e2e"] = asyncio.run(e2e_rung(
-            e2e_cluster(args.device, args.groups), args.writes))
+            e2e_cluster(args.device, groups), args.writes))
         out["value"] = out["e2e"]["commits_per_sec"]
     if "mesh_100k" in rungs:
         g, p, e = args.mesh_100k
@@ -891,13 +1054,28 @@ def main(argv=None) -> int:
         if rung in rungs:
             with tempfile.TemporaryDirectory(prefix=f"ratis-{rung}-") as tmp:
                 out[rung] = asyncio.run(durable_rung(
-                    durable_cluster(args.device, args.groups, tmp, shared),
+                    durable_cluster(args.device, groups, tmp, shared),
                     args.writes))
     if "churn" in rungs:
         out["churn"] = asyncio.run(churn_rung(
-            churn_cluster(args.device, args.groups), args.writes))
+            churn_cluster(args.device, groups), args.writes))
+    if "telemetry" in rungs:
+        out["telemetry"] = asyncio.run(e2e_rung(
+            telemetry_cluster(args.device, groups), args.writes))
+    if "traced" in rungs:
+        out["traced"] = asyncio.run(e2e_rung(
+            traced_cluster(args.device, groups), args.writes,
+            trace_out=args.trace_out))
+    # the FileStore rungs, each under its load in filestore_bench.LOADS
+    from ratis_tpu_torch.tools import filestore_bench as fb
+    for rung in fb.LOADS:
+        if rung in rungs:
+            out[rung] = fb.run_rung(rung, args.device, args.groups,
+                                    args.seed)
     print(json.dumps(out), flush=True)
-    return 0
+    failed = sum(r.get("streams_failed", 0) for r in out.values()
+                 if isinstance(r, dict))
+    return 1 if failed else 0
 
 
 if __name__ == "__main__":

@@ -61,11 +61,25 @@ def _mask(rng, g: int, p: int, empty_frac: float) -> np.ndarray:
     return m
 
 
-def resident_state(rng, g: int, p: int, now: int = 100_000) -> list:
-    """The ten DeviceState fields (ops.quorum.DeviceState order)."""
+def _members(m: np.ndarray, members: int) -> np.ndarray:
+    """``m`` with every row's current conf cut to exactly ``members`` slots
+    (the first ones), as a group of that many peers fills them; None:
+    ``m`` as drawn."""
+    if members is None:
+        return m
+    m = np.zeros_like(m)
+    m[:, :members] = True
+    return m
+
+
+def resident_state(rng, g: int, p: int, now: int = 100_000,
+                   members: int = None) -> list:
+    """The ten DeviceState fields (ops.quorum.DeviceState order); with
+    ``members``, every row's current conf holds exactly that many peers
+    (the draws are the same either way)."""
     role = rng.choice(np.array([0, 1, 2, 3, 4], np.int8), size=g,
                       p=[0.1, 0.35, 0.1, 0.4, 0.05])
-    conf_cur = _mask(rng, g, p, 0.05)
+    conf_cur = _members(_mask(rng, g, p, 0.05), members)
     joint = rng.random(g) < 0.2
     conf_old = _mask(rng, g, p, 0.0) & joint[:, None]
     self_slot = rng.integers(0, p, size=g)
@@ -243,9 +257,10 @@ def step_args(rng, g: int, p: int, e: int, now: int = 100_000,
             np.int32(now), np.int32(timeout)]
 
 
-def tally_inputs(rng, g: int, p: int) -> list:
-    """grants, rejects, conf_cur, conf_old, priority, self_priority."""
-    conf_cur = _mask(rng, g, p, 0.05)
+def tally_inputs(rng, g: int, p: int, members: int = None) -> list:
+    """grants, rejects, conf_cur, conf_old, priority, self_priority; with
+    ``members``, every current conf of exactly that many peers."""
+    conf_cur = _members(_mask(rng, g, p, 0.05), members)
     conf_old = _mask(rng, g, p, 0.0) & (rng.random(g) < 0.2)[:, None]
     replied = rng.random((g, p)) < 0.6
     granted = rng.random((g, p)) < 0.7
@@ -285,12 +300,14 @@ def tally_edges(rng, g: int, p: int) -> list:
 
 
 def ledger_inputs(rng, g: int, p: int, width: int, now: int = 100_000,
-                  big_cell: bool = False) -> tuple[list, tuple]:
+                  big_cell: bool = False,
+                  members: int = None) -> tuple[list, tuple]:
     """(the eleven array args of ops.ledger.ledger_pass, (now_ms,
     lag_threshold, up_window_ms)).  ``big_cell`` makes every leader row's
     first three follower links point at peer 0, caught up (lag bucket 0):
-    one histogram cell then counts > 2048 links once g > 700."""
-    st = resident_state(rng, g, p, now)
+    one histogram cell then counts > 2048 links once g > 700; ``members``
+    as ``resident_state``'s."""
+    st = resident_state(rng, g, p, now, members)
     match, last_ack, self_mask, conf_cur, conf_old, role = st[:6]
     commit = st[7]
     applied = (commit - rng.integers(0, 50, size=g)).astype(np.int32)

@@ -5,9 +5,13 @@
 (``transport="tcp"``, the framed transport of ``transport/tcp.py``, each
 server on a port the kernel picks when it binds, the groups made from the
 ports the servers got), each hosting the same ``num_groups`` sibling
-groups with a ``CounterStateMachine`` (``sm="counter"``) or an
-``ArithmeticStateMachine`` (``sm="arithmetic"``), every group's consensus
-ticked by one ``QuorumEngine`` per server on ``device``.  Without a
+groups with a ``CounterStateMachine`` (``sm="counter"``), an
+``ArithmeticStateMachine`` (``sm="arithmetic"``) or a
+``FileStoreStateMachine`` (``sm="filestore"``), every group's consensus
+ticked by one ``QuorumEngine`` per server on ``device``.  With
+``datastream=True`` every server also serves the DataStream plane on
+localhost TCP, on a port the kernel picks when it binds (before any group
+exists), and every group's peers advertise those addresses.  Without a
 storage dir the groups keep the in-memory log, as the JAX bench does;
 with ``cluster_properties(..., storage_dir=, shared_log=)`` they take the
 server's default durable log (per-group segment files under
@@ -19,7 +23,8 @@ are the batched multi-Raft deployment of the JAX package's bench harness
 ``batched=True``): the batched engine on every tick
 (scalar-fallback-threshold 0), appender and heartbeat coalescing, wire
 write coalescing, the GC discipline, timeouts scaled to the channel
-count, the default stall watchdog (so the ledger pass runs).
+count, the default stall watchdog (so the ledger pass runs), and host-path
+tracing when asked.
 
 Leaders come from ordinary randomized-timeout elections (every round goes
 through the batched vote tally), group by group in waves; writes go
@@ -27,7 +32,12 @@ through the port's ``RaftClient``; counters are read back from every
 replica through stale reads.  Arithmetic writes are the JAX bench's
 (``arithmetic_message``); the harness keeps every acknowledged write's
 ``(log index, message)``, and ``check_variables()`` holds every replica's
-variable map to the fold of those writes in log order.
+variable map to the fold of those writes in log order.  FileStore writes
+are the JAX bench's (``filestore_message``: a 128-byte file through the
+log); ``stream_file()`` streams a file's bytes over the DataStream plane
+(``stream_payload``: seeded bytes, so a packet lost or out of order
+shows), and ``check_files()`` holds every replica's files, names, sizes
+and bytes, to the acknowledged writes and streams.
 
     cluster = Cluster(num_groups=1024, device="cuda", transport="tcp")
     cluster.prewarm()             # optional: start() prewarms otherwise
@@ -45,6 +55,16 @@ variable map to the fold of those writes in log order.
     await cluster.restart()       # recovery from disk, same addresses
     await cluster.check_variables()
     await cluster.close()
+
+    cluster = Cluster(8, device="cpu", transport="tcp", sm="filestore",
+                      datastream=True)
+    await cluster.start()
+    await cluster.write_all(2)
+    reply = await cluster.stream_file(cluster.groups[0], "s.bin",
+                                      stream_payload(0, 0, 1 << 20),
+                                      packet=64 << 10, window=16)
+    await cluster.check_files()
+    await cluster.close()
 """
 
 from __future__ import annotations
@@ -53,6 +73,9 @@ import asyncio
 import os
 import time
 
+import msgpack
+import numpy as np
+
 from ratis_tpu_torch.client.client import RaftClient
 from ratis_tpu_torch.conf import RaftProperties, RaftServerConfigKeys
 from ratis_tpu_torch.conf.keys import WireConfigKeys
@@ -60,9 +83,11 @@ from ratis_tpu_torch.engine.engine import QuorumEngine
 from ratis_tpu_torch.models.arithmetic import (ArithmeticStateMachine,
                                                evaluate)
 from ratis_tpu_torch.models.counter import CounterStateMachine
+from ratis_tpu_torch.models.filestore import FileStoreStateMachine
 from ratis_tpu_torch.protocol.group import RaftGroup
 from ratis_tpu_torch.protocol.ids import RaftGroupId, RaftPeerId
 from ratis_tpu_torch.protocol.peer import RaftPeer
+from ratis_tpu_torch.server.datastream import DataStreamManagement
 from ratis_tpu_torch.server.server import RaftServer
 from ratis_tpu_torch.transport.base import TransportFactory
 from ratis_tpu_torch.transport.simulated import (SimulatedNetwork,
@@ -70,7 +95,16 @@ from ratis_tpu_torch.transport.simulated import (SimulatedNetwork,
 
 TRANSPORTS = ("sim", "tcp")
 STATE_MACHINES = {"counter": CounterStateMachine,
-                  "arithmetic": ArithmeticStateMachine}
+                  "arithmetic": ArithmeticStateMachine,
+                  "filestore": FileStoreStateMachine}
+# the JAX bench's FileStore write: a file of this many bytes through the log
+FILE_WRITE_BYTES = 128
+# the JAX bench's traced rung: every 16th write traced end to end
+TRACE_SAMPLE = 16
+# the routes of a server's HTTP endpoint (raft.tpu.metrics.http-port) with
+# telemetry on (raft.tpu.telemetry.enabled): Prometheus text, then JSON
+HTTP_ROUTES = ("/metrics", "/health", "/divisions", "/events", "/lag",
+               "/timeseries", "/hotgroups", "/flightrecorder")
 
 
 def arithmetic_message(k: int) -> bytes:
@@ -78,6 +112,23 @@ def arithmetic_message(k: int) -> bytes:
     config 2's ``var = expression`` shape): its factory draws two values
     of one global counter per message, ``v{a % 7}={b % 97}+1``."""
     return f"v{2 * k % 7}={(2 * k + 1) % 97}+1".encode()
+
+
+def filestore_message(k: int) -> tuple[str, bytes, bytes]:
+    """The k-th write of the JAX bench's FileStore workload
+    (``run_mixed_bench``'s message factory): ``(path, data, message)``, a
+    128-byte file ``w{k}`` written through the log."""
+    path, data = f"w{k}", b"x" * FILE_WRITE_BYTES
+    return path, data, msgpack.packb({"op": "write", "path": path,
+                                      "data": data}, use_bin_type=True)
+
+
+def stream_payload(seed: int, stream: int, nbytes: int) -> bytes:
+    """The bytes of stream ``stream`` of a run seeded ``seed``: a numpy
+    pattern of its own per stream (the JAX bench streams one constant
+    byte, which hides a packet lost or landed out of order)."""
+    rng = np.random.default_rng([seed, stream])
+    return rng.integers(0, 256, nbytes, dtype=np.uint8).tobytes()
 
 
 def fold_writes(writes) -> dict:
@@ -119,12 +170,15 @@ def log_fsyncs() -> int:
 def cluster_properties(num_groups: int, num_servers: int = 3,
                        device: str = "cuda", transport: str = "sim",
                        mesh_devices: int = 0, storage_dir: str = None,
-                       shared_log: bool = False) -> RaftProperties:
+                       shared_log: bool = False,
+                       trace: bool = False) -> RaftProperties:
     """The batched deployment of ``num_groups`` groups on ``num_servers``
     servers: the JAX bench's ``bench_properties(batched=True, num_groups,
-    num_servers=..., transport=..., mesh_devices=...)`` key for key, plus
-    the port's engine device.  ``mesh_devices`` > 0 runs every engine as
-    that many slices of its group batch (``parallel/mesh.py``).  With
+    num_servers=..., transport=..., mesh_devices=..., trace=...)`` key for
+    key, plus the port's engine device.  ``mesh_devices`` > 0 runs every
+    engine as that many slices of its group batch (``parallel/mesh.py``);
+    ``trace`` records the host-path stage spans of every
+    ``TRACE_SAMPLE``-th write (``trace/``).  With
     ``storage_dir`` the log is the server's default durable one there
     (``raft.server.log.use.memory=false``), per group or, with
     ``shared_log``, the shared plane (``raft.tpu.log.shared``), as the
@@ -158,6 +212,9 @@ def cluster_properties(num_groups: int, num_servers: int = 3,
     if storage_dir is not None:
         RaftServerConfigKeys.set_storage_dir(p, storage_dir)
         RaftServerConfigKeys.TpuLog.set_shared(p, shared_log)
+    if trace:
+        p.set(RaftServerConfigKeys.Trace.ENABLED_KEY, "true")
+        p.set(RaftServerConfigKeys.Trace.SAMPLE_EVERY_KEY, str(TRACE_SAMPLE))
     # heap discipline: tuned collector thresholds, one seal after bring-up,
     # a steady-state re-freeze every 15s (the memory log never purges)
     p.set(RaftServerConfigKeys.Gc.DISCIPLINE_KEY, "true")
@@ -178,13 +235,14 @@ class Cluster:
     def __init__(self, num_groups: int, num_servers: int = 3,
                  device: str = "cuda", properties=None,
                  transport: str = "sim", mesh_devices: int = 0,
-                 sm: str = "counter"):
+                 sm: str = "counter", datastream: bool = False):
         if sm not in STATE_MACHINES:
             raise ValueError(f"sm {sm!r}: one of {sorted(STATE_MACHINES)}")
         self.num_groups = num_groups
         self.device = device
         self.transport = transport
         self.sm = sm
+        self.datastream = datastream
         self.properties = properties or cluster_properties(
             num_groups, num_servers, device, transport, mesh_devices)
         if transport == "tcp":
@@ -213,19 +271,41 @@ class Cluster:
         self.last_index: dict = {}
         # group id -> [(log index, message)] of its acknowledged writes
         self.acked_writes: dict = {}
-        # arithmetic messages drawn so far (arithmetic_message's k)
+        # group id -> {path: bytes} of its acknowledged FileStore writes
+        # and streams
+        self.acked_files: dict = {}
+        # arithmetic or FileStore messages drawn so far (their k)
         self._messages = 0
         self.prewarm_s = None
         self.bring_up_s = 0.0
         self.restart_s = None
 
-    def _new_servers(self, addresses) -> list[RaftServer]:
+    def _new_servers(self, addresses, datastream_addresses=None
+                     ) -> list[RaftServer]:
+        """Servers on ``addresses``; with ``datastream``, each with its
+        DataStream plane on the matching entry of ``datastream_addresses``
+        (default ``127.0.0.1:0``), which the server's ``start()`` binds."""
         sm = STATE_MACHINES[self.sm]
-        return [RaftServer(RaftPeerId.value_of(f"s{i}"), a,
-                           state_machine_registry=lambda gid: sm(),
-                           properties=self.properties,
-                           transport_factory=self.factory)
-                for i, a in enumerate(addresses)]
+        servers = [RaftServer(RaftPeerId.value_of(f"s{i}"), a,
+                              state_machine_registry=lambda gid: sm(),
+                              properties=self.properties,
+                              transport_factory=self.factory)
+                   for i, a in enumerate(addresses)]
+        if self.datastream:
+            for s, a in zip(servers, datastream_addresses
+                            or ["127.0.0.1:0"] * len(servers)):
+                s.datastream = DataStreamManagement(s, a)
+        return servers
+
+    def datastream_address(self, server: RaftServer):
+        """The DataStream address ``server`` listens on, or None."""
+        if server.datastream is None:
+            return None
+        port = server.datastream.bound_port
+        if not port:
+            raise RuntimeError(f"{server.peer_id}: DataStream plane not "
+                               f"bound")
+        return f"127.0.0.1:{port}"
 
     def prewarm(self) -> None:
         """Build the kernels and launch each once (the build is process
@@ -244,7 +324,8 @@ class Cluster:
             self.prewarm()
         t0 = time.monotonic()
         await asyncio.gather(*(s.start() for s in self.servers))
-        peers = [RaftPeer(s.peer_id, address=s.transport.address)
+        peers = [RaftPeer(s.peer_id, address=s.transport.address,
+                          datastream_address=self.datastream_address(s))
                  for s in self.servers]
         self.groups = [RaftGroup.value_of(RaftGroupId.random_id(), peers)
                        for _ in range(self.num_groups)]
@@ -304,24 +385,29 @@ class Cluster:
                         concurrency: int = 256) -> dict:
         """``writes_per_group`` sequential writes per group, groups
         concurrent under ``concurrency`` writes in flight: INCREMENTs, or
-        the arithmetic workload's messages, drawn from one counter group
-        by group within each round of writes (so every group's sequence,
-        and its variable map, is the same from run to run).  Returns the
-        acknowledged count per group, commits/s and commit latency
-        percentiles."""
+        the arithmetic or FileStore workload's messages, drawn from one
+        counter group by group within each round of writes (so every
+        group's sequence, its variable map and its file names are the
+        same from run to run).  Returns the acknowledged count per group,
+        commits/s and commit latency percentiles."""
         sem = asyncio.Semaphore(concurrency)
         latencies: list[float] = []
         acked = {g.group_id: 0 for g in self.groups}
         base, n_groups = self._messages, len(self.groups)
-        if self.sm == "arithmetic":
+        if self.sm in ("arithmetic", "filestore"):
             self._messages += writes_per_group * n_groups
 
         async def group_load(i: int, g: RaftGroup) -> None:
             c = self.client(g)
             writes = self.acked_writes.setdefault(g.group_id, [])
+            files = self.acked_files.setdefault(g.group_id, {})
             for w in range(writes_per_group):
-                msg = (arithmetic_message(base + w * n_groups + i)
-                       if self.sm == "arithmetic" else b"INCREMENT")
+                k = base + w * n_groups + i
+                if self.sm == "filestore":
+                    path, data, msg = filestore_message(k)
+                else:
+                    msg = (arithmetic_message(k) if self.sm == "arithmetic"
+                           else b"INCREMENT")
                 async with sem:
                     t0 = time.monotonic()
                     reply = await c.io().send(msg)
@@ -332,6 +418,8 @@ class Cluster:
                     acked[g.group_id] += 1
                     self.last_index[g.group_id] = reply.log_index
                     writes.append((reply.log_index, msg))
+                    if self.sm == "filestore":
+                        files[path] = data
 
         t0 = time.monotonic()
         await asyncio.gather(*(group_load(i, g)
@@ -408,6 +496,141 @@ class Cluster:
                 checked += 1
         return checked
 
+    async def stream_file(self, group: RaftGroup, path: str, data: bytes,
+                          packet: int, window: int):
+        """Stream ``data`` into file ``path`` of ``group`` over the
+        DataStream plane, as the JAX bench's stream loads do: a client of
+        its own, a ``stream`` header, ``packet``-byte packets with at most
+        ``window`` unacknowledged, then the close, which commits the file
+        through the log.  Returns the close's reply; an acknowledged
+        stream joins the files ``check_files()`` holds every replica
+        to."""
+        if not self.datastream:
+            raise ValueError("stream_file needs datastream=True")
+        transport = self.factory.new_client_transport(self.properties)
+        client = (RaftClient.builder().set_raft_group(group)
+                  .set_transport(transport)
+                  .set_properties(self.properties).build())
+        try:
+            cmd = msgpack.packb({"op": "stream", "path": path},
+                                use_bin_type=True)
+            out = await client.data_stream().stream(cmd, window=window)
+            for off in range(0, len(data), packet):
+                await out.write_async(data[off:off + packet])
+            reply = await out.close_async()
+        finally:
+            await client.close()
+            await transport.close()
+        if reply.success:
+            gid = group.group_id
+            self.acked_files.setdefault(gid, {})[path] = data
+            self.last_index[gid] = max(self.last_index.get(gid, 0),
+                                       reply.log_index)
+        return reply
+
+    async def check_files(self, timeout: float = 60.0) -> dict:
+        """Hold every replica's FileStore to the plain reference: once each
+        replica has applied its group up to the last acknowledged write or
+        stream, its ``FileStoreStateMachine.files`` must name exactly the
+        acknowledged files with their sizes, and each file's bytes on its
+        disk must equal what was written or streamed.  A file missing,
+        short, extra or with other bytes fails.  Returns {group position:
+        {path: size}} (the same on every replica)."""
+        if self.sm != "filestore":
+            raise ValueError("check_files needs sm='filestore'")
+        deadline = time.monotonic() + timeout
+        out = {}
+        for i, g in enumerate(self.groups):
+            want = self.acked_files.get(g.group_id, {})
+            sizes = {p: len(b) for p, b in want.items()}
+            last = self.last_index.get(g.group_id, -1)
+            for s in self.servers:
+                d = s.divisions.get(g.group_id)
+                if d is None:
+                    raise AssertionError(f"{s.peer_id} does not host "
+                                         f"{g.group_id}")
+                sm = d.state_machine
+                while sm.get_last_applied_term_index().index < last:
+                    if time.monotonic() > deadline:
+                        raise TimeoutError(
+                            f"{s.peer_id} applied {g.group_id} only up to "
+                            f"{sm.get_last_applied_term_index().index} of "
+                            f"{last}")
+                    await asyncio.sleep(0.02)
+                if sm.files != sizes:
+                    raise AssertionError(
+                        f"{s.peer_id} {g.group_id}: files {sm.files} != "
+                        f"the acknowledged writes and streams {sizes}")
+                paths = sorted(want)
+                got = await asyncio.to_thread(
+                    lambda: [sm.resolve(p).read_bytes() for p in paths])
+                for p, b in zip(paths, got):
+                    if b != want[p]:
+                        raise AssertionError(
+                            f"{s.peer_id} {g.group_id}: {p} holds "
+                            f"{len(b)} bytes that differ from the "
+                            f"{len(want[p])} acknowledged")
+            out[i] = sizes
+        return out
+
+    def http_addresses(self) -> list[str]:
+        """Each server's HTTP endpoint, ``127.0.0.1:<bound port>``."""
+        out = []
+        for s in self.servers:
+            http = s.metrics_http
+            if http is None or http.address is None:
+                raise RuntimeError(f"{s.peer_id} serves no HTTP endpoint "
+                                   f"(raft.tpu.metrics.http-port unset)")
+            out.append(http.address)
+        return out
+
+    async def fetch_routes(self, timeout: float = 30.0) -> dict:
+        """GET every one of ``HTTP_ROUTES`` from every server over HTTP:
+        {peer: {route: body}}, ``/metrics`` parsed as Prometheus text
+        ({sample: value}), the others as JSON; ``/lag`` asks for every
+        group (``?n=<groups>``).  A route that does not answer 200 or does
+        not parse raises."""
+        from ratis_tpu_torch.metrics.aggregate import (fetch_json, fetch_text,
+                                                 parse_prometheus_text)
+        out = {}
+        for s, address in zip(self.servers, self.http_addresses()):
+            got = {}
+            for route in HTTP_ROUTES:
+                if route == "/metrics":
+                    got[route] = parse_prometheus_text(
+                        await fetch_text(address, route, timeout))
+                else:
+                    query = f"?n={self.num_groups}" if route == "/lag" else ""
+                    got[route] = await fetch_json(address, route + query,
+                                                  timeout)
+            out[str(s.peer_id)] = got
+        return out
+
+    def watch_lag(self) -> list:
+        """From now on each ``GET /lag`` of each server also records, at
+        the instant the route runs, the commit index of every row it leads
+        in the ledger sample the route took, beside the leading division's
+        own: appends ``(peer, {group id: (ledger commit, division commit)},
+        payload)`` to the returned list."""
+        seen: list = []
+        for s in self.servers:
+            routes = s.metrics_http.json_routes
+
+            def lag(query, s=s, route=routes["/lag"]):
+                payload = route(query)
+                sample = s.engine.ledger.last_sample
+                rows = {}
+                for slot in np.nonzero(sample.leader_mask)[0]:
+                    d = s.engine._listeners.get(int(slot))
+                    if d is not None:
+                        rows[d.group_id] = (
+                            int(sample.commit[slot]),
+                            d.state.log.get_last_committed_index())
+                seen.append((str(s.peer_id), rows, payload))
+                return payload
+            routes["/lag"] = lag
+        return seen
+
     async def restart(self, timeout: float = 120.0) -> None:
         """Close every server, then build and start new ones on the same
         storage and the same addresses (a TCP server rebinds the port it
@@ -419,10 +642,11 @@ class Cluster:
             raise ValueError("restart needs durable storage (a storage "
                              "dir in cluster_properties)")
         addresses = [s.transport.address for s in self.servers]
+        streams = [self.datastream_address(s) for s in self.servers]
         await self._close_clients()
         await asyncio.gather(*(s.close() for s in self.servers))
         # the kernels stay built and loaded in the process: no prewarm
-        self.servers = self._new_servers(addresses)
+        self.servers = self._new_servers(addresses, streams)
         t0 = time.monotonic()
         await asyncio.gather(*(s.start() for s in self.servers))
         want = {g.group_id for g in self.groups}

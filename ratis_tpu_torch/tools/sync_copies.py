@@ -33,7 +33,10 @@ VERBATIM = (
     "engine/__init__.py", "engine/roles.py", "engine/state.py",
     "metrics/__init__.py", "metrics/hops.py", "metrics/registry.py",
     "metrics/server_metrics.py",
+    "metrics/prometheus.py", "metrics/timeseries.py", "metrics/flight.py",
+    "metrics/aggregate.py",
     "models/__init__.py", "models/arithmetic.py", "models/counter.py",
+    "models/filestore.py",
     "ops/__init__.py", "ops/reference.py", "ops/upkeep.py",
     "protocol/__init__.py", "protocol/admin.py", "protocol/exceptions.py",
     "protocol/group.py", "protocol/ids.py", "protocol/logentry.py",
@@ -52,7 +55,7 @@ VERBATIM = (
     "server/log/segmented.py", "server/log/shared.py",
     "server/serving/__init__.py", "server/serving/admission.py",
     "server/serving/readbatch.py",
-    "trace/__init__.py", "trace/tracer.py",
+    "trace/__init__.py", "trace/tracer.py", "trace/export.py",
     "transport/__init__.py", "transport/base.py", "transport/coalesce.py",
     "transport/datastream.py", "transport/simulated.py", "transport/tcp.py",
     "util/__init__.py", "util/gcdiscipline.py", "util/injection.py",

@@ -965,3 +965,43 @@ def test_mesh_cluster_runs_on_the_card(card):
             await cluster.close()
     asyncio.run(run())
     assert tq.K1.launches == n1 and tq.K5.launches > n5
+
+
+def test_five_peer_filestore_cluster_runs_on_the_card(card):
+    """5 x 8 FileStore groups on the card with 2 DataStream streams: every
+    replica's files equal the acknowledged writes and streams, and K1-K4
+    launched on the 5-member path (K5 not)."""
+    from ratis_tpu_torch.tools.cluster import Cluster, stream_payload
+    cluster = Cluster(8, 5, device="cuda", transport="tcp", sm="filestore",
+                      datastream=True)
+    cluster.prewarm()
+    kernels = (tq.K1, tq.K2, tq.K3, tl.K4, tq.K5)
+    before = [k.launches for k in kernels]
+
+    async def run():
+        try:
+            await cluster.start(timeout=60)
+            stats = await cluster.write_all(2)
+            assert stats["commits"] == 16
+            replies = await asyncio.gather(*(
+                cluster.stream_file(cluster.groups[i], f"s{i}.bin",
+                                    stream_payload(1, i, 256 << 10),
+                                    packet=64 << 10, window=16)
+                for i in range(2)))
+            assert all(r.success for r in replies)
+            files = await cluster.check_files(timeout=60)
+            assert sum(len(f) for f in files.values()) == 16 + 2
+            # the watchdog's ledger pass runs once a second on every server
+            for _ in range(40):
+                if all(s.engine.ledger.samples.count
+                       for s in cluster.servers):
+                    break
+                await asyncio.sleep(0.1)
+            for s in cluster.servers:
+                assert s.engine._dev.match_index.is_cuda
+                assert s.engine.ledger.samples.count > 0
+        finally:
+            await cluster.close()
+    asyncio.run(run())
+    launched = [k.launches - n for k, n in zip(kernels, before)]
+    assert all(n > 0 for n in launched[:4]) and launched[4] == 0, launched

@@ -69,7 +69,10 @@ def test_port_loads_no_jax_and_no_ratis_tpu():
     assert res["commits"] == [4, 4]
     for name in ("server.server", "ops.quorum", "transport.tcp",
                  "transport.coalesce", "util.gcdiscipline", "tools.bench",
-                 "parallel", "parallel.mesh"):
+                 "parallel", "parallel.mesh", "models.filestore",
+                 "metrics.timeseries", "metrics.flight", "metrics.prometheus",
+                 "metrics.aggregate", "trace.export",
+                 "tools.filestore_bench"):
         assert f"ratis_tpu_torch.{name}" in res["modules"], name
     assert res["raised"] in (True, None)  # None: this machine has CUDA
 
@@ -90,9 +93,6 @@ def test_port_sources_import_no_jax_and_no_ratis_tpu():
 # modules the port names (lazily, behind keys that are off by default) but
 # has not ported yet; ROADMAP.md Queue 1 lists them as the next slices
 NOT_YET_PORTED = frozenset({
-    "ratis_tpu_torch.metrics.flight",
-    "ratis_tpu_torch.metrics.prometheus",
-    "ratis_tpu_torch.metrics.timeseries",
     "ratis_tpu_torch.placement",
     "ratis_tpu_torch.server.upkeep",
 })
