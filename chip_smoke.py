@@ -51,7 +51,7 @@ result line:
    b. the bench's kernel rungs (``tools/bench.py``): the stateless tick
       at 10240 x 8 x 4096 and 102400 x 8 x 8192 (K6);
    c. the bench's headline e2e rung over real localhost TCP sockets:
-      3 servers x 1024 groups, one warm-up write and 8 writes per group,
+      3 servers x 1024 groups, one warm-up write and 2 writes per group,
       every write acknowledged and every counter read back equal from all
       three replicas (K1-K4; the cluster is prewarmed before the counts
       are zeroed); a socket that cannot bind fails the run;
@@ -64,7 +64,7 @@ result line:
    e. ``durable_1024``, the bench's ``durable`` rung: 3 servers x 1024
       groups over localhost TCP on the server's default durable log
       (per-group segment files in a fresh temporary directory),
-      ``ArithmeticStateMachine``, 1 + 8 writes per group at 128 in
+      ``ArithmeticStateMachine``, 1 + 2 writes per group at 128 in
       flight; every replica's variable map equal to the fold of the
       acknowledged writes, then a full restart from disk and the same
       check (K1-K4 > 0, K5 0); fsyncs per commit and the storage's
@@ -72,7 +72,7 @@ result line:
    f. ``shared_256``: the same on the shared log plane
       (``raft.tpu.log.shared``) at 3 x 256 groups;
    g. ``churn_1024``, the bench's ``churn`` rung: 3 x 1024 over the
-      simulated transport, 8 writes per group while 64 leadership
+      simulated transport, 4 writes per group while 64 leadership
       transfers run and 8 groups each go through a joint-consensus round;
       every write acknowledged and every counter read back in the final
       configuration (K1-K4 > 0, K5 0, and K1/K2 launched while the
@@ -102,9 +102,31 @@ result line:
       settle, every row a server leads carrying its division's own commit
       index in the ledger sample its ``/lag`` request took (K1-K4 > 0, K5
       0);
-   on every served path (a, c-j) each ledger sample (the watchdogs', the
-   telemetry samplers' and each ``GET /lag``'s) must make exactly one
-   call into the kernel library, its prepared call's, and launch K4 once;
+   k. ``sparse_4096``: 3 servers x 4096 groups over the simulated
+      transport with hibernation and the upkeep plane
+      (``raft.tpu.upkeep.enabled``) on; settled until every idle leader
+      sleeps (at most 20 s; some must), the upkeep tick pair timed on the
+      live divisions (the plane's sweep against the legacy walk), the
+      plane's registered slots equal to the 12288 divisions; then 8
+      writes per group on the first 1024 groups at 128 in flight and
+      every counter read back from all three replicas (8 on the written
+      groups, 0 on the others); the stale verdicts the engine skipped for
+      hibernating leaders are counted (K1-K4 > 0, K5 0);
+   l. ``chaos_1024``, the bench's ``chaos`` rung: the campaign of 12
+      scenarios (``chaos/campaign.py`` ``run_chaos_1024``, seed 1) on 3 x
+      1024 counter groups over the simulated transport on the shared
+      durable log in a fresh temporary directory; every scenario must pass
+      its SLOs and every injected fault be journaled and recovered; the
+      servers a crash rebuilds are counted too (K1-K4 > 0, K5 0);
+   m. ``placement_48``, the bench's ``placement`` rung: 4 servers x 48
+      groups over localhost TCP, 384 zipf clients with a pinned hotspot
+      and a grey follower, phase OFF, then a placement controller on
+      every server and phase ON; no request may fail and the controllers
+      must have planned (K1-K4 > 0, K5 0);
+   on every served path (a, c-m) each ledger sample (the watchdogs', the
+   telemetry samplers', the placement controllers' and each ``GET
+   /lag``'s) must make exactly one call into the kernel library, its
+   prepared call's, and launch K4 once;
    Before the paths, one K2 call captured in a CUDA graph, which must
    hold exactly one node, the kernel ``tile_tick`` on K2's refresh
    events, and one K1 call and one K5 call, each one node, ``tile_tick``
@@ -117,7 +139,12 @@ result line:
    line);
 5. kernel parity again at every shape the main paths gave K1-K5 (K3 at
    every padded row count of the vote passes; on the ``filestore5_1024``
-   path's shapes also with every row's conf of exactly 5 members); the
+   path's shapes also with every row's conf of exactly 5 members), and
+   K1 and K2 on the sleeping-rows family (``cases.sleeping_state``: most
+   rows asleep, deadlines 60000-62000 ms ahead or INT32_MAX, leaders
+   whose acks stopped, few acks) at 4096 and 16384 rows, through the
+   public wrappers and the prepared calls, at a mid-epoch clock and at
+   one where the armed deadlines clamp; the
    engine's own routes on one card engine of 1024 rows, host clock,
    median of 200: the refresh dispatch (K2's prepared call, D = E = 64)
    and its prepared call alone, the fast dispatch (K1's prepared call,
@@ -187,9 +214,10 @@ P = 8
 NOW = 100_000
 TIMEOUT_MS = 300
 # the bench's headline e2e rung: 3 servers x 1024 groups over TCP, one
-# warm-up write and then 8 measured writes per group
+# warm-up write and then 2 measured writes per group (the bench writes 8;
+# the smoke cuts writes, never groups, to stay inside its time limit)
 TCP_GROUPS = 1024
-TCP_WRITES = 8
+TCP_WRITES = 2
 # H100 SXM published peaks: HBM bytes/s, and the INT32 rate (132 SMs x
 # 64 INT32 lanes x 1.98 GHz, a multiply-add counted as two, as NVIDIA
 # counts it), against which the kernels' integer ops count
@@ -287,12 +315,13 @@ NO_LIBRARY = {
     "K7c": "none: no one PyTorch call takes the lease's majority-min with "
            "its wrapping expiry"}
 # the durable paths: 3 x 1024 per-group logs, 3 x 256 on the shared plane,
-# 1 warm-up + 8 measured writes per group; the churn path: 3 x 1024
+# 1 warm-up + 2 measured writes per group (the bench: 8); the churn path:
+# 3 x 1024, 4 writes per group (the bench: 8)
 DURABLE_GROUPS = 1024
 SHARED_GROUPS = 256
-DURABLE_WRITES = 8
+DURABLE_WRITES = 2
 CHURN_GROUPS = 1024
-CHURN_WRITES = 8
+CHURN_WRITES = 4
 # K6: the other peer counts it is held at (at the first two of
 # K6_SHAPES, entry() and the bench's two kernel rungs)
 K6_PEERS = (3, 5, 7, 16)
@@ -312,16 +341,43 @@ MESH_WRITES = 4
 # it; 5 servers x 1024 groups over TCP, one warm-up write and one write per
 # group, then 16 streams of 4 MB (window 32); the telemetry path: the TCP
 # headline's deployment with the sampler on and every server's HTTP
-# endpoint on a port it binds, fetched during and after the writes
+# endpoint on a port it binds, fetched during and after the writes (1 + 4
+# writes per group; the bench: 1 + 8)
 FS5_GROUPS = 1024
 FS5_SERVERS = 5
 FS5_WRITES = 1
 TEL_GROUPS = 1024
-TEL_WRITES = 8
+TEL_WRITES = 4
+# the sparse path: 3 servers x 4096 hosted groups over the simulated
+# transport, hibernation and the upkeep plane on, settled until the idle
+# leaders sleep (at most the JAX sparse rung's 20 s), then 8 writes per
+# group on the first 1024 at 128 in flight
+SPARSE_GROUPS = 4096
+SPARSE_ACTIVE = 1024
+SPARSE_WRITES = 8
+SPARSE_SETTLE_S = 20.0
+# the chaos path: the bench's chaos rung (run_chaos_1024, 12 scenarios)
+# at its seed; its scenario count
+CHAOS_SEED = 1
+CHAOS_SCENARIOS = 12
+# the sleeping-rows parity family: the sparse paths' buckets (this
+# smoke's 4096, the bench's 16384), and a clock late in the epoch where
+# now + 62000 passes INT32_MAX and the armed deadlines clamp
+SLEEP_ROWS = (4096, 16_384)
+LATE_NOW = 2 ** 31 - 61_000
 
 
 def log(*a) -> None:
     print(*a, flush=True)
+
+
+# seconds since the start at the end of each phase (``mark``)
+PHASE_END_S = {}
+
+
+def mark(phase: str, t_start: float) -> None:
+    PHASE_END_S[phase] = time.monotonic() - t_start
+    log(f"phase {phase} done at {PHASE_END_S[phase]:.1f} s")
 
 
 def max_abs_err(got, want) -> int:
@@ -341,61 +397,76 @@ def cuda(arrays):
 
 # -- phases 3 and 5: parity ----------------------------------------------------
 
-def fast_plan_err(tq, cases, st, ev_np, sliced, k, a):
+def fast_plan_err(tq, cases, st, ev_np, sliced, k, a, now=NOW):
     """The engine's prepared call (``FastPlan``) on the tick ``ev_np``
     packed into its buffer, on a fresh copy of the state ``st``, against
     the public wrapper's result ``k`` and state ``a``."""
     c = tq.device_state_from_numpy(st, "cuda")
     pl = cases.fast_plan(c, ev_np, sliced)
-    out = torch.from_numpy(pl.run(ev_np.shape[-1], NOW, TIMEOUT_MS).copy())
+    out = torch.from_numpy(pl.run(ev_np.shape[-1], now, TIMEOUT_MS).copy())
     return max_abs_err([out.cuda(), *c], [k.out, *a])
 
 
 def parity_k1(tq, cases, g, p, e, seed, negative=False, plan=False,
-              hot=False, engine_padding=False, members=None):
+              hot=False, engine_padding=False, members=None,
+              sleeping=False, now=NOW):
     """K1's public wrapper (one launch) against its plain version; with
     ``plan``, also the engine's prepared call on the same tick, against
     the wrapper; with ``hot``, every ack aimed at three rows of one tile
     (``cases.hot_acks``); with ``engine_padding``, padded as the engine
     pads (``fast_tick_timing.engine_padded``); with ``members``, every
-    row's conf of exactly that many peers."""
+    row's conf of exactly that many peers; with ``sleeping``, a
+    hibernated fleet's rows and tick (``cases.sleeping_state``,
+    ``sleeping_events``) at clock ``now``."""
     rng = np.random.default_rng(seed)
-    st = cases.resident_state(rng, g, p, NOW, members)
-    ev_np = cases.fast_events(rng, g, p, e, NOW, negative)
+    if sleeping:
+        st = cases.sleeping_state(rng, g, p, now, members)
+        ev_np = cases.sleeping_events(rng, g, p, e, now)
+    else:
+        st = cases.resident_state(rng, g, p, now, members)
+        ev_np = cases.fast_events(rng, g, p, e, now, negative)
     if hot:
         cases.hot_acks(rng, ev_np)
     if engine_padding:
         engine_padded(ev_np)
-    ev, meta = cuda([ev_np, np.array([NOW, TIMEOUT_MS], np.int32)])
+    ev, meta = cuda([ev_np, np.array([now, TIMEOUT_MS], np.int32)])
     a = tq.device_state_from_numpy(st, "cuda")
     b = tq.device_state_from_numpy(st, "cuda")
     k = tq.engine_step_resident_fast(a, ev, meta)
     want = tq._resident_fast_plain(b, ev, meta)
     err = max_abs_err([k.out, *a], [want, *b])
     if plan:
-        err = max(err, fast_plan_err(tq, cases, st, ev_np, False, k, a))
+        err = max(err, fast_plan_err(tq, cases, st, ev_np, False, k, a,
+                                     now))
     return err
 
 
 def parity_k2(tq, cases, g, p, d, e, seed, negative=False, plan=False,
-              members=None):
+              members=None, sleeping=False, now=NOW):
     """K2's public wrapper (one launch) against its plain version; with
     ``plan``, also the engine's prepared call on the same tick packed into
-    a plan's buffer, against the wrapper; ``members`` as K1's."""
+    a plan's buffer, against the wrapper; ``members``, ``sleeping`` and
+    ``now`` as K1's (``cases.sleeping_refresh``)."""
     rng = np.random.default_rng(seed)
-    st = cases.resident_state(rng, g, p, NOW, members)
-    rf_idx_np, rf_np, acks_np = cases.refresh(rng, g, p, d, e, NOW, negative)
+    if sleeping:
+        st = cases.sleeping_state(rng, g, p, now, members)
+        rf_idx_np, rf_np, acks_np = cases.sleeping_refresh(rng, g, p, d, e,
+                                                           now)
+    else:
+        st = cases.resident_state(rng, g, p, now, members)
+        rf_idx_np, rf_np, acks_np = cases.refresh(rng, g, p, d, e, now,
+                                                  negative)
     rf_idx, *rf = cuda([rf_idx_np, *rf_np])
     acks = cuda(acks_np)
     a = tq.device_state_from_numpy(st, "cuda")
     b = tq.device_state_from_numpy(st, "cuda")
-    k = tq.engine_step_resident(a, rf_idx, *rf, *acks, NOW, TIMEOUT_MS)
-    want = tq._resident_refresh_plain(b, rf_idx, rf, acks, NOW, TIMEOUT_MS)
+    k = tq.engine_step_resident(a, rf_idx, *rf, *acks, now, TIMEOUT_MS)
+    want = tq._resident_refresh_plain(b, rf_idx, rf, acks, now, TIMEOUT_MS)
     err = max_abs_err([torch.stack(k[1:]), *a], [want, *b])
     if plan:
         c = tq.device_state_from_numpy(st, "cuda")
         pl = cases.refresh_plan(c, rf_idx_np, rf_np, acks_np)
-        out = torch.from_numpy(pl.run(d, e, NOW, TIMEOUT_MS).copy()).cuda()
+        out = torch.from_numpy(pl.run(d, e, now, TIMEOUT_MS).copy()).cuda()
         err = max(err, max_abs_err([out, *c], [torch.stack(k[1:]), *a]))
     return err
 
@@ -737,6 +808,24 @@ def run_parity_fast(tq, cases, par) -> None:
                                 hot=True))
 
 
+def run_parity_sleeping(tq, cases, par) -> None:
+    """The sleeping-rows family (``cases.sleeping_state``,
+    ``sleeping_events``, ``sleeping_refresh``): most rows asleep, their
+    deadlines 60000-62000 ms ahead or at INT32_MAX, the sleeping leaders'
+    acks stopped, few acks; K1 and K2 at the sparse paths' buckets, each
+    case through the public wrapper and the engine's prepared call, at a
+    mid-epoch clock and at one late in the epoch (the deadlines clamp)."""
+    for g in SLEEP_ROWS:
+        for now in (NOW, LATE_NOW):
+            for e in (64, 1024, 4096):
+                par.add("K1", parity_k1(tq, cases, g, P, e, g + e, plan=True,
+                                        sleeping=True, now=now))
+            for d, e in ((64, 64), (1024, 1024), (64, 4096)):
+                par.add("K2", parity_k2(tq, cases, g, P, d, e, g + d + e,
+                                        plan=True, sleeping=True, now=now))
+    par.check("sleeping rows")
+
+
 def run_parity_observed(tq, tl, cases, main, shapes, par: Parity,
                         what: str, members=None) -> None:
     """Every shape a main path gave a kernel, after the main path (K3: at
@@ -828,6 +917,8 @@ class ShapeRecorder:
                        "K3": collections.Counter(),
                        "K5": collections.Counter()}
         self.members = collections.Counter()
+        # (capacity, peers, ledger table width) of the engines sampled
+        self.engine_shapes = collections.Counter()
         # samples taken, and the (library calls, K4 launches) of those
         # that were not (1, 1)
         self.ledger_samples = 0
@@ -868,6 +959,9 @@ class ShapeRecorder:
             res = sample(ledger)
             got = (self._ledger_calls, tl.K4.launches - n)
             self.ledger_samples += 1
+            e = ledger.engine
+            self.engine_shapes[(e.state.capacity, e.state.max_peers,
+                                ledger._table_width())] += 1
             if got != (1, 1):
                 self.ledger_faults.append(got)
             return res
@@ -910,6 +1004,44 @@ class ShapeRecorder:
                 f"ledger samples: {self.ledger_samples}, (library calls, "
                 f"K4 launches) of those that were not one call and one "
                 f"launch: {self.ledger_faults[:10]}")
+
+    def engine(self) -> dict:
+        """The most common engine shape of the samples (``engine_shape``'s
+        keys), for a path whose cluster the recorder never sees."""
+        (g, p, w), _ = self.engine_shapes.most_common(1)[0]
+        return {"capacity": g, "peers": p, "ledger_width": w}
+
+
+class StaleSkips:
+    """While active, counts the "stale" verdicts the engines' ticks gave
+    (``stale``) and those whose row's listener, a division, was
+    hibernating then (``skipped``: the engine's dispatch drops them, a
+    sleeping leader's acks having stopped on request);
+    ``QuorumEngine._tick_locked`` is swapped for a counting one and
+    restored on exit."""
+
+    def __init__(self):
+        self.stale = 0
+        self.skipped = 0
+
+    def __enter__(self):
+        from ratis_tpu_torch.engine.engine import QuorumEngine
+        self.tick = tick = QuorumEngine._tick_locked
+
+        def counting(engine):
+            changed, votes = tick(engine)
+            for slot, kind, _ in changed:
+                if kind == "stale":
+                    self.stale += 1
+                    self.skipped += bool(getattr(
+                        engine._listeners.get(slot), "hibernating", False))
+            return changed, votes
+        QuorumEngine._tick_locked = counting
+        return self
+
+    def __exit__(self, *exc):
+        from ratis_tpu_torch.engine.engine import QuorumEngine
+        QuorumEngine._tick_locked = self.tick
 
 
 def counted(kernels: dict, keys, drive, never=()):
@@ -1710,6 +1842,103 @@ def run_telemetry_path(kernels, bench, rec):
     return res, launches
 
 
+def run_sparse_path(kernels, bench, rec):
+    """The sparse shape with the upkeep plane: 3 servers x 4096 groups,
+    hibernation and ``raft.tpu.upkeep.enabled`` on; settled until every
+    idle leader sleeps (at most 20 s), the upkeep tick pair timed on the
+    live divisions (plane sweep against the legacy walk), then 8 writes
+    per group on the first 1024 groups and every counter read back from
+    all three replicas (8 on the written groups, 0 on the rest)."""
+    from ratis_tpu_torch.tools import upkeep_bench as ub
+    settle = ub.hibernate_settle(SPARSE_SETTLE_S, until_asleep=True)
+
+    async def settle_and_time(cluster):
+        res = await settle(cluster)
+        res["tick_pair"] = ub.tick_pair(cluster)
+        return res
+
+    cluster = ub.upkeep_cluster("cuda", SPARSE_GROUPS)
+    with rec, StaleSkips() as skips:
+        res, launches = counted(
+            kernels, ("K1", "K2", "K3", "K4"),
+            lambda: asyncio.run(bench.e2e_rung(
+                cluster, SPARSE_WRITES, warmup=0, settle=settle_and_time,
+                active_groups=SPARSE_ACTIVE)), never=("K5",))
+    res["stale_verdicts"] = skips.stale
+    res["stale_skipped_hibernating"] = skips.skipped
+    pair = res["settle"]["tick_pair"]
+    if res["settle"]["hibernated_groups"] == 0 \
+            or pair["registered_slots"] != 3 * SPARSE_GROUPS:
+        raise AssertionError(f"sparse path: {res['settle']}")
+    if res["commits"] != SPARSE_ACTIVE * SPARSE_WRITES \
+            or res["replicas_read_back"] != SPARSE_GROUPS * 3:
+        raise AssertionError(f"sparse path: {res['commits']} writes acked, "
+                             f"{res['replicas_read_back']} replicas read "
+                             f"back")
+    if not res["engine_device"].startswith("cuda"):
+        raise AssertionError(f"sparse path: engine on {res['engine_device']}")
+    res["engine"] = engine_shape(cluster)
+    return res, launches
+
+
+def run_chaos_path(kernels, rec):
+    """The bench's chaos rung: ``run_chaos_1024`` on ``cuda`` (3 x 1024
+    counter groups over the simulated transport on the shared durable log
+    in a fresh temporary directory, the 12 scenarios, seed 1); every
+    scenario must pass and every injected fault be journaled and
+    recovered.  The servers a crash rebuilds mid-phase are new engines
+    and plans: the recorders swap class methods, so they count them
+    too."""
+    from ratis_tpu_torch.chaos.campaign import run_chaos_1024
+    with rec:
+        res, launches = counted(
+            kernels, ("K1", "K2", "K3", "K4"),
+            lambda: asyncio.run(run_chaos_1024(seed=CHAOS_SEED,
+                                               device="cuda")),
+            never=("K5",))
+    failed = {n: e.get("error") for n, e in res["scenarios"].items()
+              if not e["passed"]}
+    if failed or res["passed"] != res["total"] \
+            or res["total"] != CHAOS_SCENARIOS:
+        raise AssertionError(f"chaos path: {res['passed']} of "
+                             f"{res['total']} scenarios passed; failed "
+                             f"{failed}")
+    if res["fault_events"] == 0 \
+            or res["recovered_events"] < res["fault_events"]:
+        raise AssertionError(f"chaos path: {res['fault_events']} faults "
+                             f"journaled, {res['recovered_events']} "
+                             f"recovered")
+    res["engine"] = rec.engine()
+    return res, launches
+
+
+def run_placement_path(kernels, rec):
+    """The bench's placement rung: 4 servers x 48 groups over localhost
+    TCP, the zipf fleet with a pinned hotspot and a grey follower, phase
+    OFF, then a placement controller on every server and phase ON; no
+    request may fail and the controllers must have planned."""
+    from ratis_tpu_torch.tools import placement_bench as pb
+    load = pb.PLACEMENT
+    cluster = pb.placement_cluster("cuda", load["groups"], load["servers"],
+                                   load["element_limit"])
+    with rec:
+        res, launches = counted(
+            kernels, ("K1", "K2", "K3", "K4"),
+            lambda: asyncio.run(pb.placement_rung(
+                cluster, clients=load["clients"],
+                requests_per_client=load["requests_per_client"],
+                pace_s=load["pace_s"], hot_pins=load["hot_pins"],
+                settle_s=load["settle_s"])), never=("K5",))
+    if res["failures"] != 0 or res["plans_computed"] == 0:
+        raise AssertionError(f"placement path: {res['failures']} requests "
+                             f"failed, {res['plans_computed']} plans")
+    if not res["engine_device"].startswith("cuda"):
+        raise AssertionError(f"placement path: engine on "
+                             f"{res['engine_device']}")
+    res["engine"] = engine_shape(cluster)
+    return res, launches
+
+
 # -- phase 5: timing ---------------------------------------------------------
 
 def state_bytes(g, p):
@@ -2099,6 +2328,8 @@ def main(argv=None) -> int:
             if "registers" in line or "spill" in line:
                 log(f"ptxas {s}: {line.strip()}")
 
+    mark("2 build", t_start)
+
     # 3. parity at fixed shapes (the off-path kernels' launches here and
     # in phase 5 are their only ones: every path checks they made none)
     par = Parity()
@@ -2117,12 +2348,16 @@ def main(argv=None) -> int:
                     for k in OFF_PATH}
     off_before = {k: kernels[k].launches for k in OFF_PATH}
 
+    mark("3 parity", t_start)
+
     # 4a. the main path over the simulated transport
     recs = {k: ShapeRecorder(tq, tl) for k in ("sim", "tcp", "mesh",
                                                "durable_1024", "shared_256",
                                                "churn_1024", "stream",
                                                "filestore5_1024",
-                                               "telemetry_1024")}
+                                               "telemetry_1024",
+                                               "sparse_4096", "chaos_1024",
+                                               "placement_48")}
     main_res, sim_launches = run_main_path(tq, kernels, args.groups,
                                            args.writes, recs["sim"])
     log(f"main path (sim): {card} | 3 servers x {args.groups} groups | "
@@ -2134,6 +2369,8 @@ def main(argv=None) -> int:
         f"{main_res['election_timeouts']}")
     log(f"main path (sim) launches: {sim_launches}")
 
+    mark("4a sim", t_start)
+
     # 4b. the bench's kernel rungs
     rungs, rung_launches = run_kernel_rungs(kernels, bench)
     log(f"kernel rungs: {card} | 10240 x 8 x 4096: "
@@ -2142,6 +2379,8 @@ def main(argv=None) -> int:
         f"102400 x 8 x 8192: "
         f"{rungs['kernel_100k']['group_updates_per_sec_100k']:.1f} group "
         f"updates/s | launches {rung_launches}")
+
+    mark("4b kernel rungs", t_start)
 
     # 4c. the headline e2e rung over localhost TCP
     tcp_res, tcp_launches = run_tcp_path(kernels, bench, recs["tcp"])
@@ -2156,6 +2395,8 @@ def main(argv=None) -> int:
     shapes = {k: recs["sim"].shapes[k] + recs["tcp"].shapes[k]
               for k in recs["sim"].shapes}
     log(f"K1 E {dict(shapes['K1'])}; K2 (D, E) {dict(shapes['K2'])}")
+
+    mark("4c tcp", t_start)
 
     # 4d. the mesh path, then dryrun_multichip and the mesh100k rung
     rec_mesh = recs["mesh"]
@@ -2181,6 +2422,8 @@ def main(argv=None) -> int:
         f"ms, efficiency {m['efficiency_frac']:.3f} | launches "
         f"{mesh_rung_launches}")
 
+    mark("4d mesh", t_start)
+
     # 4e/4f. the durable paths: per-group logs at 1024, the shared plane
     # at 256; 4g. leadership and configuration churn
     durable = {}
@@ -2203,6 +2446,7 @@ def main(argv=None) -> int:
             f"election timeouts) | replicas equal to the fold before, after "
             f"restart {res['replicas_read_back']}")
         log(f"{key} launches: {launches}")
+        mark(key, t_start)
     churn_res, churn_launches = run_churn_path(tq, kernels, bench,
                                                recs["churn_1024"])
     log(f"churn_1024: {card} | 3 servers x {CHURN_GROUPS} groups (sim) | "
@@ -2220,6 +2464,7 @@ def main(argv=None) -> int:
         f"the engine led a joint row: {churn_res['joint_calls']} "
         f"(unmatched calls "
         f"{churn_res['joint_unmatched_calls']})")
+    mark("4g churn_1024", t_start)
 
     # 4h. the stream rung; 4i. BASELINE config 3 at 5 x 1024; 4j. the
     # telemetry plane over HTTP
@@ -2235,6 +2480,7 @@ def main(argv=None) -> int:
         f"{stream_res['stream_mb_per_s']:.2f} MB/s over "
         f"{stream_res['elapsed_s']:.3f} s")
     log(f"stream launches: {stream_launches}")
+    mark("4h stream", t_start)
     fs5_res, fs5_launches = run_filestore5_path(kernels, fb, args.seed,
                                                 recs["filestore5_1024"])
     log(f"filestore5_1024: {card} | {FS5_SERVERS} servers x {FS5_GROUPS} "
@@ -2253,6 +2499,7 @@ def main(argv=None) -> int:
         f"warm-up, writes) {fs5_res['election_timeouts']}")
     log(f"filestore5_1024 launches: {fs5_launches}; vote rounds by "
         f"members {fs5_res['vote_round_members']}")
+    mark("4i filestore5_1024", t_start)
     tel_res, tel_launches = run_telemetry_path(kernels, bench,
                                                recs["telemetry_1024"])
     tel, got = tel_res["telemetry"], tel_res["after"]
@@ -2275,6 +2522,64 @@ def main(argv=None) -> int:
         f"p50 {tel['ledger_fetch_ms']:.3f} ms | election timeouts "
         f"(bring-up, warm-up, writes) {tel_res['election_timeouts']}")
     log(f"telemetry_1024 launches: {tel_launches}")
+    mark("4j telemetry_1024", t_start)
+
+    # 4k. the sparse shape with the upkeep plane; 4l. the chaos campaign;
+    # 4m. the placement controller
+    sp_res, sp_launches = run_sparse_path(kernels, bench,
+                                          recs["sparse_4096"])
+    pair, settled = sp_res["settle"]["tick_pair"], sp_res["settle"]
+    log(f"sparse_4096: {card} | 3 servers x {SPARSE_GROUPS} groups (sim), "
+        f"hibernation and the upkeep plane on | bring-up "
+        f"{sp_res['election_convergence_s']:.3f} s | hibernated groups "
+        f"{settled['hibernated_groups']} after "
+        f"{settled['settle_s']:.3f} s of settle, "
+        f"{sp_res['hibernated_groups']} after the writes | upkeep tick "
+        f"array {pair['tick_array_wall_ms']:.4f} ms vs legacy "
+        f"{pair['tick_legacy_wall_ms']:.4f} ms wall (thread CPU "
+        f"{pair['tick_array_ms']:.4f} vs {pair['tick_legacy_ms']:.4f}), "
+        f"{pair['registered_slots']} slots, {pair['due_groups']} due | "
+        f"{sp_res['commits']} writes acked on {sp_res['active_groups']} "
+        f"groups, all {SPARSE_GROUPS} counters read back from 3 replicas | "
+        f"{sp_res['commits_per_sec']:.1f} commits/s | p50 "
+        f"{sp_res['p50_ms']:.2f} ms | p99 {sp_res['p99_ms']:.2f} ms | "
+        f"stale verdicts {sp_res['stale_verdicts']}, skipped for "
+        f"hibernating leaders {sp_res['stale_skipped_hibernating']} | "
+        f"election timeouts (bring-up, warm-up, writes) "
+        f"{sp_res['election_timeouts']}")
+    log(f"sparse_4096 launches: {sp_launches}")
+    mark("4k sparse_4096", t_start)
+    chaos_res, chaos_launches = run_chaos_path(kernels, recs["chaos_1024"])
+    log(f"chaos_1024: {card} | 3 servers x {chaos_res['groups']} groups "
+        f"(sim, shared durable log) seed {chaos_res['seed']} | "
+        f"{chaos_res['passed']} of {chaos_res['total']} scenarios passed | "
+        f"worst re-election {chaos_res['worst_reelect_s']} s | recovery "
+        f"fraction {chaos_res['recovery_frac']} | bring-up "
+        f"{chaos_res['bring_up_s']} s | elapsed {chaos_res['elapsed_s']} s | "
+        f"events: injected {chaos_res['fault_events']}, recovered "
+        f"{chaos_res['recovered_events']}, organic "
+        f"{chaos_res['organic_events']}")
+    for name, e in chaos_res["scenarios"].items():
+        log(f"chaos_1024 {name}: {e}")
+    log(f"chaos_1024 launches: {chaos_launches}")
+    mark("4l chaos_1024", t_start)
+    pl_res, pl_launches = run_placement_path(kernels, recs["placement_48"])
+    log(f"placement_48: {card} | {pl_res['peers']} servers x "
+        f"{pl_res['groups']} groups over TCP, {pl_res['clients']} clients, "
+        f"grey {pl_res['grey_peer']} | hot pins {pl_res['hot_pins']} | "
+        f"OFF: writes {pl_res['writes_ok_off']}, reads "
+        f"{pl_res['reads_ok_off']}, hot p99 "
+        f"{pl_res['hotspot_p99_before_ms']} ms, hot shed "
+        f"{pl_res['hot_shed_off']}, grey confirm share "
+        f"{pl_res['grey_confirm_frac_off']:.4f} | ON: writes "
+        f"{pl_res['writes_ok_on']}, reads {pl_res['reads_ok_on']}, hot p99 "
+        f"{pl_res['hotspot_p99_after_ms']} ms, hot shed "
+        f"{pl_res['hot_shed_on']}, grey confirm share "
+        f"{pl_res['grey_confirm_frac_on']:.4f} | transfers "
+        f"{pl_res['transfers']}, plans {pl_res['plans_computed']}, steered "
+        f"reads {pl_res['steered_reads']} | failures {pl_res['failures']}")
+    log(f"placement_48 launches: {pl_launches}")
+    mark("4m placement_48", t_start)
 
     ledger_checks = {k: r.ledger_samples for k, r in recs.items()}
     log(f"ledger samples by path, each one call into the kernel library "
@@ -2286,9 +2591,14 @@ def main(argv=None) -> int:
                         "mesh path")
     for key, res, members in (("stream", stream_res, None),
                               ("filestore5_1024", fs5_res, FS5_SERVERS),
-                              ("telemetry_1024", tel_res, None)):
+                              ("telemetry_1024", tel_res, None),
+                              ("sparse_4096", sp_res, None),
+                              ("chaos_1024", chaos_res, None),
+                              ("placement_48", pl_res, None)):
         run_parity_observed(tq, tl, cases, res["engine"], recs[key].shapes,
                             par, f"{key} path", members)
+    run_parity_sleeping(tq, cases, par)
+    mark("5 parity", t_start)
     routes = run_route_timing(tq, card)
     timing, device_us = run_timing(tq, tl, cases, bench, main_res, shapes,
                                    mesh_res, rec_mesh.shapes)
@@ -2320,6 +2630,8 @@ def main(argv=None) -> int:
                 log(f"{key} device ({name}) {us[key]:.3f} us vs K2 "
                     f"{us['K2']:.3f} us")
 
+    mark("5 timing", t_start)
+
     # 6. results
     # each kernel's counts as every path's run read them (the off-path
     # kernels' are all 0, checked there); their comparison launches are
@@ -2330,7 +2642,8 @@ def main(argv=None) -> int:
              **{k: launches for k, (_, launches) in durable.items()},
              "churn_1024": churn_launches, "stream": stream_launches,
              "filestore5_1024": fs5_launches,
-             "telemetry_1024": tel_launches}
+             "telemetry_1024": tel_launches, "sparse_4096": sp_launches,
+             "chaos_1024": chaos_launches, "placement_48": pl_launches}
     by_path = {k: {p: n[k] for p, n in paths.items() if k in n}
                for k in kernels}
     # one call's CUDA-graph nodes, per kernel
@@ -2370,7 +2683,10 @@ def main(argv=None) -> int:
                        "stream_path": stream_res,
                        "filestore5_path": fs5_res,
                        "telemetry_path": tel_res,
+                       "sparse_path": sp_res, "chaos_path": chaos_res,
+                       "placement_path": pl_res,
                        "seconds": time.monotonic() - t_start,
+                       "phase_end_s": PHASE_END_S,
                        "shapes": {k: {str(s): n for s, n in v.items()}
                                   for k, v in shapes.items()},
                        "mesh_shapes": {k: {str(s): n for s, n in v.items()}

@@ -569,7 +569,11 @@ class SegmentedRaftLog(RaftLog):
 
         fut.add_done_callback(_on_flush)
         if wait_flush:
-            await fut
+            # shielded: a caller cancelled mid-wait (a follower append whose
+            # RPC deadline ran out behind a slow fsync) must not cancel the
+            # future, or _on_flush would drop the flush the worker still
+            # performs and flush_index would stall below the last entry
+            await asyncio.shield(fut)
         return index
 
     # ------------------------------------------------------------ truncate

@@ -8,6 +8,9 @@ headline end-to-end rung, run on the port.
     python -m ratis_tpu_torch.tools.bench --rungs durable    # or shared, churn
     python -m ratis_tpu_torch.tools.bench --rungs filestore5  # or mixed, stream
     python -m ratis_tpu_torch.tools.bench --rungs telemetry   # or traced
+    python -m ratis_tpu_torch.tools.bench --rungs upkeep      # or sparse_hib,
+    python -m ratis_tpu_torch.tools.bench --rungs chaos       # sparse_plain,
+    python -m ratis_tpu_torch.tools.bench --rungs placement   # one a process
 
 Prints exactly one JSON line on stdout, with the key names of ``bench.py``'s
 rungs (the first three by default, the mesh rungs when ``--rungs`` names
@@ -94,7 +97,39 @@ them; at most one rung that brings up a cluster per run):
   the simulated transport with host-path tracing on (every 16th write),
   1 + 8 writes per group; the e2e metrics plus
   ``host_path_decomposition`` (``trace/export.py``) over the measured
-  writes, and ``--trace-out FILE`` writes their Chrome trace.
+  writes, and ``--trace-out FILE`` writes their Chrome trace;
+- ``upkeep`` (``child_upkeep`` -> ``run_upkeep_bench``,
+  ``tools/upkeep_bench.py``): 3 servers x ``--groups`` (10240) idle groups
+  over the simulated transport, hibernation and the upkeep plane
+  (``raft.tpu.upkeep.enabled``) on, no client load, ``--settle`` (25) s,
+  then the upkeep tick pair on the same live divisions, plane against
+  legacy walk: ``hibernated_groups``, ``registered_slots``,
+  ``due_groups``, ``tick_array_ms``, ``tick_legacy_ms``, ``tick_ratio``
+  (thread CPU, best of 3, worst server; ``_wall_ms`` and
+  ``tick_ratio_wall`` on the wall clock) and the raw scans
+  ``sweep_ms_64``, ``sweep_ms_1024``; the cluster is left up and the
+  process ends after the line;
+- ``sparse_hib`` / ``sparse_plain`` (``bench.py``'s sparse pair): 3 x
+  ``--groups`` (10240) hosted over the simulated transport, no warm-up,
+  8 writes per group on the first ``--active`` (1024) groups at 128 in
+  flight, every counter read back from every replica (the idle groups'
+  at 0); ``sparse_hib`` with hibernation on and ``--settle`` (20) s after
+  the bring-up, ``sparse_plain`` without either: the e2e metrics plus
+  ``active_groups`` and ``hibernated_groups``;
+- ``chaos`` (``child_chaos`` -> ``run_chaos_1024``, ``chaos/campaign.py``):
+  the standing campaign of 12 scenarios (the 10 default and the durable
+  ``slow_disk``, ``shared_log_tail_loss``) on 3 x ``--groups`` (1024)
+  counter groups over the simulated transport on the shared durable log
+  in a fresh temporary directory, seed ``--chaos-seed`` (1): the
+  campaign summary (``passed``, ``total``, ``worst_reelect_s``,
+  ``recovery_frac``, ``elapsed_s``, the fault events, each scenario's
+  entry);
+- ``placement`` (``child_placement`` -> ``run_placement_bench``,
+  ``tools/placement_bench.py``): 4 servers x ``--groups`` (48) over
+  localhost TCP, ``--clients`` (384) zipf clients x 6 write+read pairs
+  0.25 s apart, element limit 192, 8 hot pins, a grey follower, settle 6
+  s (``--settle``); phase OFF, then phase ON with a placement controller
+  on every server: ``run_placement_bench``'s keys.
 
 ``--seed`` seeds the streams' bytes.  A rung whose streams failed prints
 its line and exits 1.
@@ -115,6 +150,7 @@ import argparse
 import asyncio
 import gc
 import json
+import os
 import sys
 import tempfile
 import time
@@ -128,7 +164,8 @@ from ratis_tpu_torch.ops import reference as ref
 
 RUNGS = ("kernel", "kernel_100k", "e2e", "mesh_100k", "mesh", "sim_10240",
          "durable", "shared", "churn", "mixed", "stream", "filestore5",
-         "telemetry", "traced")
+         "telemetry", "traced", "upkeep", "sparse_hib", "sparse_plain",
+         "chaos", "placement")
 # what a run without --rungs measures: the headline and the kernel rungs
 # (the mesh pair's bring-up of 2 x 10240 groups takes minutes)
 DEFAULT_RUNGS = RUNGS[:3]
@@ -144,7 +181,8 @@ MESH_WRITES = 2
 # child per rung (a second cluster in one process inherits the first's
 # sealed heap and was measured churning elections)
 E2E_RUNGS = ("e2e", "sim_10240", "mesh", "durable", "shared", "churn",
-             "mixed", "stream", "filestore5", "telemetry", "traced")
+             "mixed", "stream", "filestore5", "telemetry", "traced",
+             "upkeep", "sparse_hib", "sparse_plain", "chaos", "placement")
 # groups of the rungs that bring up a cluster when --groups is not given
 GROUPS = 1024
 FILESTORE5_GROUPS = 10_240
@@ -447,16 +485,16 @@ def dryrun_multichip(n_devices: int, device="cuda") -> dict:
 
 def e2e_cluster(device="cuda", groups: int = 1024, transport: str = "tcp",
                 mesh_devices: int = 0, extra: dict = None,
-                trace: bool = False):
+                trace: bool = False, hibernate: bool = False):
     """An e2e rung's cluster: 3 servers x ``groups`` groups over
     ``transport``, engines in ``mesh_devices`` slices when > 0, host-path
-    tracing on with ``trace``, the properties ``extra`` set over the
-    cluster's, its kernels built and launched once (``Cluster.prewarm``),
-    not yet started."""
+    tracing on with ``trace``, idle groups hibernating with ``hibernate``,
+    the properties ``extra`` set over the cluster's, its kernels built and
+    launched once (``Cluster.prewarm``), not yet started."""
     from ratis_tpu_torch.tools.cluster import Cluster, cluster_properties
     dev = str(_device(device))
     props = cluster_properties(groups, 3, dev, transport, mesh_devices,
-                               trace=trace)
+                               trace=trace, hibernate=hibernate)
     for k, v in (extra or {}).items():
         props.set(k, v)
     cluster = Cluster(groups, device=dev, transport=transport,
@@ -653,16 +691,22 @@ def _check_engines(engines, dev: torch.device, n_slices: int = 1) -> None:
 
 
 async def e2e_rung(cluster, writes: int = 8, warmup: int = WARMUP_WRITES,
-                   trace_out: str = None, during=None, after=None) -> dict:
+                   trace_out: str = None, during=None, after=None,
+                   settle=None, active_groups: int = None) -> dict:
     """``run_bench`` on an ``e2e_cluster``: bring it up (elections in
     waves of a tenth of the groups, at least 128), warm up with ``warmup``
     writes per group, measure ``writes`` writes per group, read every
-    counter back from every replica, close it.  With telemetry on, the
-    result carries ``telemetry`` (``telemetry_summary``); with tracing on,
-    ``host_path_decomposition`` over the measured writes (and their Chrome
-    trace in ``trace_out``).  ``during(cluster)`` (a coroutine function)
-    runs beside the measured writes and ``after(cluster)`` after the
-    read-back; their results are ``during`` and ``after``."""
+    counter back from every replica, close it.  With ``active_groups``
+    only the first that many groups take writes (the sparse shape; the
+    others' counters must read 0 on every replica).  With telemetry on,
+    the result carries ``telemetry`` (``telemetry_summary``); with tracing
+    on, ``host_path_decomposition`` over the measured writes (and their
+    Chrome trace in ``trace_out``); with hibernation on,
+    ``hibernated_groups`` right after the measured writes.
+    ``settle(cluster)``, ``during(cluster)`` and ``after(cluster)``
+    (coroutine functions) run after the bring-up, beside the measured
+    writes and after the read-back; their results are ``settle``,
+    ``during`` and ``after``."""
     from ratis_tpu_torch.trace import get_tracer
     dev = torch.device(cluster.device)
     groups = cluster.num_groups
@@ -670,33 +714,42 @@ async def e2e_rung(cluster, writes: int = 8, warmup: int = WARMUP_WRITES,
     try:
         await _sealed(cluster, cluster.start(wave=_wave(cluster),
                                              timeout=600))
+        probe = {}
+        if settle is not None:
+            probe["settle"] = await settle(cluster)
         timeouts = [cluster.election_timeouts()]
         acked = 0
         if warmup:
-            acked = (await cluster.write_all(warmup, CONCURRENCY))["commits"]
+            acked = (await cluster.write_all(
+                warmup, CONCURRENCY, active_groups))["commits"]
         timeouts.append(cluster.election_timeouts())
         engines = [s.engine for s in cluster.servers]
         saved = _fresh_dispatch_timers(engines)
         if tracing:
             # decompose the measured writes only
             get_tracer().reset()
-        probe = {}
+        load = cluster.write_all(writes, CONCURRENCY, active_groups)
         if during is None:
-            stats = await cluster.write_all(writes, CONCURRENCY)
+            stats = await load
         else:
-            stats, probe["during"] = await asyncio.gather(
-                cluster.write_all(writes, CONCURRENCY), during(cluster))
+            stats, probe["during"] = await asyncio.gather(load,
+                                                          during(cluster))
         if tracing:
             records = get_tracer().snapshot()
         timeouts.append(cluster.election_timeouts())
+        if RaftServerConfigKeys.Hibernate.enabled(cluster.properties):
+            probe["hibernated_groups"] = cluster.hibernated_groups()
         dispatch = _dispatch_summary(engines, saved, stats["elapsed_s"])
         acked += stats["commits"]
         counters = await cluster.read_counters(timeout=300)
-        want = [warmup + writes] * len(cluster.servers)
-        bad = {str(gid): v for gid, v in counters.items() if v != want}
+        active = {g.group_id for g in cluster.groups[:active_groups]}
+        bad = {str(gid): v for gid, v in counters.items()
+               if v != [warmup + writes * (gid in active)]
+               * len(cluster.servers)}
         if len(counters) != groups or bad:
-            raise AssertionError(f"counters differ from {want} in "
-                                 f"{len(bad)} groups: {list(bad.items())[:4]}")
+            raise AssertionError(f"counters differ from the acknowledged "
+                                 f"writes in {len(bad)} groups: "
+                                 f"{list(bad.items())[:4]}")
         # the watchdog's ledger pass samples once a second on every server
         deadline = time.monotonic() + 30
         while any(s.engine.ledger.samples.count == 0
@@ -716,6 +769,7 @@ async def e2e_rung(cluster, writes: int = 8, warmup: int = WARMUP_WRITES,
                 "transport": cluster.transport, "writes": writes,
                 "warmup": warmup, "concurrency": CONCURRENCY,
                 "mesh_devices": mesh_n,
+                "active_groups": len(active),
                 "commits": stats["commits"],
                 "acked": acked,
                 "write_failures": 0, "elapsed_s": stats["elapsed_s"],
@@ -966,6 +1020,24 @@ async def churn_rung(cluster, writes: int = 8) -> dict:
         await cluster.close()
 
 
+def chaos_rung(device="cuda", seed: int = 1, groups: int = 1024,
+               artifact_dir: str = None) -> dict:
+    """``child_chaos``: ``run_chaos_1024`` on ``device`` (its ChaosCluster
+    builds its own servers, so one engine is prewarmed first: the
+    kernels' build and load must not fall inside an election); a failing
+    scenario writes its replay artifact into ``artifact_dir``."""
+    from ratis_tpu_torch.chaos.campaign import run_chaos_1024
+    from ratis_tpu_torch.engine.engine import QuorumEngine
+    dev = str(_device(device))
+    QuorumEngine(max_groups=QuorumEngine._bucket(groups),
+                 scalar_fallback_threshold=0, use_device=True,
+                 device=dev).prewarm()
+    out = asyncio.run(run_chaos_1024(seed=seed, num_groups=groups,
+                                     artifact_dir=artifact_dir, device=dev))
+    out["engine_device"] = dev
+    return out
+
+
 def _trace_blocks(records, trace_out: str = None) -> dict:
     """``host_path_decomposition`` of the traced writes' span records (and
     the rings' drops, when any), and their Chrome trace written to
@@ -1008,8 +1080,9 @@ def main(argv=None) -> int:
                     metavar="G,P,E", help="mesh_100k rung shape")
     ap.add_argument("--groups", type=int, default=None,
                     help=f"groups of the rungs that bring up a cluster "
-                         f"(default {GROUPS}; filestore5 "
-                         f"{FILESTORE5_GROUPS}; not the mesh pair's)")
+                         f"(default {GROUPS}; filestore5, upkeep and the "
+                         f"sparse pair {FILESTORE5_GROUPS}; placement 48; "
+                         f"not the mesh pair's)")
     ap.add_argument("--writes", type=int, default=8)
     ap.add_argument("--seed", type=int, default=0,
                     help="seed of the streams' bytes")
@@ -1017,6 +1090,20 @@ def main(argv=None) -> int:
                     help="the traced rung's Chrome trace")
     ap.add_argument("--mesh-groups", type=int, default=10_240,
                     help="groups of the mesh and sim_10240 rungs")
+    ap.add_argument("--active", type=int, default=None,
+                    help="groups written in the sparse rungs (default "
+                         "1024)")
+    ap.add_argument("--settle", type=float, default=None,
+                    help="seconds of the upkeep, sparse_hib and placement "
+                         "rungs' settle (default 25, 20, 6)")
+    ap.add_argument("--chaos-seed", type=int, default=1,
+                    help="seed of the chaos rung's campaign")
+    ap.add_argument("--artifact-dir", default=None,
+                    help="where a failing chaos scenario writes its replay "
+                         "artifact (python -m "
+                         "ratis_tpu_torch.tools.chaos_replay FILE)")
+    ap.add_argument("--clients", type=int, default=None,
+                    help="clients of the placement rung (default 384)")
     args = ap.parse_args(argv)
     rungs = [r for r in args.rungs.split(",") if r]
     unknown = sorted(set(rungs) - set(RUNGS))
@@ -1066,6 +1153,37 @@ def main(argv=None) -> int:
         out["traced"] = asyncio.run(e2e_rung(
             traced_cluster(args.device, groups), args.writes,
             trace_out=args.trace_out))
+    # the upkeep plane and the sparse pair (tools/upkeep_bench.py)
+    from ratis_tpu_torch.tools import upkeep_bench as ub
+    if "upkeep" in rungs:
+        settle = ub.UPKEEP_SETTLE_S if args.settle is None else args.settle
+        out["upkeep"] = asyncio.run(ub.upkeep_rung(
+            ub.upkeep_cluster(args.device, args.groups or ub.UPKEEP_GROUPS),
+            settle, teardown=False))
+    for rung, hibernate in (("sparse_hib", True), ("sparse_plain", False)):
+        if rung in rungs:
+            settle = (ub.SPARSE_SETTLE_S if args.settle is None
+                      else args.settle)
+            out[rung] = asyncio.run(e2e_rung(
+                e2e_cluster(args.device, args.groups or ub.SPARSE_GROUPS,
+                            "sim", hibernate=hibernate),
+                ub.SPARSE_WRITES, warmup=0,
+                settle=ub.hibernate_settle(settle),
+                active_groups=args.active or ub.SPARSE_ACTIVE))
+    if "chaos" in rungs:
+        out["chaos"] = chaos_rung(args.device, args.chaos_seed, groups,
+                                  args.artifact_dir)
+    if "placement" in rungs:
+        from ratis_tpu_torch.tools import placement_bench as pb
+        load = pb.PLACEMENT
+        out["placement"] = asyncio.run(pb.placement_rung(
+            pb.placement_cluster(args.device, args.groups or load["groups"],
+                                 load["servers"], load["element_limit"]),
+            clients=args.clients or load["clients"],
+            requests_per_client=load["requests_per_client"],
+            pace_s=load["pace_s"], hot_pins=load["hot_pins"],
+            settle_s=(load["settle_s"] if args.settle is None
+                      else args.settle)))
     # the FileStore rungs, each under its load in filestore_bench.LOADS
     from ratis_tpu_torch.tools import filestore_bench as fb
     for rung in fb.LOADS:
@@ -1079,4 +1197,10 @@ def main(argv=None) -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    code = main()
+    sys.stdout.flush()
+    sys.stderr.flush()
+    # the upkeep rung leaves its divisions up (3 x 10240): the process ends
+    # here without unwinding them, as the JAX bench's measurement children
+    # do
+    os._exit(code)

@@ -35,6 +35,11 @@ versions on the card), so both hold the kernels to the same cases:
 - the engine's prepared calls: a fast tick, a refresh tick or a vote
   pass's rows packed into a ``FastPlan`` / ``RefreshPlan`` /
   ``TallyPlan`` as the engine packs them;
+- a hibernated sparse fleet (``sleeping_state``, ``sleeping_events``,
+  ``sleeping_refresh``): most rows asleep, their followers' deadlines
+  60000-62000 ms ahead (the backstop plus a random election timeout) or
+  at INT32_MAX, and updated so in the tick (the clamp to ``NO_DEADLINE``
+  included), their leaders' acks stopped, and few acks;
 - ledger: duplicate dense peer ids in a row, unmapped columns (-1), ids
   past the table width, argmax ties, and optionally one (peer, bucket)
   cell holding more than 2048 links.
@@ -179,6 +184,82 @@ def sliced_events(rng, g: int, p: int, s: int, e: int, now: int = 100_000,
         ev[:, i, cut:] = SENT
         ev[(0, 1, 4), i, cut:] = 0
     return ev
+
+
+# raft.tpu.hibernate.backstop (60 s) plus a follower's random election
+# timeout: how far ahead a hibernated follower arms its deadline
+SLEEP_AHEAD_MS = (60_000, 62_000)
+
+
+def _sleep_deadlines(rng, n: int, now: int) -> np.ndarray:
+    """Deadlines a hibernated follower arms: ``now`` plus 60000-62000 ms,
+    clamped to INT32_MAX as the division clamps them, a fifth at
+    INT32_MAX (a full disarm)."""
+    lo, hi = SLEEP_AHEAD_MS
+    dl = np.minimum(now + rng.integers(lo, hi + 1, size=n, dtype=np.int64),
+                    INT32_MAX).astype(np.int32)
+    dl[rng.random(n) < 0.2] = INT32_MAX
+    return dl
+
+
+def sleeping_state(rng, g: int, p: int, now: int = 100_000,
+                   members: int = None) -> list:
+    """The ten DeviceState fields of a hibernated sparse fleet:
+    ``resident_state``'s rows, nine in ten of them then asleep: a third
+    leaders whose acks stopped 2-60 s ago (stale by the check; the engine
+    skips a hibernating leader's verdict), the rest followers whose
+    deadlines lie 60000-62000 ms ahead or at INT32_MAX; every asleep row
+    caught up (match = flush = commit)."""
+    st = resident_state(rng, g, p, now, members)
+    match, last_ack, _, _, _, role, flush, commit, _, deadline = st
+    asleep = np.nonzero(rng.random(g) < 0.9)[0]
+    leads = rng.random(len(asleep)) < 1 / 3
+    role[asleep] = np.where(leads, np.int8(3), np.int8(1))
+    commit[asleep] = flush[asleep]
+    match[asleep] = flush[asleep][:, None]
+    last_ack[asleep[leads]] = now - rng.integers(
+        2_000, 60_000, size=(int(leads.sum()), p)).astype(np.int32)
+    deadline[asleep[leads]] = INT32_MAX
+    deadline[asleep[~leads]] = _sleep_deadlines(rng, int((~leads).sum()),
+                                                now)
+    return st
+
+
+def sleeping_events(rng, g: int, p: int, e: int,
+                    now: int = 100_000) -> np.ndarray:
+    """A fast-tick pack int32 [7, e] of a sleeping fleet: acks on a
+    sixteenth of the columns (a few awake groups), deadline updates on a
+    quarter (unique rows, each armed 60000-62000 ms ahead or at
+    INT32_MAX, their flush a sentinel), the rest sentinel padding."""
+    ev = np.full((7, e), SENT, np.int32)
+    ev[(0, 1, 4), :] = 0
+    n_ack = max(1, e // 16)
+    ev[0, :n_ack] = rng.integers(0, g, size=n_ack)
+    ev[1, :n_ack] = rng.integers(0, p, size=n_ack)
+    ev[2, :n_ack] = rng.integers(-1, 2500, size=n_ack)
+    ev[3, :n_ack] = rng.integers(now - 100, now + 1, size=n_ack)
+    ev[4, :n_ack] = 1
+    n_up = min(e // 4, g)
+    cols = slice(n_ack, n_ack + n_up)
+    ev[0, cols] = rng.permutation(g)[:n_up]
+    ev[6, cols] = _sleep_deadlines(rng, n_up, now)
+    return ev
+
+
+def sleeping_refresh(rng, g: int, p: int, d: int, e: int,
+                     now: int = 100_000) -> tuple[np.ndarray, list, list]:
+    """``refresh``'s (rf_idx, rows, acks) for a sleeping fleet: the
+    refreshed rows are ``sleeping_state``'s (groups falling asleep or
+    waking), the acks ``sleeping_events``' few."""
+    n = int(rng.integers(1, d + 1))
+    rows = np.sort(rng.permutation(g)[:min(n, g)]).astype(np.int32)
+    rf_idx = np.full(d, g, np.int32)
+    rf_idx[:len(rows)] = rows
+    rf = sleeping_state(rng, d, p, now)
+    ev = sleeping_events(rng, g, p, e, now)
+    ack_cols = ev[4] != 0
+    acks = [np.where(ack_cols, ev[i], 0).astype(np.int32) for i in range(4)]
+    return rf_idx, rf, [*acks, ack_cols.copy()]
 
 
 HOT_ROWS = (40, 41, 42)

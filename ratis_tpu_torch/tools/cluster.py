@@ -171,11 +171,15 @@ def cluster_properties(num_groups: int, num_servers: int = 3,
                        device: str = "cuda", transport: str = "sim",
                        mesh_devices: int = 0, storage_dir: str = None,
                        shared_log: bool = False,
-                       trace: bool = False) -> RaftProperties:
+                       trace: bool = False,
+                       hibernate: bool = False) -> RaftProperties:
     """The batched deployment of ``num_groups`` groups on ``num_servers``
     servers: the JAX bench's ``bench_properties(batched=True, num_groups,
-    num_servers=..., transport=..., mesh_devices=..., trace=...)`` key for
-    key, plus the port's engine device.  ``mesh_devices`` > 0 runs every
+    num_servers=..., transport=..., mesh_devices=..., trace=...,
+    hibernate=...)`` key for key, plus the port's engine device.
+    ``hibernate`` lets an idle group's leader stop heartbeating it and its
+    followers arm the long backstop deadline (``raft.tpu.hibernate.*``;
+    it rides the coalesced heartbeats).  ``mesh_devices`` > 0 runs every
     engine as that many slices of its group batch (``parallel/mesh.py``);
     ``trace`` records the host-path stage spans of every
     ``TRACE_SAMPLE``-th write (``trace/``).  With
@@ -228,6 +232,8 @@ def cluster_properties(num_groups: int, num_servers: int = 3,
     p.set(WireConfigKeys.Tcp.FLUSH_MICROS_KEY, "100")
     p.set(WireConfigKeys.Grpc.FLUSH_MICROS_KEY, "100")
     p.set(WireConfigKeys.Grpc.FLUSH_CHUNKS_KEY, "64")
+    if hibernate:
+        p.set(RaftServerConfigKeys.Hibernate.ENABLED_KEY, "true")
     return p
 
 
@@ -344,6 +350,13 @@ class Cluster:
         return sum(d.election_metrics.timeout_count.count
                    for s in self.servers for d in s.divisions.values())
 
+    def hibernated_groups(self) -> int:
+        """Groups whose leader sleeps now (``Division._hibernating``, set
+        on the leader), summed over every server: the JAX bench's
+        ``hibernated_groups``."""
+        return sum(1 for s in self.servers for d in s.divisions.values()
+                   if d._hibernating)
+
     def leader_of(self, group: RaftGroup):
         for s in self.servers:
             d = s.divisions.get(group.group_id)
@@ -382,9 +395,12 @@ class Cluster:
         return c
 
     async def write_all(self, writes_per_group: int,
-                        concurrency: int = 256) -> dict:
+                        concurrency: int = 256,
+                        active_groups: int = None) -> dict:
         """``writes_per_group`` sequential writes per group, groups
-        concurrent under ``concurrency`` writes in flight: INCREMENTs, or
+        concurrent under ``concurrency`` writes in flight (only the first
+        ``active_groups`` groups when given, the sparse shape where the
+        rest stay idle): INCREMENTs, or
         the arithmetic or FileStore workload's messages, drawn from one
         counter group by group within each round of writes (so every
         group's sequence, its variable map and its file names are the
@@ -392,8 +408,9 @@ class Cluster:
         commits/s and commit latency percentiles."""
         sem = asyncio.Semaphore(concurrency)
         latencies: list[float] = []
-        acked = {g.group_id: 0 for g in self.groups}
-        base, n_groups = self._messages, len(self.groups)
+        groups = self.groups[:active_groups]
+        acked = {g.group_id: 0 for g in groups}
+        base, n_groups = self._messages, len(groups)
         if self.sm in ("arithmetic", "filestore"):
             self._messages += writes_per_group * n_groups
 
@@ -423,7 +440,7 @@ class Cluster:
 
         t0 = time.monotonic()
         await asyncio.gather(*(group_load(i, g)
-                               for i, g in enumerate(self.groups)))
+                               for i, g in enumerate(groups)))
         elapsed = time.monotonic() - t0
         latencies.sort()
         n = len(latencies)

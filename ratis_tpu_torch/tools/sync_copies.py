@@ -38,6 +38,8 @@ VERBATIM = (
     "models/__init__.py", "models/arithmetic.py", "models/counter.py",
     "models/filestore.py",
     "ops/__init__.py", "ops/reference.py", "ops/upkeep.py",
+    "placement/__init__.py", "placement/actuate.py",
+    "placement/controller.py", "placement/policy.py",
     "protocol/__init__.py", "protocol/admin.py", "protocol/exceptions.py",
     "protocol/group.py", "protocol/ids.py", "protocol/logentry.py",
     "protocol/message.py", "protocol/peer.py", "protocol/raftrpc.py",
@@ -50,9 +52,8 @@ VERBATIM = (
     "server/replication.py", "server/retrycache.py", "server/shards.py",
     "server/snapshot.py",
     "server/state.py", "server/statemachine.py", "server/storage.py",
-    "server/watch.py", "server/watchdog.py",
+    "server/upkeep.py", "server/watch.py", "server/watchdog.py",
     "server/log/__init__.py", "server/log/base.py", "server/log/memory.py",
-    "server/log/segmented.py", "server/log/shared.py",
     "server/serving/__init__.py", "server/serving/admission.py",
     "server/serving/readbatch.py",
     "trace/__init__.py", "trace/tracer.py", "trace/export.py",
@@ -63,12 +64,16 @@ VERBATIM = (
 )
 
 # copies whose code the port changes (device code, the engine's device
-# key, the package docstring, the mesh as slices of one device); maintained
+# key, the package docstring, the mesh as slices of one device, the chaos
+# harness's engine device and the port's harness properties, and the
+# durable logs' flush wait, shielded from a cancelled caller); maintained
 # by hand
 CHANGED = (
-    "__init__.py", "conf/keys.py", "engine/engine.py", "engine/ledger.py",
+    "__init__.py", "chaos/campaign.py", "chaos/cluster.py", "conf/keys.py",
+    "engine/engine.py", "engine/ledger.py",
     "ops/ledger.py", "ops/quorum.py", "parallel/__init__.py",
-    "parallel/mesh.py", "server/server.py",
+    "parallel/mesh.py", "server/log/segmented.py", "server/log/shared.py",
+    "server/server.py", "tools/chaos_replay.py",
 )
 
 _NAME = re.compile(r"\bratis_tpu\.")

@@ -1005,3 +1005,42 @@ def test_five_peer_filestore_cluster_runs_on_the_card(card):
     asyncio.run(run())
     launched = [k.launches - n for k, n in zip(kernels, before)]
     assert all(n > 0 for n in launched[:4]) and launched[4] == 0, launched
+
+
+@pytest.mark.parametrize("name", ["crash_restart_leader", "rebalance_storm"])
+def test_chaos_scenario_runs_on_the_card(card, name):
+    """A 3 x 8 ChaosCluster on the card with the batched engine on every
+    tick (scalar-fallback threshold 0, as the JAX package's batched chaos
+    test sets it; 8 groups are under the default threshold): the scenario
+    passes its SLOs, the servers a crash rebuilt run on the card too, and
+    K1-K4 launched on the fault path (K5 not)."""
+    from ratis_tpu_torch.chaos.cluster import ChaosCluster, chaos_properties
+    from ratis_tpu_torch.chaos.scenario import run_scenario
+    from ratis_tpu_torch.chaos.scenarios import build_scenario
+    from ratis_tpu_torch.engine.engine import QuorumEngine
+    QuorumEngine(max_groups=64, device=card).prewarm()
+    kernels = (tq.K1, tq.K2, tq.K3, tl.K4, tq.K5)
+    cfg = {"servers": 3, "groups": 8, "writers": 4, "active_groups": 8,
+           "sm": "counter", "convergence_s": 30.0, "recovery_s": 60.0,
+           "min_acked": 20}
+
+    async def run():
+        p = chaos_properties(8, seed=7)
+        p.set("raft.tpu.engine.scalar-fallback-threshold", "0")
+        cluster = ChaosCluster(3, 8, properties=p, sm="counter", seed=7)
+        await cluster.start()
+        before = [k.launches for k in kernels]
+        try:
+            result = await run_scenario(cluster,
+                                        build_scenario(name, 7, cfg))
+            assert result.passed, (result.error, result.journal)
+            assert result.acked > cfg["min_acked"]
+            for s in cluster.servers.values():
+                assert s.engine.device.type == "cuda"
+                assert s.engine._dev is None \
+                    or s.engine._dev.match_index.is_cuda
+        finally:
+            await cluster.close()
+        return [k.launches - n for k, n in zip(kernels, before)]
+    launched = asyncio.run(run())
+    assert all(n > 0 for n in launched[:4]) and launched[4] == 0, launched

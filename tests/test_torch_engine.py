@@ -75,7 +75,13 @@ def _assert_same(j, t, step):
                 err_msg=f"step {step}: device {name}")
 
 
-def test_lockstep_engine_differential():
+# the engine counters that name the kind of each tick
+TICK_KINDS = ("fast_ticks", "refresh_ticks", "batched_dispatches")
+
+
+def _lockstep(on_step=None) -> None:
+    """The lockstep script; ``on_step(j, t, step)`` after every step's
+    ticks and checks."""
     async def run():
         rng = random.Random(2024)
         j, t = _engines()
@@ -189,6 +195,8 @@ def test_lockstep_engine_differential():
                     assert fj.cancelled() == ft.cancelled(), (step, g)
                     if not fj.cancelled():
                         assert fj.result() == ft.result(), (step, g)
+            if on_step is not None:
+                on_step(j, t, step)
 
         # the script reached what it claims to cover
         assert t.metrics["fast_ticks"] > 0 and t.metrics["refresh_ticks"] > 0
@@ -203,3 +211,29 @@ def test_lockstep_engine_differential():
             await e.close()
 
     asyncio.run(run())
+
+
+def test_lockstep_engine_differential():
+    _lockstep()
+
+
+def test_engine_tick_kinds_match_jax():
+    """The port's engine takes the same kind of tick as the JAX engine on
+    every step: after each step the fast ticks, refresh ticks and batched
+    dispatches so far are equal.  On a served path the refresh ticks come
+    from role and conf changes (commits advance inline at ack intake, the
+    tick drives timeouts and staleness), so their share is the
+    reference's own."""
+    seen = []
+
+    def on_step(j, t, step):
+        got = {k: (j.metrics[k], t.metrics[k]) for k in TICK_KINDS}
+        assert all(a == b for a, b in got.values()), (step, got)
+        seen.append(got)
+
+    _lockstep(on_step)
+    assert len(seen) == 60
+    last = seen[-1]
+    assert last["fast_ticks"][1] > 0 and last["refresh_ticks"][1] > 0
+    assert last["batched_dispatches"][1] >= \
+        last["fast_ticks"][1] + last["refresh_ticks"][1]
