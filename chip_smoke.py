@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Run the PyTorch/CUDA port's main path on one CUDA card and check it.
 
-    python3 chip_smoke.py [--groups 1024] [--writes 4] [--seed 0] [--out FILE]
+    python3 chip_smoke.py [--groups 1024] [--writes 2] [--seed 0] [--out FILE]
 
 Phases, in order; any failure raises, exits non-zero and prints no
 result line:
@@ -56,7 +56,7 @@ result line:
       three replicas (K1-K4; the cluster is prewarmed before the counts
       are zeroed); a socket that cannot bind fails the run;
    d. the mesh path: 3 servers x 1024 groups with ``mesh-devices=8`` over
-      the simulated transport, 4 INCREMENTs per group, every counter read
+      the simulated transport, 2 INCREMENTs per group, every counter read
       back from all three replicas, 8 slices on every server (K5, K2, K3
       and K4 > 0; K1 must stay 0: a mesh engine's fast ticks are K5);
       then ``dryrun_multichip(8)`` and the bench's ``mesh_100k`` rung
@@ -64,11 +64,14 @@ result line:
    e. ``durable_1024``, the bench's ``durable`` rung: 3 servers x 1024
       groups over localhost TCP on the server's default durable log
       (per-group segment files in a fresh temporary directory),
-      ``ArithmeticStateMachine``, 1 + 2 writes per group at 128 in
+      ``ArithmeticStateMachine``, 1 + 1 writes per group at 128 in
       flight; every replica's variable map equal to the fold of the
       acknowledged writes, then a full restart from disk and the same
       check (K1-K4 > 0, K5 0); fsyncs per commit and the storage's
-      filesystem are printed;
+      filesystem are printed; then, before the storage is removed,
+      ``python -m ratis_tpu_torch.tools.parse_log`` on the segment files
+      of one group's division on one server: the entries it counts must
+      equal that division's log;
    f. ``shared_256``: the same on the shared log plane
       (``raft.tpu.log.shared``) at 3 x 256 groups;
    g. ``churn_1024``, the bench's ``churn`` rung: 3 x 1024 over the
@@ -93,23 +96,28 @@ result line:
       members);
    j. ``telemetry_1024``, the bench's ``telemetry`` rung (the TCP
       headline's deployment with the telemetry sampler on, one sample a
-      second) with every server's HTTP endpoint on a port it binds: every
+      second; 1 + 2 writes per group) with every server's HTTP endpoint on
+      a port it binds: every
       route (``/metrics``, ``/health``, ``/divisions``, ``/events``,
       ``/lag``, ``/timeseries``, ``/hotgroups``, ``/flightrecorder``)
       fetched over HTTP from every server during the measured writes and
       after them, each answering 200 and parsing; ``/timeseries`` holding a
       sample for each second of the writes but one; after the writes
       settle, every row a server leads carrying its division's own commit
-      index in the ledger sample its ``/lag`` request took (K1-K4 > 0, K5
-      0);
+      index in the ledger sample its ``/lag`` request took; then the
+      shell's HTTP commands as subprocesses against the servers' ports
+      (``python -m ratis_tpu_torch.shell health``, ``lag``, ``top
+      -iterations 1``): ``lag`` and ``top`` must exit 0 and list every
+      server, ``health``'s exit code and the watchdog events it counts are
+      printed (it exits 1 on any journaled event) (K1-K4 > 0, K5 0);
    k. ``sparse_4096``: 3 servers x 4096 groups over the simulated
       transport with hibernation and the upkeep plane
       (``raft.tpu.upkeep.enabled``) on; settled until every idle leader
       sleeps (at most 20 s; some must), the upkeep tick pair timed on the
       live divisions (the plane's sweep against the legacy walk), the
-      plane's registered slots equal to the 12288 divisions; then 8
+      plane's registered slots equal to the 12288 divisions; then 4
       writes per group on the first 1024 groups at 128 in flight and
-      every counter read back from all three replicas (8 on the written
+      every counter read back from all three replicas (4 on the written
       groups, 0 on the others); the stale verdicts the engine skipped for
       hibernating leaders are counted (K1-K4 > 0, K5 0);
    l. ``chaos_1024``, the bench's ``chaos`` rung: the campaign of 12
@@ -119,11 +127,31 @@ result line:
       its SLOs and every injected fault be journaled and recovered; the
       servers a crash rebuilds are counted too (K1-K4 > 0, K5 0);
    m. ``placement_48``, the bench's ``placement`` rung: 4 servers x 48
-      groups over localhost TCP, 384 zipf clients with a pinned hotspot
-      and a grey follower, phase OFF, then a placement controller on
-      every server and phase ON; no request may fail and the controllers
+      groups over localhost TCP, 384 zipf clients (3 write+read pairs
+      each, 0.25 s apart) with a pinned hotspot and a grey follower, phase
+      OFF, then a placement controller on every server, 3 s of settle and
+      phase ON; no request may fail and the controllers
       must have planned (K1-K4 > 0, K5 0);
-   on every served path (a, c-m) each ledger sample (the watchdogs', the
+   n. ``readmix_1024``, the bench's ``readmix`` rung at its full size: 3
+      servers x 1024 groups over localhost TCP, CounterStateMachine,
+      memory log, linearizable reads with the leader lease, 4 writes per
+      group each chased by a lease read at the leader and a linearizable
+      and a stale read at a follower, 128 in flight; every read value
+      within the group's writes acknowledged and sent, every replica's
+      counter within them after the load (0 read and 0 replica
+      mismatches), failures within the JAX rung's bounds; per server the
+      reads served beside the readIndex confirmation sweeps (K1-K4 > 0,
+      K5 0; K7c too: the lease expiry is computed on the host, as in the
+      reference);
+   o. ``zipf_1024``, the bench's ``zipf`` rung at its full size: 3 x 1024
+      over TCP, 10240 clients with zipf(1.1) homes, a write and a
+      linearizable read each, 512 in flight, admission control at 192
+      pending elements, telemetry at 250 ms, after an unsaturated phase of
+      256 clients; the same read and replica checks, fleet failures within
+      the rung's bound and the pending peak at or under 192; shed
+      fraction, overload p99 ratio and the sketch's hot group against the
+      expected one are printed (K1-K4 > 0, K5 0);
+   on every served path (a, c-o) each ledger sample (the watchdogs', the
    telemetry samplers', the placement controllers' and each ``GET
    /lag``'s) must make exactly one call into the kernel library, its
    prepared call's, and launch K4 once;
@@ -163,12 +191,10 @@ result line:
    (K3 at the vote passes' most common padded R, ``K3_public`` at G; K5
    also at the mesh100k rung's), K6 at both rung shapes; CUDA events, warm-up,
    median of 200 calls (K1/K2/K5 each on the same fresh state), beside
-   the plain version's time and the card's bound for the same work, each
-   one's device time per call from ``torch.profiler`` (on the card hosts
-   the profiler sometimes drops the records of kernels launched from the
-   kernel libraries, so these may read low or be missing) and from 20
-   calls captured in a CUDA graph and replayed between CUDA events, and
-   its host time per call issued back to back; K1 also with each tile
+   the plain version's time (median of 20 calls) and the card's bound
+   for the same work, each one's device time per call from 20 calls
+   captured in a CUDA graph and replayed between CUDA events, and its
+   host time per call issued back to back; K1 also with each tile
    size at G = 1024, 10240, 102400 and E = 64, 16384, and on the mesh100k
    rung's flat control (102400 x 8 x 8192); K7a-c at G = 1024, P = 8
    (K7a with 2048 events), K7a-c and ``K3_public`` again at G = 102400
@@ -195,6 +221,8 @@ import argparse
 import asyncio
 import collections
 import json
+import os
+import pathlib
 import statistics
 import subprocess
 import sys
@@ -315,11 +343,11 @@ NO_LIBRARY = {
     "K7c": "none: no one PyTorch call takes the lease's majority-min with "
            "its wrapping expiry"}
 # the durable paths: 3 x 1024 per-group logs, 3 x 256 on the shared plane,
-# 1 warm-up + 2 measured writes per group (the bench: 8); the churn path:
+# 1 warm-up + 1 measured write per group (the bench: 8); the churn path:
 # 3 x 1024, 4 writes per group (the bench: 8)
 DURABLE_GROUPS = 1024
 SHARED_GROUPS = 256
-DURABLE_WRITES = 2
+DURABLE_WRITES = 1
 CHURN_GROUPS = 1024
 CHURN_WRITES = 4
 # K6: the other peer counts it is held at (at the first two of
@@ -329,33 +357,37 @@ K6_PEERS = (3, 5, 7, 16)
 # counters do not fit in shared memory and go straight to the output)
 K4_ROWS = (1024, 1000, 10_240)
 K4_WIDTHS = (8, 16, 512)
-# the mesh path: 3 servers x 1024 groups in 8 slices, 4 writes per group.
+# the mesh path: 3 servers x 1024 groups in 8 slices, 2 writes per group.
 # Capacity 2048, not the bench's bucket of 1024: divisions pin to their
 # crc32 slice, which fills 8 slices of 128 rows unevenly, and a full slice
 # refuses its group (the bench's 10240 rung has 16384 rows)
 MESH_GROUPS = 1024
 MESH_SLICES = 8
 MESH_MAX_GROUPS = 2048
-MESH_WRITES = 4
+MESH_WRITES = 2
 # the FileStore paths (BASELINE config 3): the stream rung as the bench runs
 # it; 5 servers x 1024 groups over TCP, one warm-up write and one write per
 # group, then 16 streams of 4 MB (window 32); the telemetry path: the TCP
 # headline's deployment with the sampler on and every server's HTTP
-# endpoint on a port it binds, fetched during and after the writes (1 + 4
+# endpoint on a port it binds, fetched during and after the writes (1 + 2
 # writes per group; the bench: 1 + 8)
 FS5_GROUPS = 1024
 FS5_SERVERS = 5
 FS5_WRITES = 1
 TEL_GROUPS = 1024
-TEL_WRITES = 4
+TEL_WRITES = 2
 # the sparse path: 3 servers x 4096 hosted groups over the simulated
 # transport, hibernation and the upkeep plane on, settled until the idle
-# leaders sleep (at most the JAX sparse rung's 20 s), then 8 writes per
-# group on the first 1024 at 128 in flight
+# leaders sleep (at most the JAX sparse rung's 20 s), then 4 writes per
+# group on the first 1024 at 128 in flight (the bench: 8)
 SPARSE_GROUPS = 4096
 SPARSE_ACTIVE = 1024
-SPARSE_WRITES = 8
+SPARSE_WRITES = 4
 SPARSE_SETTLE_S = 20.0
+# the placement path: the bench's placement rung with 3 write+read pairs
+# a client and a 3 s settle (the bench: 6 and 6 s)
+PLACEMENT_REQUESTS = 3
+PLACEMENT_SETTLE_S = 3.0
 # the chaos path: the bench's chaos rung (run_chaos_1024, 12 scenarios)
 # at its seed; its scenario count
 CHAOS_SEED = 1
@@ -365,6 +397,13 @@ CHAOS_SCENARIOS = 12
 # now + 62000 passes INT32_MAX and the armed deadlines clamp
 SLEEP_ROWS = (4096, 16_384)
 LATE_NOW = 2 ** 31 - 61_000
+# the read paths: the bench's readmix and zipf rungs at their full sizes
+# (tools/read_bench.py READMIX and ZIPF: 3 servers x 1024 groups over
+# TCP, linearizable reads with the leader lease)
+READ_GROUPS = 1024
+# this checkout's root: the shell and parse_log run from it as
+# subprocesses (``python -m ratis_tpu_torch...``)
+ROOT = pathlib.Path(__file__).resolve().parent
 
 
 def log(*a) -> None:
@@ -854,6 +893,87 @@ def run_parity_observed(tq, tl, cases, main, shapes, par: Parity,
 
 
 # -- phase 4: the main path --------------------------------------------------
+
+def module_env() -> dict:
+    """The environment of a ``python -m`` subprocess of this checkout."""
+    env = dict(os.environ)
+    env["PYTHONPATH"] = os.pathsep.join(
+        [str(ROOT)] + [x for x in [env.get("PYTHONPATH")] if x])
+    return env
+
+
+async def run_module(*argv, timeout: float = 120.0) -> tuple:
+    """``python -m argv`` of this checkout as a subprocess, the event loop
+    serving meanwhile: (exit code, stdout, stderr)."""
+    proc = await asyncio.create_subprocess_exec(
+        sys.executable, "-m", *argv, stdout=subprocess.PIPE,
+        stderr=subprocess.PIPE, env=module_env(), cwd=ROOT)
+    try:
+        out, err = await asyncio.wait_for(proc.communicate(), timeout)
+    except asyncio.TimeoutError:
+        proc.kill()
+        await proc.wait()
+        raise
+    return proc.returncode, out.decode(), err.decode()
+
+
+async def run_shell(cluster) -> dict:
+    """The shell's HTTP commands against ``cluster``'s endpoints, each a
+    subprocess: ``health`` (its exit code and the watchdog events it
+    counts; it exits 1 on any journaled event), ``lag`` (must exit 0 and
+    list every server), ``top -iterations 1`` (must exit 0)."""
+    endpoints = ",".join(cluster.http_addresses())
+    peers = sorted(str(s.peer_id) for s in cluster.servers)
+    out = {}
+    t0 = time.monotonic()
+    for name, extra in (("health", ()), ("lag", ()),
+                        ("top", ("-iterations", "1"))):
+        rc, text, err = await run_module("ratis_tpu_torch.shell", name,
+                                         "-endpoints", endpoints, *extra)
+        rows = sorted(line.split()[0] for line in text.splitlines()
+                      if line.split() and line.split()[0] in peers)
+        out[name] = {"rc": rc, "servers_listed": rows,
+                     "first_line": text.splitlines()[0] if text else "",
+                     "stderr_tail": err[-300:]}
+    out["seconds"] = time.monotonic() - t0
+    first = out["health"]["first_line"].split()
+    out["health"]["events"] = (int(first[first.index("watchdog") - 1])
+                               if "watchdog" in first else None)
+    for name in ("lag", "top"):
+        if out[name]["rc"] != 0 or out[name]["servers_listed"] != peers:
+            raise AssertionError(f"shell {name}: {out[name]}")
+    return out
+
+
+def log_span(cluster) -> tuple:
+    """The entries in the log of the first group's division on the first
+    server, and that division's segment files (taken before the close)."""
+    g = cluster.groups[0]
+    d = cluster.servers[0].divisions[g.group_id]
+    return (d.state.log.get_last_entry_term_index().index + 1,
+            sorted(str(f) for f in d.storage.current.glob("log_*")))
+
+
+def parse_log_check(span: tuple) -> dict:
+    """``python -m ratis_tpu_torch.tools.parse_log`` on a ``log_span``'s
+    segment files: the entries it counts must equal the division's log."""
+    want, segments = span
+    if not segments:
+        raise AssertionError("parse_log: no segment file")
+    t0 = time.monotonic()
+    proc = subprocess.run([sys.executable, "-m",
+                           "ratis_tpu_torch.tools.parse_log", *segments],
+                          capture_output=True, text=True, env=module_env(),
+                          cwd=ROOT, timeout=120)
+    last = proc.stdout.strip().splitlines()[-1] if proc.stdout else ""
+    got = int(last.split()[2]) if last.startswith("# total ") else None
+    res = {"rc": proc.returncode, "segments": len(segments),
+           "entries": got, "log_entries": want,
+           "seconds": time.monotonic() - t0}
+    if proc.returncode != 0 or got != want:
+        raise AssertionError(f"parse_log: {res} {proc.stderr[-300:]}")
+    return res
+
 
 async def drive(cluster, writes: int) -> dict:
     try:
@@ -1606,9 +1726,13 @@ def run_durable_path(kernels, bench, groups: int, shared: bool, rec):
         with rec:
             res, launches = counted(
                 kernels, ("K1", "K2", "K3", "K4"),
-                lambda: asyncio.run(bench.durable_rung(cluster,
-                                                       DURABLE_WRITES)),
+                lambda: asyncio.run(bench.durable_rung(
+                    cluster, DURABLE_WRITES,
+                    after=None if shared else log_span)),
                 never=("K5",))
+        if not shared:
+            # one group's segment files, before the storage goes
+            res["parse_log"] = parse_log_check(res.pop("after"))
     want = groups * (bench.WARMUP_WRITES + DURABLE_WRITES)
     if res["acked"] != want or res["replicas_read_back"] != [groups * 3] * 2:
         raise AssertionError(f"durable path: {res['acked']} of {want} "
@@ -1807,7 +1931,9 @@ def run_telemetry_path(kernels, bench, rec):
                 "ports": [s.metrics_http.bound_port
                           for s in cluster.servers],
                 # every route of every server, fetched once in the writes
-                "fetch_during_s": watched["fetch_s"]}
+                "fetch_during_s": watched["fetch_s"],
+                # the shell's HTTP commands against the servers
+                "shell": await run_shell(cluster)}
 
     cluster = bench.telemetry_cluster("cuda", TEL_GROUPS, http_port=0)
     with rec:
@@ -1926,15 +2052,77 @@ def run_placement_path(kernels, rec):
             kernels, ("K1", "K2", "K3", "K4"),
             lambda: asyncio.run(pb.placement_rung(
                 cluster, clients=load["clients"],
-                requests_per_client=load["requests_per_client"],
+                requests_per_client=PLACEMENT_REQUESTS,
                 pace_s=load["pace_s"], hot_pins=load["hot_pins"],
-                settle_s=load["settle_s"])), never=("K5",))
+                settle_s=PLACEMENT_SETTLE_S)), never=("K5",))
     if res["failures"] != 0 or res["plans_computed"] == 0:
         raise AssertionError(f"placement path: {res['failures']} requests "
                              f"failed, {res['plans_computed']} plans")
     if not res["engine_device"].startswith("cuda"):
         raise AssertionError(f"placement path: engine on "
                              f"{res['engine_device']}")
+    res["engine"] = engine_shape(cluster)
+    return res, launches
+
+
+def run_readmix_path(kernels, rec):
+    """The bench's readmix rung at its full size: 3 servers x 1024 groups
+    over TCP, linearizable reads with the leader lease, 4 writes per group
+    each chased by a lease read at the leader and a linearizable and a
+    stale read at a follower, 128 in flight; no read value and no replica
+    may break its bounds."""
+    from ratis_tpu_torch.tools import read_bench as rb
+    load = rb.READMIX
+    cluster = rb.read_cluster("cuda", READ_GROUPS, load["servers"])
+    with rec:
+        res, launches = counted(
+            kernels, ("K1", "K2", "K3", "K4"),
+            lambda: asyncio.run(rb.readmix_rung(
+                cluster, load["writes"], load["reads_per_write"],
+                load["concurrency"])), never=("K5",))
+    want = READ_GROUPS * load["writes"]
+    if res["read_mismatches"] or res["replica_mismatches"] \
+            or res["replicas_read_back"] != READ_GROUPS * load["servers"] \
+            or res["commits"] + res["write_failures"] != want:
+        raise AssertionError(
+            f"readmix path: {res['commits']} of {want} writes, read "
+            f"mismatches {res['read_mismatch_examples']}, replica "
+            f"mismatches {res['replica_mismatch_examples']}, replicas "
+            f"read back {res['replicas_read_back']}")
+    if not res["engine_device"].startswith("cuda"):
+        raise AssertionError(f"readmix path: engine on "
+                             f"{res['engine_device']}")
+    res["engine"] = engine_shape(cluster)
+    return res, launches
+
+
+def run_zipf_path(kernels, rec):
+    """The bench's zipf rung at its full size: 3 servers x 1024 groups
+    over TCP, 10240 clients with zipf(1.1) homes, a write and a
+    linearizable read each, 512 in flight, admission at 192 pending
+    elements, telemetry at 250 ms; no read value and no replica may break
+    its bounds, and the pending peak stays at or under the limit (one
+    shard per server)."""
+    from ratis_tpu_torch.tools import read_bench as rb
+    load = rb.ZIPF
+    cluster = rb.read_cluster("cuda", READ_GROUPS, load["servers"],
+                              zipf=True,
+                              element_limit=load["element_limit"])
+    with rec:
+        res, launches = counted(
+            kernels, ("K1", "K2", "K3", "K4"),
+            lambda: asyncio.run(rb.zipf_rung(cluster)), never=("K5",))
+    if res["read_mismatches"] or res["replica_mismatches"] \
+            or res["replicas_read_back"] != READ_GROUPS * load["servers"] \
+            or res["pending_peak"] > load["element_limit"]:
+        raise AssertionError(
+            f"zipf path: pending peak {res['pending_peak']} (limit "
+            f"{load['element_limit']}), read mismatches "
+            f"{res['read_mismatch_examples']}, replica mismatches "
+            f"{res['replica_mismatch_examples']}, replicas read back "
+            f"{res['replicas_read_back']}")
+    if not res["engine_device"].startswith("cuda"):
+        raise AssertionError(f"zipf path: engine on {res['engine_device']}")
     res["engine"] = engine_shape(cluster)
     return res, launches
 
@@ -1970,7 +2158,7 @@ def time_inplace(tq, st, kernel, plain):
             x.copy_(y)
 
     ms = timed(lambda: kernel(a), restore)
-    plain_ms = timed(lambda: plain(a), restore)
+    plain_ms = timed(lambda: plain(a), restore, n=PLAIN_CALLS)
     restore()
     plain(a)
     return ms, plain_ms, written_bytes(fresh, a)
@@ -1986,18 +2174,18 @@ def k6_bytes(g: int, p: int, e: int) -> int:
 
 
 # host us per call of each timed wrapper, and its device us per call from
-# a CUDA graph (keys as in device_us)
+# a CUDA graph, by timing key
 HOST_US: dict = {}
 GRAPH_US: dict = {}
+# calls in a plain version's timed median (its ms-scale times need no 200)
+PLAIN_CALLS = 20
 
 
-def per_call(key: str, fn):
-    """Device us per call of ``fn`` from the profiler (returned), its host
-    us per call (HOST_US[key]) and its device us per call from a CUDA
-    graph (GRAPH_US[key])."""
+def per_call(key: str, fn) -> None:
+    """The host us per call of ``fn`` (HOST_US[key]) and its device us per
+    call from a CUDA graph (GRAPH_US[key])."""
     HOST_US[key] = host_us(fn)
     GRAPH_US[key] = graph_us_per_call(fn)
-    return device_us_per_call(fn)
 
 
 def graph_us_per_call(fn, n: int = 20):
@@ -2011,24 +2199,7 @@ def graph_us_per_call(fn, n: int = 20):
         return None
 
 
-def device_us_per_call(fn, n: int = 20):
-    """Device time per call of ``fn`` (every kernel and copy the profiler
-    traced, summed), or None when the trace shows no device time."""
-    from ratis_tpu_torch.tools.profile_main_path import _device_us
-    fn()
-    torch.cuda.synchronize()
-    acts = [torch.profiler.ProfilerActivity.CPU,
-            torch.profiler.ProfilerActivity.CUDA]
-    with torch.profiler.profile(activities=acts) as prof:
-        for _ in range(n):
-            fn()
-        torch.cuda.synchronize()
-    total = sum(_device_us(evt) for evt in prof.key_averages()
-                if evt.device_type == torch.autograd.DeviceType.CUDA)
-    return total / n if total > 0 else None
-
-
-def k2_timing(tq, cases, rng, g, p, d, e, out, key, device_us) -> None:
+def k2_timing(tq, cases, rng, g, p, d, e, out, key) -> None:
     """K2's public wrapper at one shape: each input read once (the state,
     the refresh indices and the rows that are not padding, 17 bytes per
     ack), the state bytes it changes and the int32 [4, G] output written
@@ -2050,11 +2221,11 @@ def k2_timing(tq, cases, rng, g, p, d, e, out, key, device_us) -> None:
                 f"G={g} P={p} D={d} ({d_real} rows) E={e} "
                 f"tile={tq.tick_tile(g)}")
     a = tq.device_state_from_numpy(st, "cuda")
-    device_us[key] = per_call(key, lambda: tq.engine_step_resident(
+    per_call(key, lambda: tq.engine_step_resident(
         a, rf_idx, *rf, *acks, NOW, TIMEOUT_MS))
 
 
-def k2_extra_timing(tq, cases, rng, p, out, device_us) -> None:
+def k2_extra_timing(tq, cases, rng, p, out) -> None:
     """K2 with each tile size at G = 1024, 10240 and 102400, at the main
     paths' most common (D, E) = (64, 64) and at the acks' cap (E = 16384,
     where every block scans 64 KB of ack rows)."""
@@ -2065,12 +2236,12 @@ def k2_extra_timing(tq, cases, rng, p, out, device_us) -> None:
                 for t in TILES:
                     tq.tick_tile = lambda g, t=t: t
                     k2_timing(tq, cases, rng, gx, p, d, e, out,
-                              f"K2_G{gx}_D{d}_E{e}_tile{t}", device_us)
+                              f"K2_G{gx}_D{d}_E{e}_tile{t}")
     finally:
         tq.tick_tile = tile
 
 
-def k1_timing(tq, st, ev_np, out, key, device_us) -> None:
+def k1_timing(tq, st, ev_np, out, key) -> None:
     """K1 on ``ev_np`` ([7, E]) over the state ``st``: each input read
     once (the state, the E event columns, meta), the state it changes and
     the [4, G] output written once."""
@@ -2084,11 +2255,11 @@ def k1_timing(tq, st, ev_np, out, key, device_us) -> None:
     out[key] = (ms, plain, *bound(nbytes, g * (4 * p * p + 64) + 10 * e),
                 f"G={g} P={p} E={e} tile={tq.tick_tile(g)}")
     a = tq.device_state_from_numpy(st, "cuda")
-    device_us[key] = per_call(
+    per_call(
         key, lambda: tq.engine_step_resident_fast(a, ev, meta))
 
 
-def k1_extra_timing(tq, cases, rng, p, out, device_us) -> None:
+def k1_extra_timing(tq, cases, rng, p, out) -> None:
     """K1 with each tile size at G = 1024, 10240 and 102400, at the main
     paths' most common E = 64 and at the acks' cap (E = 16384, where
     every block scans 64 KB of slot rows); at 1024 rows also at the
@@ -2101,13 +2272,12 @@ def k1_extra_timing(tq, cases, rng, p, out, device_us) -> None:
                 ev = cases.fast_events(rng, g, p, e, NOW)
                 for t in TILES:
                     tq.tick_tile = lambda g, t=t: t
-                    k1_timing(tq, st, ev, out, f"K1_G{g}_E{e}_tile{t}",
-                              device_us)
+                    k1_timing(tq, st, ev, out, f"K1_G{g}_E{e}_tile{t}")
     finally:
         tq.tick_tile = tile
 
 
-def k5_timing(tq, st, ev_np, out, key, device_us) -> None:
+def k5_timing(tq, st, ev_np, out, key) -> None:
     """K5 on ``ev_np`` ([7, S, E]) over the state ``st``: each input read
     once (the state, the S x E event columns, meta), the state it changes
     and the [4, G] output written once."""
@@ -2121,11 +2291,11 @@ def k5_timing(tq, st, ev_np, out, key, device_us) -> None:
     out[key] = (ms, plain, *bound(nbytes, g * (4 * p * p + 64) + 10 * s * e),
                 f"G={g} P={p} S={s} E={e} tile={tq.tick_tile(g)}")
     a = tq.device_state_from_numpy(st, "cuda")
-    device_us[key] = per_call(
+    per_call(
         key, lambda: tq.engine_step_resident_fast_sliced(a, ev, meta))
 
 
-def k7_timing(tq, cases, g: int, p: int, out, device_us) -> None:
+def k7_timing(tq, cases, g: int, p: int, out) -> None:
     """K7a-c at the main paths' G and P (K7a with two replies per group),
     and again at 102400 rows (``K7a_100k``, ``K7b_100k``, ``K7c_100k``):
     each input read once and each output written once (K7a: both [G, P]
@@ -2156,9 +2326,9 @@ def k7_timing(tq, cases, g: int, p: int, out, device_us) -> None:
              f"G={rows} P={p}")]
     for key, kernel, plain, nbytes, ops, shape in work:
         ms = timed(kernel)
-        plain_ms = timed(plain)
+        plain_ms = timed(plain, n=PLAIN_CALLS)
         out[key] = (ms, plain_ms, *bound(nbytes, ops), shape)
-        device_us[key] = per_call(key, kernel)
+        per_call(key, kernel)
 
 
 def run_timing(tq, tl, cases, bench, main, shapes, mesh_main,
@@ -2173,27 +2343,26 @@ def run_timing(tq, tl, cases, bench, main, shapes, mesh_main,
     both kernel-rung shapes (key ``K6`` at 10240 groups, ``K6_100k`` at
     102400).  Bytes: every input read once (K2's refresh rows only where
     they are not padding), the state elements a call changes and the
-    outputs written once.  Device time per call from ``torch.profiler``
-    for every kernel (K1/K2 on a state of their own that the profiled
-    calls keep updating: the same events again, so the same work)."""
+    outputs written once.  Device time per call from a CUDA graph for
+    every kernel (K1/K2 on a state of their own that the captured calls
+    keep updating: the same events again, so the same work); the plain
+    versions' median over ``PLAIN_CALLS`` calls."""
     g, p, w = main["capacity"], main["peers"], main["ledger_width"]
     e1 = shapes["K1"].most_common(1)[0][0]
     d2, e2 = shapes["K2"].most_common(1)[0][0]
     rng = np.random.default_rng(99)
     st = cases.resident_state(rng, g, p, NOW)
     out = {}
-    device_us = {}
 
     # K1 at the main shape, with each tile, and at the mesh100k rung's
     # flat control (102400 x 8 x 8192, global rows)
-    k1_timing(tq, st, cases.fast_events(rng, g, p, e1, NOW), out, "K1",
-              device_us)
-    k1_extra_timing(tq, cases, rng, p, out, device_us)
+    k1_timing(tq, st, cases.fast_events(rng, g, p, e1, NOW), out, "K1")
+    k1_extra_timing(tq, cases, rng, p, out)
     ev = engine_padded(cases.fast_events(rng, 1024, p, 16384, NOW))
     k1_timing(tq, cases.resident_state(rng, 1024, p, NOW), ev, out,
-              "K1_G1024_E16384_engine_padding", device_us)
+              "K1_G1024_E16384_engine_padding")
     state, evs, evf, _ = bench.mesh100k_batch()
-    k1_timing(tq, state, evf, out, "K1_100k", device_us)
+    k1_timing(tq, state, evf, out, "K1_100k")
 
     # K2
     rf_idx_np, rf, acks = cases.refresh(rng, g, p, d2, e2, NOW)
@@ -2211,9 +2380,9 @@ def run_timing(tq, tl, cases, bench, main, shapes, mesh_main,
                                    + d_real * 12 * p),
                  f"G={g} P={p} D={d2} ({d_real} rows) E={e2}")
     a = tq.device_state_from_numpy(st, "cuda")
-    device_us["K2"] = per_call("K2", lambda: tq.engine_step_resident(
+    per_call("K2", lambda: tq.engine_step_resident(
         a, rf_idx, *rf, *acks, NOW, TIMEOUT_MS))
-    k2_extra_timing(tq, cases, rng, p, out, device_us)
+    k2_extra_timing(tq, cases, rng, p, out)
 
     # K3, the row entry the engine runs, at the vote passes' most common
     # padded R, packed as the engine packs it: uint16 [4, R] mask words,
@@ -2224,11 +2393,11 @@ def run_timing(tq, tl, cases, bench, main, shapes, mesh_main,
     v = cases.tally_plan(arrays, rows, "cpu", r3).views(r3)
     packed = cuda([v.masks, v.priority, v.self_priority])
     ms = timed(lambda: tq.tally_rows(*packed))
-    plain = timed(lambda: tq._tally_rows_plain(*packed))
+    plain = timed(lambda: tq._tally_rows_plain(*packed), n=PLAIN_CALLS)
     out["K3"] = (ms, plain, *bound(8 * r3 + 4 * r3 * p + 4 * r3 + 4 * r3,
                                    r3 * (8 * p + 40)),
                  f"R={r3} ({len(rows)} open rounds) P={p}")
-    device_us["K3"] = per_call("K3", lambda: tq.tally_rows(*packed))
+    per_call("K3", lambda: tq.tally_rows(*packed))
 
     # K3's public [G, P] entry (no path launches it) at the main paths' G
     # and at 102400 rows: four bool and one int32 [G, P] inputs, int32
@@ -2236,10 +2405,10 @@ def run_timing(tq, tl, cases, bench, main, shapes, mesh_main,
     for key, g3 in (("K3_public", g), ("K3_public_100k", 102_400)):
         args = cuda(cases.tally_inputs(rng, g3, p))
         ms = timed(lambda: tq.tally_votes_packed(*args))
-        plain = timed(lambda: tq._tally_plain(*args))
+        plain = timed(lambda: tq._tally_plain(*args), n=PLAIN_CALLS)
         out[key] = (ms, plain, *bound(g3 * p * 8 + 4 * g3 + 4 * g3,
                                       g3 * (8 * p + 40)), f"G={g3} P={p}")
-        device_us[key] = per_call(key,
+        per_call(key,
                                   lambda: tq.tally_votes_packed(*args))
 
     # K4: role (int8), commit, applied, prev_commit (int32), prev_valid
@@ -2248,20 +2417,20 @@ def run_timing(tq, tl, cases, bench, main, shapes, mesh_main,
     arrays, scalars = cases.ledger_inputs(rng, g, p, w)
     dev = cuda(arrays)
     ms = timed(lambda: tl.ledger_pass(*dev, *scalars, num_peers=w))
-    plain = timed(lambda: tl._ledger_plain(*dev, *scalars, w))
+    plain = timed(lambda: tl._ledger_plain(*dev, *scalars, w),
+                  n=PLAIN_CALLS)
     nbytes = g * (1 + 3 * 4 + 1) + g * p * (3 * 4 + 3) \
         + 4 * tl.packed_size(g, w)
     out["K4"] = (ms, plain, *bound(nbytes, g * p * 45), f"G={g} P={p} W={w}")
-    device_us["K4"] = per_call(
+    per_call(
         "K4", lambda: tl.ledger_pass(*dev, *scalars, num_peers=w))
 
     # K5 at the mesh path's most common (S, E) and at the rung's batch
     s5, e5 = mesh_shapes["K5"].most_common(1)[0][0]
     g5 = mesh_main["capacity"]
     k5_timing(tq, cases.resident_state(rng, g5, p, NOW),
-              cases.sliced_events(rng, g5, p, s5, e5, NOW), out, "K5",
-              device_us)
-    k5_timing(tq, state, evs, out, "K5_100k", device_us)
+              cases.sliced_events(rng, g5, p, s5, e5, NOW), out, "K5")
+    k5_timing(tq, state, evs, out, "K5_100k")
 
     # K6 on the bench's own batches, at the rungs' shapes; functional, so
     # every call sees the same inputs
@@ -2269,27 +2438,26 @@ def run_timing(tq, tl, cases, bench, main, shapes, mesh_main,
         args = tq.engine_step_args_from_numpy(
             bench._example_batch(g6, p6, e6), "cuda")
         ms = timed(lambda: tq.engine_step(*args))
-        plain = timed(lambda: tq._engine_step_plain(*args))
+        plain = timed(lambda: tq._engine_step_plain(*args), n=PLAIN_CALLS)
         out[key] = (ms, plain, *bound(k6_bytes(g6, p6, e6),
                                       g6 * (4 * p6 * p6 + 64) + 10 * e6),
                     f"G={g6} P={p6} E={e6}")
-        device_us[key] = per_call(key, lambda: tq.engine_step(*args))
+        per_call(key, lambda: tq.engine_step(*args))
 
-    k7_timing(tq, cases, g, p, out, device_us)
+    k7_timing(tq, cases, g, p, out)
     for k, (ms, plain, b_ms, by, shape) in out.items():
-        dev = (f", device {device_us[k]:.3f} us/call" if device_us.get(k)
-               else ", device not measured") + (
-            f", graph {GRAPH_US[k]:.3f} us/call" if GRAPH_US.get(k)
-            else "") + f", host {HOST_US[k]:.2f} us/call"
+        dev = (f", graph {GRAPH_US[k]:.3f} us/call" if GRAPH_US.get(k)
+               else ", device not measured") + \
+            f", host {HOST_US[k]:.2f} us/call"
         log(f"timing: {k} [{shape}] kernel {ms:.4f} ms, plain {plain:.4f} "
             f"ms, bound {b_ms:.6f} ms ({by}){dev}")
-    return out, device_us
+    return out
 
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--groups", type=int, default=1024)
-    ap.add_argument("--writes", type=int, default=4)
+    ap.add_argument("--writes", type=int, default=2)
     ap.add_argument("--out", help="also write the results as JSON here")
     ap.add_argument("--seed", type=int, default=0,
                     help="seed of the FileStore streams' bytes")
@@ -2357,7 +2525,8 @@ def main(argv=None) -> int:
                                                "filestore5_1024",
                                                "telemetry_1024",
                                                "sparse_4096", "chaos_1024",
-                                               "placement_48")}
+                                               "placement_48",
+                                               "readmix_1024", "zipf_1024")}
     main_res, sim_launches = run_main_path(tq, kernels, args.groups,
                                            args.writes, recs["sim"])
     log(f"main path (sim): {card} | 3 servers x {args.groups} groups | "
@@ -2446,6 +2615,8 @@ def main(argv=None) -> int:
             f"election timeouts) | replicas equal to the fold before, after "
             f"restart {res['replicas_read_back']}")
         log(f"{key} launches: {launches}")
+        if "parse_log" in res:
+            log(f"{key} parse_log: {res['parse_log']}")
         mark(key, t_start)
     churn_res, churn_launches = run_churn_path(tq, kernels, bench,
                                                recs["churn_1024"])
@@ -2522,6 +2693,12 @@ def main(argv=None) -> int:
         f"p50 {tel['ledger_fetch_ms']:.3f} ms | election timeouts "
         f"(bring-up, warm-up, writes) {tel_res['election_timeouts']}")
     log(f"telemetry_1024 launches: {tel_launches}")
+    sh = got["shell"]
+    log(f"telemetry_1024 shell: health rc {sh['health']['rc']} "
+        f"({sh['health']['first_line']}), lag rc {sh['lag']['rc']} "
+        f"listing {sh['lag']['servers_listed']}, top rc {sh['top']['rc']} "
+        f"listing {sh['top']['servers_listed']}, "
+        f"{sh['seconds']:.3f} s for the three")
     mark("4j telemetry_1024", t_start)
 
     # 4k. the sparse shape with the upkeep plane; 4l. the chaos campaign;
@@ -2581,6 +2758,53 @@ def main(argv=None) -> int:
     log(f"placement_48 launches: {pl_launches}")
     mark("4m placement_48", t_start)
 
+    # 4n. the read paths; 4o. the zipf client fleet under admission
+    rm_res, rm_launches = run_readmix_path(kernels, recs["readmix_1024"])
+    log(f"readmix_1024: {card} | 3 servers x {rm_res['groups']} groups "
+        f"over TCP, linearizable reads with the leader lease | bring-up "
+        f"{rm_res['election_convergence_s']:.3f} s | {rm_res['commits']} "
+        f"writes acked ({rm_res['write_failures']} failed) | "
+        f"{rm_res['commits_per_sec']:.1f} commits/s | p50 "
+        f"{rm_res['p50_ms']:.2f} ms | p99 {rm_res['p99_ms']:.2f} ms | "
+        f"reads: {rm_res['reads_ok']} ok ({rm_res['read_failures']} "
+        f"failed): lease leader {rm_res['reads_lease_leader']}, follower "
+        f"linearizable {rm_res['reads_follower_linearizable']}, stale "
+        f"{rm_res['reads_stale']} | {rm_res['reads_per_sec']:.1f} reads/s "
+        f"| read p50 {rm_res['read_p50_ms']:.2f} ms, p99 "
+        f"{rm_res['read_p99_ms']:.2f} ms | read mismatches "
+        f"{rm_res['read_mismatches']} of {rm_res['reads_checked']}, "
+        f"replica mismatches {rm_res['replica_mismatches']} of "
+        f"{rm_res['replicas_read_back']} | reads served by server "
+        f"{rm_res['reads_served']}, confirmation sweeps "
+        f"{rm_res['confirm_sweeps']}, reads they confirmed "
+        f"{rm_res['confirmed_reads']}")
+    log(f"readmix_1024 launches: {rm_launches}")
+    mark("4n readmix_1024", t_start)
+    zf_res, zf_launches = run_zipf_path(kernels, recs["zipf_1024"])
+    log(f"zipf_1024: {card} | 3 servers x {zf_res['groups']} groups over "
+        f"TCP, {zf_res['clients']} clients zipf({zf_res['zipf_s']}), "
+        f"admission at {zf_res['pending_limit']} | bring-up "
+        f"{zf_res['election_convergence_s']:.3f} s | writes "
+        f"{zf_res['writes_ok']}, reads {zf_res['reads_ok']}, failures "
+        f"{zf_res['failures']} | {zf_res['writes_per_sec']:.1f} writes/s, "
+        f"{zf_res['reads_per_sec']:.1f} reads/s over "
+        f"{zf_res['elapsed_s']:.3f} s | p99 {zf_res['p99_ms']} ms, read "
+        f"p99 {zf_res['read_p99_ms']} ms, unsaturated p99 "
+        f"{zf_res['p99_unsat_ms']} ms, ratio "
+        f"{zf_res['overload_p99_ratio']} | shed {zf_res['shed']} of "
+        f"{zf_res['shed'] + zf_res['admitted']} ({zf_res['shed_frac']:.4f}) "
+        f"| pending peak {zf_res['pending_peak']} | confirmation sweeps "
+        f"per read {zf_res['confirm_sweeps_per_read']:.4f} "
+        f"({zf_res['confirm_sweeps']}) | hot group {zf_res['hot_group']} "
+        f"(expected {zf_res['hot_group_expected']}: "
+        f"{zf_res['hot_group'] == zf_res['hot_group_expected']}), share "
+        f"{zf_res['hot_share']} against {zf_res['expected_top_share']:.4f} "
+        f"| read mismatches {zf_res['read_mismatches']} of "
+        f"{zf_res['reads_checked']}, replica mismatches "
+        f"{zf_res['replica_mismatches']} of {zf_res['replicas_read_back']}")
+    log(f"zipf_1024 launches: {zf_launches}")
+    mark("4o zipf_1024", t_start)
+
     ledger_checks = {k: r.ledger_samples for k, r in recs.items()}
     log(f"ledger samples by path, each one call into the kernel library "
         f"and K4 +1: {ledger_checks}")
@@ -2594,13 +2818,15 @@ def main(argv=None) -> int:
                               ("telemetry_1024", tel_res, None),
                               ("sparse_4096", sp_res, None),
                               ("chaos_1024", chaos_res, None),
-                              ("placement_48", pl_res, None)):
+                              ("placement_48", pl_res, None),
+                              ("readmix_1024", rm_res, None),
+                              ("zipf_1024", zf_res, None)):
         run_parity_observed(tq, tl, cases, res["engine"], recs[key].shapes,
                             par, f"{key} path", members)
     run_parity_sleeping(tq, cases, par)
     mark("5 parity", t_start)
     routes = run_route_timing(tq, card)
-    timing, device_us = run_timing(tq, tl, cases, bench, main_res, shapes,
+    timing = run_timing(tq, tl, cases, bench, main_res, shapes,
                                    mesh_res, rec_mesh.shapes)
     split = k1_k2_split(tq, cases, main_res)
     for k in OFF_PATH:
@@ -2624,11 +2850,10 @@ def main(argv=None) -> int:
         a, b = routes[key]["ms"], routes[control]["ms"]
         log(f"{key} {a:.4f} ms vs {control} {b:.4f} ms: "
             f"{'at or below' if a <= b else 'NOT at or below'}")
-    for name, us in (("graph", GRAPH_US), ("profiler", device_us)):
-        for key in ("K1", "K5"):
-            if us.get(key) and us.get("K2"):
-                log(f"{key} device ({name}) {us[key]:.3f} us vs K2 "
-                    f"{us['K2']:.3f} us")
+    for key in ("K1", "K5"):
+        if GRAPH_US.get(key) and GRAPH_US.get("K2"):
+            log(f"{key} device (graph) {GRAPH_US[key]:.3f} us vs K2 "
+                f"{GRAPH_US['K2']:.3f} us")
 
     mark("5 timing", t_start)
 
@@ -2643,7 +2868,8 @@ def main(argv=None) -> int:
              "churn_1024": churn_launches, "stream": stream_launches,
              "filestore5_1024": fs5_launches,
              "telemetry_1024": tel_launches, "sparse_4096": sp_launches,
-             "chaos_1024": chaos_launches, "placement_48": pl_launches}
+             "chaos_1024": chaos_launches, "placement_48": pl_launches,
+             "readmix_1024": rm_launches, "zipf_1024": zf_launches}
     by_path = {k: {p: n[k] for p, n in paths.items() if k in n}
                for k in kernels}
     # one call's CUDA-graph nodes, per kernel
@@ -2661,7 +2887,6 @@ def main(argv=None) -> int:
                      "library": NO_LIBRARY[key],
                      "nodes": len(graph_nodes_of[key]),
                      "device_us": GRAPH_US.get(key),
-                     "profiler_device_us": device_us.get(key),
                      "host_us": HOST_US.get(key)})
         if key in REDESIGNED:
             rows[-1]["redesigned"] = REDESIGNED[key]
@@ -2685,6 +2910,7 @@ def main(argv=None) -> int:
                        "telemetry_path": tel_res,
                        "sparse_path": sp_res, "chaos_path": chaos_res,
                        "placement_path": pl_res,
+                       "readmix_path": rm_res, "zipf_path": zf_res,
                        "seconds": time.monotonic() - t_start,
                        "phase_end_s": PHASE_END_S,
                        "shapes": {k: {str(s): n for s, n in v.items()}
@@ -2697,8 +2923,7 @@ def main(argv=None) -> int:
                                       "nodes": len(graph_nodes_of[k])
                                       if k in graph_nodes_of else None}
                                   for k, v in timing.items()},
-                       "device_us": GRAPH_US,
-                       "profiler_device_us": device_us, "host_us": HOST_US,
+                       "device_us": GRAPH_US, "host_us": HOST_US,
                        "k1_k2_after_idle_gap": split,
                        "routes": routes, "k2_graph_nodes": k2_nodes,
                        "fast_graph_nodes": fast_nodes,

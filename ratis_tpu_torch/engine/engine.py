@@ -224,6 +224,13 @@ class QuorumEngine:
         elif self.device.type != "cpu":
             raise ValueError(f"QuorumEngine device {device!r}: the "
                              f"kernels run on 'cuda' or 'cpu'")
+        else:
+            # The plain versions run on the event loop's thread over
+            # [G, P] tensors too small to gain from torch's intra-op pool.
+            # Beside other busy processes each reduction waited on that
+            # pool for tens of ms and the loop paused for seconds (elections
+            # then failed); one intra-op thread keeps each op on this one.
+            torch.set_num_threads(1)
         # Optional parallel.mesh.GroupMesh: the resident state is S
         # contiguous slices of G/S rows on the engine's device, each group
         # pinned to a slot inside its crc32 slice; the fast tick ships

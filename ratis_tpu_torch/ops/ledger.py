@@ -102,26 +102,29 @@ def _ledger_plain(role, match_index, commit_index, applied_index, conf_cur,
     delta = torch.where(is_leader & prev_valid, torch.clamp(wrap_i32(
         commit_index.long() - prev_commit.long()), min=0), 0)
     bucket = lag_buckets(lag)
-    dev = lag.device
-    onehot = valid[..., None] & (peer_index[..., None] == torch.arange(
-        num_peers, dtype=torch.int32, device=dev))
-    bucket_hot = bucket[..., None] == torch.arange(
-        LAG_BUCKETS, dtype=torch.int32, device=dev)
+    # the links a peer-table column counts: valid, and a peer slot inside
+    # the table (the reference's one-hot over num_peers drops the rest).
+    # Counted by index on [G, P] tensors: a [G, P, W, B] one-hot reduced
+    # here ran torch's intra-op thread pool, which under CPU contention
+    # stalled the caller's event loop for seconds a sample
+    counted = valid & (peer_index < num_peers)
+    peer = peer_index[counted].long()
+
+    def _per_peer(mask):
+        return torch.bincount(peer_index[counted & mask].long(),
+                              minlength=num_peers).to(torch.int32)
+
     # integer histogram: per (peer, bucket) count of links
-    hist = (onehot[..., :, None] & bucket_hot[..., None, :]).sum(
-        dim=(0, 1), dtype=torch.int32).ravel()
+    hist = torch.bincount(peer * LAG_BUCKETS + bucket[counted].long(),
+                          minlength=num_peers * LAG_BUCKETS).to(torch.int32)
     up = valid & (wrap_i32(int(now_ms) - last_ack_ms.long())
                   <= int(up_window_ms))
     laggy = valid & (lag >= int(lag_threshold))
     link_active = up & (delta > 0)[:, None]
     laggy_active = link_active & laggy
-
-    def _per_peer(mask):
-        return (onehot & mask[..., None]).sum(dim=(0, 1), dtype=torch.int32)
-
-    peer_max_lag = torch.where(onehot, lag[..., None],
-                               torch.full_like(onehot, -1, dtype=torch.int32)
-                               ).amax(dim=(0, 1))
+    peer_max_lag = torch.full((num_peers,), -1, dtype=torch.int32,
+                              device=lag.device).scatter_reduce(
+        0, peer, lag[counted].to(torch.int32), "amax")
     scalars = torch.stack([is_leader.sum(dtype=torch.int32),
                            wrap_i32(gap.long().sum())])
     return torch.cat([

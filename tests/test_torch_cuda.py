@@ -1044,3 +1044,32 @@ def test_chaos_scenario_runs_on_the_card(card, name):
         return [k.launches - n for k, n in zip(kernels, before)]
     launched = asyncio.run(run())
     assert all(n > 0 for n in launched[:4]) and launched[4] == 0, launched
+
+
+@pytest.mark.parametrize("rung", ["readmix", "zipf"])
+def test_read_rung_runs_tiny_on_the_card(card, rung):
+    """The bench's read rungs tiny on the card (3 x 8 over TCP; the zipf
+    fleet 256 clients, 64 in flight, element limit 16), the batched engine
+    on every tick (the harness's scalar-fallback threshold 0): every read
+    value and every replica within its bounds, K1-K4 launched on the read
+    path, K5 and K7c (the lease expiry stays on the host, as in the
+    reference) not."""
+    from ratis_tpu_torch.tools import read_bench as rb
+    kernels = (tq.K1, tq.K2, tq.K3, tl.K4, tq.K5, tq.K7c)
+    before = [k.launches for k in kernels]
+    if rung == "readmix":
+        res = asyncio.run(rb.readmix_rung(rb.read_cluster("cuda", 8),
+                                          writes=2))
+        assert res["commits"] == 16 and res["reads_ok"] == 48
+    else:
+        res = asyncio.run(rb.zipf_rung(
+            rb.read_cluster("cuda", 8, zipf=True, element_limit=16),
+            clients=256, concurrency=64, element_limit=16,
+            unsat_clients=16))
+        assert res["writes_ok"] == res["reads_ok"] == 256
+        assert res["pending_peak"] <= 16
+    launched = [k.launches - n for k, n in zip(kernels, before)]
+    assert (res["read_mismatches"], res["replica_mismatches"]) == (0, 0)
+    assert res["engine_device"].startswith("cuda")
+    assert all(n > 0 for n in launched[:4]) and launched[4:] == [0, 0], \
+        launched

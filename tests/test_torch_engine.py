@@ -237,3 +237,20 @@ def test_engine_tick_kinds_match_jax():
     assert last["fast_ticks"][1] > 0 and last["refresh_ticks"][1] > 0
     assert last["batched_dispatches"][1] >= \
         last["fast_ticks"][1] + last["refresh_ticks"][1]
+
+
+def test_cpu_engine_keeps_torch_on_one_intra_op_thread():
+    """An engine on the CPU runs the plain versions on its event loop's
+    thread over [G, P] tensors; with torch's intra-op pool each reduction
+    there waited on the pool beside other busy processes and the loop
+    paused for seconds (the chaos scenarios' port half missed its
+    re-election SLO), so the engine keeps torch on one intra-op
+    thread."""
+    import torch
+    before = torch.get_num_threads()
+    try:
+        torch.set_num_threads(4)
+        TorchEngine(max_groups=64, device="cpu")
+        assert torch.get_num_threads() == 1
+    finally:
+        torch.set_num_threads(before)

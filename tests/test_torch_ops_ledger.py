@@ -85,3 +85,23 @@ def test_lag_buckets_are_exact_at_power_of_two_boundaries():
     np.testing.assert_array_equal(got, want)
     np.testing.assert_array_equal(got, [int(x).bit_length() for x in lags])
 
+
+
+@pytest.mark.parametrize("g,width", [(64, 8), (1024, 16)])
+def test_plain_ledger_stays_on_row_sized_tensors(g, width):
+    """The plain version counts links by index on [G, P] tensors: no
+    operation of it takes or makes a tensor larger than the lag buckets'
+    [G, P, LAG_BUCKETS - 1] compare.  A [G, P, W, LAG_BUCKETS] one-hot
+    reduced on the CPU ran torch's intra-op thread pool, which stalled a
+    server's event loop for seconds a sample beside busy processes (the
+    chaos scenarios missed their re-election SLO there)."""
+    from torch.profiler import ProfilerActivity, profile
+    arrays, scalars = cases.ledger_inputs(np.random.default_rng(5), g, 8,
+                                          width)
+    tensors = [torch.from_numpy(a) for a in arrays]
+    with profile(activities=[ProfilerActivity.CPU],
+                 record_shapes=True) as prof:
+        tl.ledger_pass(*tensors, *scalars, num_peers=width)
+    largest = max(int(np.prod(shape)) for evt in prof.events()
+                  for shape in evt.input_shapes if shape)
+    assert largest <= g * 8 * (tl.LAG_BUCKETS - 1)

@@ -31,7 +31,7 @@ def test_tcp_cluster_slice_matches_jax(monkeypatch):
 
 # channel counts below and at each timeout tier (2048, 4096, 16384, 32768)
 @pytest.mark.parametrize("groups", [32, 1024, 2048, 8192, 16384])
-@pytest.mark.parametrize("transport", ["sim", "tcp"])
+@pytest.mark.parametrize("transport", ["sim", "tcp", "grpc"])
 def test_properties_are_the_jax_bench_properties(transport, groups):
     port = dict(cluster_properties(groups, 3, "cuda", transport).items())
     jax = dict(bench_properties(True, groups, num_servers=3,
@@ -47,4 +47,4 @@ def test_properties_are_the_jax_bench_properties(transport, groups):
 
 def test_unknown_transport_is_refused():
     with pytest.raises(ValueError, match="transport"):
-        cluster_properties(4, 3, "cpu", "grpc")
+        cluster_properties(4, 3, "cpu", "udp")
