@@ -61,8 +61,9 @@ result line:
       and K4 > 0; K1 must stay 0: a mesh engine's fast ticks are K5);
       then ``dryrun_multichip(8)`` and the bench's ``mesh_100k`` rung
       (K5 against the flat K1 at 102400 x 8 x 8192);
-   e. ``durable_1024``, the bench's ``durable`` rung: 3 servers x 1024
-      groups over localhost TCP on the server's default durable log
+   e. ``durable_1024``, the bench's ``durable`` rung: 3 servers x 512
+      groups (the bench: 1024) over localhost TCP on the server's default
+      durable log
       (per-group segment files in a fresh temporary directory),
       ``ArithmeticStateMachine``, 1 + 1 writes per group at 128 in
       flight; every replica's variable map equal to the fold of the
@@ -122,7 +123,8 @@ result line:
       hibernating leaders are counted (K1-K4 > 0, K5 0);
    l. ``chaos_1024``, the bench's ``chaos`` rung: the campaign of 12
       scenarios (``chaos/campaign.py`` ``run_chaos_1024``, seed 1) on 3 x
-      1024 counter groups over the simulated transport on the shared
+      256 counter groups (the bench: 1024) over the simulated transport
+      on the shared
       durable log in a fresh temporary directory; every scenario must pass
       its SLOs and every injected fault be journaled and recovered; the
       servers a crash rebuilds are counted too (K1-K4 > 0, K5 0);
@@ -151,7 +153,27 @@ result line:
       the rung's bound and the pending peak at or under 192; shed
       fraction, overload p99 ratio and the sketch's hot group against the
       expected one are printed (K1-K4 > 0, K5 0);
-   on every served path (a, c-o) each ledger sample (the watchdogs', the
+   p. ``snapcatch_1024``, the bench's ``snapcatch`` rung at its full size
+      (``tools/snapshot_bench.py``, the InstallSnapshot half of BASELINE
+      config 5): 3 servers x 1024 groups over localhost TCP, snapshot
+      storage in a fresh temporary directory; the last server's
+      leaderships moved to the first, 4 writes a group, every leader (and
+      the other surviving replica) snapshots and purges, the last
+      server's 1024 replicas wiped (removed and added afresh on the engine
+      rows they released), 4 writes a group again at 128 in flight while
+      the leaders install their snapshots; every wiped group must catch up
+      (deadline 600 s), ``installs`` must be 1024, the wiped engine must
+      hold 1024 live rows, every counter on all three servers must equal
+      both loads' acknowledged writes, and the commits/s during the
+      installs must stay above a quarter of those before (K1-K4 > 0, K5
+      0);
+   q. ``peer7_1024``, the bench's ``peer7`` rung cut to 1024 groups and 2
+      writes a group (the bench: 2048 and 4): 7 servers x 1024 groups over
+      the simulated transport, no warm-up, 128 in flight, every 32nd
+      write traced; every write acknowledged and every counter read back
+      from all 7 replicas, the host-path decomposition printed, the vote
+      rounds counted by their members (K1-K4 > 0, K5 0);
+   on every served path (a, c-q) each ledger sample (the watchdogs', the
    telemetry samplers', the placement controllers' and each ``GET
    /lag``'s) must make exactly one call into the kernel library, its
    prepared call's, and launch K4 once;
@@ -167,7 +189,9 @@ result line:
    line);
 5. kernel parity again at every shape the main paths gave K1-K5 (K3 at
    every padded row count of the vote passes; on the ``filestore5_1024``
-   path's shapes also with every row's conf of exactly 5 members), and
+   path's shapes also with every row's conf of exactly 5 members, on the
+   ``peer7_1024`` path's with 7 of the 8 lanes and on the
+   ``snapcatch_1024`` path's, after its rows' reuse, with 3), and
    K1 and K2 on the sleeping-rows family (``cases.sleeping_state``: most
    rows asleep, deadlines 60000-62000 ms ahead or INT32_MAX, leaders
    whose acks stopped, few acks) at 4096 and 16384 rows, through the
@@ -342,10 +366,10 @@ NO_LIBRARY = {
            "two calls",
     "K7c": "none: no one PyTorch call takes the lease's majority-min with "
            "its wrapping expiry"}
-# the durable paths: 3 x 1024 per-group logs, 3 x 256 on the shared plane,
-# 1 warm-up + 1 measured write per group (the bench: 8); the churn path:
-# 3 x 1024, 4 writes per group (the bench: 8)
-DURABLE_GROUPS = 1024
+# the durable paths: 3 x 512 per-group logs (the bench: 1024), 3 x 256 on
+# the shared plane, 1 warm-up + 1 measured write per group (the bench: 8);
+# the churn path: 3 x 1024, 4 writes per group (the bench: 8)
+DURABLE_GROUPS = 512
 SHARED_GROUPS = 256
 DURABLE_WRITES = 1
 CHURN_GROUPS = 1024
@@ -392,8 +416,11 @@ PLACEMENT_SETTLE_S = 3.0
 # at its seed; its scenario count
 CHAOS_SEED = 1
 CHAOS_SCENARIOS = 12
-# the sleeping-rows parity family: the sparse paths' buckets (this
-# smoke's 4096, the bench's 16384), and a clock late in the epoch where
+# cut to 256 groups (the bench: 1024) for the smoke's time, every scenario
+# kept
+CHAOS_GROUPS = 256
+# the sleeping-rows parity family: sparse paths' buckets (4096, and the
+# bench's 16384), and a clock late in the epoch where
 # now + 62000 passes INT32_MAX and the armed deadlines clamp
 SLEEP_ROWS = (4096, 16_384)
 LATE_NOW = 2 ** 31 - 61_000
@@ -401,6 +428,11 @@ LATE_NOW = 2 ** 31 - 61_000
 # (tools/read_bench.py READMIX and ZIPF: 3 servers x 1024 groups over
 # TCP, linearizable reads with the leader lease)
 READ_GROUPS = 1024
+# BASELINE config 5's halves: the bench's snapcatch rung at its full size
+# (tools/snapshot_bench.py SNAPCATCH), and its peer7 rung cut to 1024
+# groups and 2 writes a group (the bench: 2048 and 4)
+PEER7_GROUPS = 1024
+PEER7_WRITES = 2
 # this checkout's root: the shell and parse_log run from it as
 # subprocesses (``python -m ratis_tpu_torch...``)
 ROOT = pathlib.Path(__file__).resolve().parent
@@ -1969,12 +2001,13 @@ def run_telemetry_path(kernels, bench, rec):
 
 
 def run_sparse_path(kernels, bench, rec):
-    """The sparse shape with the upkeep plane: 3 servers x 4096 groups,
-    hibernation and ``raft.tpu.upkeep.enabled`` on; settled until every
-    idle leader sleeps (at most 20 s), the upkeep tick pair timed on the
-    live divisions (plane sweep against the legacy walk), then 8 writes
-    per group on the first 1024 groups and every counter read back from
-    all three replicas (8 on the written groups, 0 on the rest)."""
+    """The sparse shape with the upkeep plane: 3 servers x
+    ``SPARSE_GROUPS`` groups, hibernation and ``raft.tpu.upkeep.enabled``
+    on; settled until every idle leader sleeps (at most 20 s), the upkeep
+    tick pair timed on the live divisions (plane sweep against the legacy
+    walk), then ``SPARSE_WRITES`` writes per group on the first
+    ``SPARSE_ACTIVE`` groups and every counter read back from all three
+    replicas (those writes on the written groups, 0 on the rest)."""
     from ratis_tpu_torch.tools import upkeep_bench as ub
     settle = ub.hibernate_settle(SPARSE_SETTLE_S, until_asleep=True)
 
@@ -2008,18 +2041,19 @@ def run_sparse_path(kernels, bench, rec):
 
 
 def run_chaos_path(kernels, rec):
-    """The bench's chaos rung: ``run_chaos_1024`` on ``cuda`` (3 x 1024
-    counter groups over the simulated transport on the shared durable log
-    in a fresh temporary directory, the 12 scenarios, seed 1); every
-    scenario must pass and every injected fault be journaled and
-    recovered.  The servers a crash rebuilds mid-phase are new engines
-    and plans: the recorders swap class methods, so they count them
-    too."""
+    """The bench's chaos rung: ``run_chaos_1024`` on ``cuda`` (3 x
+    ``CHAOS_GROUPS`` counter groups over the simulated transport on the
+    shared durable log in a fresh temporary directory, the 12 scenarios,
+    seed 1); every scenario must pass and every injected fault be
+    journaled and recovered.  The servers a crash rebuilds mid-phase are
+    new engines and plans: the recorders swap class methods, so they
+    count them too."""
     from ratis_tpu_torch.chaos.campaign import run_chaos_1024
     with rec:
         res, launches = counted(
             kernels, ("K1", "K2", "K3", "K4"),
             lambda: asyncio.run(run_chaos_1024(seed=CHAOS_SEED,
+                                               num_groups=CHAOS_GROUPS,
                                                device="cuda")),
             never=("K5",))
     failed = {n: e.get("error") for n, e in res["scenarios"].items()
@@ -2124,6 +2158,67 @@ def run_zipf_path(kernels, rec):
     if not res["engine_device"].startswith("cuda"):
         raise AssertionError(f"zipf path: engine on {res['engine_device']}")
     res["engine"] = engine_shape(cluster)
+    return res, launches
+
+
+def run_snapcatch_path(kernels, rec):
+    """The bench's snapcatch rung at its full size on ``cuda`` (snapshot
+    storage in a fresh temporary directory): every wiped group caught up
+    by an install, every replica's counter equal to both loads'
+    acknowledged writes, the wiped engine on 1024 live rows."""
+    import tempfile
+
+    from ratis_tpu_torch.tools import snapshot_bench as sb
+    load = sb.SNAPCATCH
+    groups = load["groups"]
+    with tempfile.TemporaryDirectory(prefix="ratis-snapcatch-") as tmp:
+        cluster = sb.snapcatch_cluster("cuda", groups, tmp)
+        with rec:
+            res, launches = counted(
+                kernels, ("K1", "K2", "K3", "K4"),
+                lambda: asyncio.run(sb.snapcatch_rung(
+                    cluster, load["writes"], load["concurrency"])),
+                never=("K5",))
+    want = groups * load["writes"] * 2
+    if res["installs"] != groups or res["replica_mismatches"] \
+            or res["replicas_read_back"] != groups * load["servers"] \
+            or res["commits"] != want or res["victim_live_rows"] != groups:
+        raise AssertionError(
+            f"snapcatch path: installs {res['installs']} of {groups}, "
+            f"{res['commits']} of {want} writes, replica mismatches "
+            f"{res['replica_mismatch_examples']}, replicas read back "
+            f"{res['replicas_read_back']}, wiped engine's live rows "
+            f"{res['victim_live_rows']}")
+    if not res["engine_device"].startswith("cuda") or any(
+            s.engine.device.type != "cuda" for s in cluster.servers):
+        raise AssertionError(f"snapcatch path: engine on "
+                             f"{res['engine_device']}")
+    res["engine"] = engine_shape(cluster)
+    return res, launches
+
+
+def run_peer7_path(kernels, bench, rec):
+    """The bench's peer7 rung at ``PEER7_GROUPS`` x ``PEER7_WRITES``: 7
+    servers over the simulated transport, traced; every write acked and
+    read back from all 7 replicas."""
+    cluster = bench.peer7_cluster("cuda", PEER7_GROUPS)
+    with rec:
+        res, launches = counted(
+            kernels, ("K1", "K2", "K3", "K4"),
+            lambda: asyncio.run(bench.e2e_rung(
+                cluster, PEER7_WRITES, warmup=bench.PEER7["warmup"])),
+            never=("K5",))
+    servers = bench.PEER7["servers"]
+    want = PEER7_GROUPS * PEER7_WRITES
+    if res["acked"] != want or res["servers"] != servers \
+            or res["replicas_read_back"] != PEER7_GROUPS * servers:
+        raise AssertionError(f"peer7 path: {res['acked']} of {want} writes "
+                             f"acked, {res['replicas_read_back']} replicas "
+                             f"read back")
+    if not res["engine_device"].startswith("cuda"):
+        raise AssertionError(f"peer7 path: engine on {res['engine_device']}")
+    res["engine"] = engine_shape(cluster)
+    res["vote_round_members"] = dict(rec.members)
     return res, launches
 
 
@@ -2526,7 +2621,9 @@ def main(argv=None) -> int:
                                                "telemetry_1024",
                                                "sparse_4096", "chaos_1024",
                                                "placement_48",
-                                               "readmix_1024", "zipf_1024")}
+                                               "readmix_1024", "zipf_1024",
+                                               "snapcatch_1024",
+                                               "peer7_1024")}
     main_res, sim_launches = run_main_path(tq, kernels, args.groups,
                                            args.writes, recs["sim"])
     log(f"main path (sim): {card} | 3 servers x {args.groups} groups | "
@@ -2805,6 +2902,49 @@ def main(argv=None) -> int:
     log(f"zipf_1024 launches: {zf_launches}")
     mark("4o zipf_1024", t_start)
 
+    # 4p. InstallSnapshot catch-up under writes; 4q. 7 peers end to end
+    sc_res, sc_launches = run_snapcatch_path(kernels,
+                                             recs["snapcatch_1024"])
+    log(f"snapcatch_1024: {card} | {sc_res['peers']} servers x "
+        f"{sc_res['groups']} groups over TCP, snapshot storage on "
+        f"{sc_res['fs_type']} | bring-up "
+        f"{sc_res['election_convergence_s']:.3f} s | leaderships moved "
+        f"off the wiped server {sc_res['transfers']} | seed "
+        f"{sc_res['cps_before']:.1f} commits/s (p99 "
+        f"{sc_res['p99_ms_before']:.2f} ms) | snapshot indexes "
+        f"{dict(collections.Counter(sc_res['snapshot_index'].values()))} | "
+        f"wipe {sc_res['wipe_s']:.3f} s, wiped engine's live rows "
+        f"{sc_res['victim_live_rows']} ({sc_res['victim_rows_reused']} "
+        f"reused) | catch-up {sc_res['catchup_s']:.3f} s, installs "
+        f"{sc_res['installs']}, leaders changed "
+        f"{sc_res['leaders_changed']}, election timeouts per server "
+        f"(wiped last) {sc_res['catchup_election_timeouts']} (while the "
+        f"snapshots ran {sc_res['snapshot_election_timeouts']}), refresh "
+        f"rows during it {sc_res['refresh_rows_during_catchup']}, loop's "
+        f"longest pause {sc_res['loop_longest_pause_s']:.3f} s, pauses at "
+        f"least the election timeout's minimum "
+        f"{sc_res['loop_pauses_over_timeout_min']} | during the installs "
+        f"{sc_res['commits_per_sec']:.1f} commits/s | p50 "
+        f"{sc_res['p50_ms']:.2f} ms | p99 {sc_res['p99_ms']:.2f} ms | "
+        f"{sc_res['commits']} writes acked, replica mismatches "
+        f"{sc_res['replica_mismatches']} of {sc_res['replicas_read_back']}")
+    log(f"snapcatch_1024 launches: {sc_launches}")
+    mark("4p snapcatch_1024", t_start)
+    p7_res, p7_launches = run_peer7_path(kernels, bench, recs["peer7_1024"])
+    log(f"peer7_1024: {card} | {p7_res['servers']} servers x "
+        f"{p7_res['groups']} groups (sim), every 32nd write traced | "
+        f"bring-up {p7_res['election_convergence_s']:.3f} s | "
+        f"{p7_res['acked']} writes acked, all {p7_res['replicas_read_back']}"
+        f" replicas read back | {p7_res['commits_per_sec']:.1f} commits/s | "
+        f"p50 {p7_res['p50_ms']:.2f} ms | p99 {p7_res['p99_ms']:.2f} ms | "
+        f"election timeouts (bring-up, warm-up, writes) "
+        f"{p7_res['election_timeouts']} | vote rounds by members "
+        f"{p7_res['vote_round_members']}")
+    log(f"peer7_1024 host path: "
+        f"{json.dumps(p7_res['host_path_decomposition'])}")
+    log(f"peer7_1024 launches: {p7_launches}")
+    mark("4q peer7_1024", t_start)
+
     ledger_checks = {k: r.ledger_samples for k, r in recs.items()}
     log(f"ledger samples by path, each one call into the kernel library "
         f"and K4 +1: {ledger_checks}")
@@ -2820,7 +2960,10 @@ def main(argv=None) -> int:
                               ("chaos_1024", chaos_res, None),
                               ("placement_48", pl_res, None),
                               ("readmix_1024", rm_res, None),
-                              ("zipf_1024", zf_res, None)):
+                              ("zipf_1024", zf_res, None),
+                              ("snapcatch_1024", sc_res, 3),
+                              ("peer7_1024", p7_res,
+                               bench.PEER7["servers"])):
         run_parity_observed(tq, tl, cases, res["engine"], recs[key].shapes,
                             par, f"{key} path", members)
     run_parity_sleeping(tq, cases, par)
@@ -2869,7 +3012,8 @@ def main(argv=None) -> int:
              "filestore5_1024": fs5_launches,
              "telemetry_1024": tel_launches, "sparse_4096": sp_launches,
              "chaos_1024": chaos_launches, "placement_48": pl_launches,
-             "readmix_1024": rm_launches, "zipf_1024": zf_launches}
+             "readmix_1024": rm_launches, "zipf_1024": zf_launches,
+             "snapcatch_1024": sc_launches, "peer7_1024": p7_launches}
     by_path = {k: {p: n[k] for p, n in paths.items() if k in n}
                for k in kernels}
     # one call's CUDA-graph nodes, per kernel
@@ -2911,6 +3055,9 @@ def main(argv=None) -> int:
                        "sparse_path": sp_res, "chaos_path": chaos_res,
                        "placement_path": pl_res,
                        "readmix_path": rm_res, "zipf_path": zf_res,
+                       "snapcatch_path": {k: v for k, v in sc_res.items()
+                                          if k != "counters"},
+                       "peer7_path": p7_res,
                        "seconds": time.monotonic() - t_start,
                        "phase_end_s": PHASE_END_S,
                        "shapes": {k: {str(s): n for s, n in v.items()}

@@ -360,6 +360,12 @@ class QuorumEngine:
             self._listeners.pop(slot, None)
             self._listener_loops.pop(slot, None)
             self.state.release(slot)
+            # the released row's queued acks and vote replies go with it:
+            # a division attached to the same row before the next tick
+            # must not take them (the refresh writes the row from the
+            # mirror, then the tick scatters the acks over it)
+            self._ack_ring = [a for a in self._ack_ring if a[0] != slot]
+            self._vote_ring = [v for v in self._vote_ring if v[0] != slot]
 
     # -- event intake (transport/appender threads call these) ---------------
 

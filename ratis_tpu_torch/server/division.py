@@ -2031,6 +2031,13 @@ class Division:
         trx = await self.state_machine.pre_append_transaction(trx)
         if tid:
             TRACER.record(tid, STAGE_TXN, t0, TRACER.now())
+        if not self.is_leader() or self.leader_ctx is None:
+            # stepped down while the state machine ran: answer NotLeader,
+            # which the client retries at the new leader (the leader
+            # context is gone, so this write cannot be appended here)
+            return RaftClientReply.failure_reply(
+                req, NotLeaderException(self.member_id, self.get_leader_peer(),
+                                        self.state.configuration.all_peers()))
 
         log = self.state.log
         index = log.next_index

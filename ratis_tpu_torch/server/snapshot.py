@@ -50,10 +50,24 @@ class SnapshotInstaller:
     def in_progress_index(self) -> int:
         return self._in_progress_index
 
-    def _tmp_path(self, filename: str) -> pathlib.Path:
+    def _staging_dir(self) -> pathlib.Path:
+        """Where this division stages an install: its log storage's tmp/,
+        or, on the in-memory log, tmp/ inside its state machine's storage
+        (one directory per group, as the reference's state machine
+        storage tmp dir): never a directory that other groups' installs
+        share, since staged names (``snapshot.<term>_<index>``) repeat
+        across groups and a new install clears the directory's staged
+        files."""
         div = self.division
-        base = (div.storage.tmp_dir if div.storage is not None
-                else pathlib.Path("/tmp"))
+        if div.storage is not None:
+            return div.storage.tmp_dir
+        sm_dir = div.state_machine.get_state_machine_storage().directory
+        if sm_dir is None:
+            raise InstallSnapshotException("state machine has no storage dir")
+        return sm_dir / "tmp"
+
+    def _tmp_path(self, filename: str) -> pathlib.Path:
+        base = self._staging_dir()
         base.mkdir(parents=True, exist_ok=True)
         return base / (filename + ".install")
 
@@ -103,9 +117,7 @@ class SnapshotInstaller:
                 pass
         self._staging.clear()
         self._verified.clear()
-        div = self.division
-        base = (div.storage.tmp_dir if div.storage is not None
-                else pathlib.Path("/tmp"))
+        base = self._staging_dir()
         if base.exists():
             for tmp in base.glob("*.install"):
                 tmp.unlink(missing_ok=True)
@@ -119,8 +131,7 @@ class SnapshotInstaller:
             raise InstallSnapshotException("state machine has no storage dir")
         await sm.pause()
         try:
-            base = (div.storage.tmp_dir if div.storage is not None
-                    else pathlib.Path("/tmp"))
+            base = self._staging_dir()
             # Promote ONLY files completed and MD5-verified in this install;
             # leftovers from aborted installs stay out of sm/.
             for name in self._verified:

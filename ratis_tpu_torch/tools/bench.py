@@ -12,6 +12,7 @@ headline end-to-end rung, run on the port.
     python -m ratis_tpu_torch.tools.bench --rungs chaos       # sparse_plain,
     python -m ratis_tpu_torch.tools.bench --rungs placement   # one a process
     python -m ratis_tpu_torch.tools.bench --rungs readmix     # or zipf
+    python -m ratis_tpu_torch.tools.bench --rungs snapcatch   # or peer7
 
 Prints exactly one JSON line on stdout, with the key names of ``bench.py``'s
 rungs (the first three by default, the mesh rungs when ``--rungs`` names
@@ -147,10 +148,27 @@ them; at most one rung that brings up a cluster per run):
   a write and a linearizable read each, 512 in flight (``--concurrency``),
   admission at ``--element-limit`` (192) pending elements, telemetry at
   250 ms, after an unsaturated phase of ``--unsat-clients`` (256):
-  ``run_zipf_fleet_bench``'s keys plus the same checks.
+  ``run_zipf_fleet_bench``'s keys plus the same checks;
+- ``snapcatch`` (``child_snapcatch`` -> ``run_snapshot_catchup_bench(1024,
+  4, concurrency=128, transport="tcp")``, ``tools/snapshot_bench.py``,
+  the InstallSnapshot half of BASELINE config 5): 3 servers x
+  ``--groups`` (1024) over localhost TCP, snapshot storage in a fresh
+  temporary directory; seed 4 writes a group, snapshot and purge every
+  leader, wipe the last server's replicas, 4 writes a group again while
+  the leaders install their snapshots on it: ``catchup_s``, ``installs``,
+  ``commits_per_sec`` / ``cps_before``, ``p99_ms``, every replica's
+  counter read back equal to both loads' acknowledged writes, and the
+  wiped server's engine rows (``snapshot_bench.snapcatch_rung``'s keys);
+- ``peer7`` (``bench.py``'s config 5 probe, ``bench.py:801-808``): 7
+  servers x ``--groups`` (2048) over the simulated transport, 4 writes a
+  group, no warm-up, 128 in flight, every 32nd write traced: the e2e
+  metrics, every counter read back from all 7 replicas, and
+  ``host_path_decomposition`` (``--trace-out FILE`` writes the trace).
 
-``--seed`` seeds the streams' bytes.  A rung whose streams failed, or
-whose reads or replicas broke their checks, prints its line and exits 1.
+``--seed`` seeds the streams' bytes.  A rung whose streams failed, whose
+reads or replicas broke their checks, or (``snapcatch``) whose wiped
+replicas were not all caught up by a snapshot install, prints its line
+and exits 1.
 
 ``dryrun_multichip(n)`` is the counterpart of
 ``__graft_entry__.dryrun_multichip``: the stateless tick through
@@ -166,7 +184,7 @@ from __future__ import annotations
 
 import argparse
 import asyncio
-import gc
+import collections
 import json
 import os
 import sys
@@ -183,7 +201,7 @@ from ratis_tpu_torch.ops import reference as ref
 RUNGS = ("kernel", "kernel_100k", "e2e", "mesh_100k", "mesh", "sim_10240",
          "durable", "shared", "churn", "mixed", "stream", "filestore5",
          "telemetry", "traced", "upkeep", "sparse_hib", "sparse_plain",
-         "chaos", "placement", "readmix", "zipf")
+         "chaos", "placement", "readmix", "zipf", "snapcatch", "peer7")
 # what a run without --rungs measures: the headline and the kernel rungs
 # (the mesh pair's bring-up of 2 x 10240 groups takes minutes)
 DEFAULT_RUNGS = RUNGS[:3]
@@ -201,10 +219,14 @@ MESH_WRITES = 2
 E2E_RUNGS = ("e2e", "sim_10240", "mesh", "durable", "shared", "churn",
              "mixed", "stream", "filestore5", "telemetry", "traced",
              "upkeep", "sparse_hib", "sparse_plain", "chaos", "placement",
-             "readmix", "zipf")
+             "readmix", "zipf", "snapcatch", "peer7")
 # groups of the rungs that bring up a cluster when --groups is not given
 GROUPS = 1024
 FILESTORE5_GROUPS = 10_240
+# bench.py's config 5 probe (bench.py:801-808): 7 peers, sim, 4 writes
+# per group, no warm-up, every 32nd write traced
+PEER7 = {"groups": 2048, "servers": 7, "writes": 4, "warmup": 0,
+         "transport": "sim", "trace_sample": 32}
 # bench.py's tel_on leg: the sampler on, one sample a second
 TELEMETRY = {"raft.tpu.telemetry.enabled": "true",
              "raft.tpu.telemetry.interval": "1s"}
@@ -504,19 +526,24 @@ def dryrun_multichip(n_devices: int, device="cuda") -> dict:
 
 def e2e_cluster(device="cuda", groups: int = 1024, transport: str = "tcp",
                 mesh_devices: int = 0, extra: dict = None,
-                trace: bool = False, hibernate: bool = False):
-    """An e2e rung's cluster: 3 servers x ``groups`` groups over
+                trace: bool = False, hibernate: bool = False,
+                servers: int = 3, trace_sample: int = None):
+    """An e2e rung's cluster: ``servers`` servers x ``groups`` groups over
     ``transport``, engines in ``mesh_devices`` slices when > 0, host-path
-    tracing on with ``trace``, idle groups hibernating with ``hibernate``,
-    the properties ``extra`` set over the cluster's, its kernels built and
-    launched once (``Cluster.prewarm``), not yet started."""
-    from ratis_tpu_torch.tools.cluster import Cluster, cluster_properties
+    tracing on with ``trace`` (every ``trace_sample``-th write, default
+    the cluster's ``TRACE_SAMPLE``), idle groups hibernating with
+    ``hibernate``, the properties ``extra`` set over the cluster's, its
+    kernels built and launched once (``Cluster.prewarm``), not yet
+    started."""
+    from ratis_tpu_torch.tools.cluster import (TRACE_SAMPLE, Cluster,
+                                               cluster_properties)
     dev = str(_device(device))
-    props = cluster_properties(groups, 3, dev, transport, mesh_devices,
-                               trace=trace, hibernate=hibernate)
+    props = cluster_properties(groups, servers, dev, transport, mesh_devices,
+                               trace=trace, hibernate=hibernate,
+                               trace_sample=trace_sample or TRACE_SAMPLE)
     for k, v in (extra or {}).items():
         props.set(k, v)
-    cluster = Cluster(groups, device=dev, transport=transport,
+    cluster = Cluster(groups, servers, device=dev, transport=transport,
                       properties=props)
     cluster.prewarm()
     return cluster
@@ -537,6 +564,15 @@ def traced_cluster(device="cuda", groups: int = 1024):
     """The traced rung's cluster: the e2e rung's over the simulated
     transport with host-path tracing of every 16th write."""
     return e2e_cluster(device, groups, "sim", trace=True)
+
+
+def peer7_cluster(device="cuda", groups: int = None):
+    """The peer7 rung's cluster (``PEER7``): 7 servers x ``groups`` (2048)
+    groups over the simulated transport, every ``trace_sample``-th write
+    traced."""
+    return e2e_cluster(device, groups or PEER7["groups"], PEER7["transport"],
+                       trace=True, servers=PEER7["servers"],
+                       trace_sample=PEER7["trace_sample"])
 
 
 def _blocking_best_of_3(fn, clock=time.thread_time) -> float:
@@ -675,26 +711,6 @@ def pack_ms(engine, acks: int, reps: int = 200) -> dict:
     return out
 
 
-def _wave(cluster) -> int:
-    """Groups per bring-up wave: a tenth, at least 128.  Election timeouts
-    grow with the channel count (8-16 s at 10240 groups), so a bring-up
-    takes about ten waves at any size."""
-    return max(128, cluster.num_groups // 10)
-
-
-async def _sealed(cluster, bring_up) -> None:
-    """Await ``bring_up`` (``cluster.start(...)`` or ``restart(...)``),
-    then seal the heap.  Bring-up allocates long-lived objects only, so
-    the collector stays off until the servers' one deliberate seal (the
-    JAX bench's scaffold)."""
-    gc.disable()
-    try:
-        await bring_up
-        cluster.servers[0].seal_heap()
-    finally:
-        gc.enable()
-
-
 def _check_engines(engines, dev: torch.device, n_slices: int = 1) -> None:
     """Every engine ran on ``dev`` in ``n_slices`` slices, its state there
     too, and made batched dispatches."""
@@ -726,13 +742,14 @@ async def e2e_rung(cluster, writes: int = 8, warmup: int = WARMUP_WRITES,
     (coroutine functions) run after the bring-up, beside the measured
     writes and after the read-back; their results are ``settle``,
     ``during`` and ``after``."""
+    from ratis_tpu_torch.tools.cluster import bring_up_wave, sealed
     from ratis_tpu_torch.trace import get_tracer
     dev = torch.device(cluster.device)
     groups = cluster.num_groups
     tracing = RaftServerConfigKeys.Trace.enabled(cluster.properties)
     try:
-        await _sealed(cluster, cluster.start(wave=_wave(cluster),
-                                             timeout=600))
+        await sealed(cluster, cluster.start(wave=bring_up_wave(cluster),
+                                            timeout=600))
         probe = {}
         if settle is not None:
             probe["settle"] = await settle(cluster)
@@ -829,13 +846,14 @@ async def durable_rung(cluster, writes: int = 8, after=None) -> dict:
     measured commit, the storage's filesystem type (on tmpfs an fsync
     writes nothing to a device) and ``restart_s``: new servers started ->
     every group has a ready leader."""
-    from ratis_tpu_torch.tools.cluster import fs_type, log_fsyncs
+    from ratis_tpu_torch.tools.cluster import (bring_up_wave, fs_type,
+                                               log_fsyncs, sealed)
     dev = torch.device(cluster.device)
     groups = cluster.num_groups
     storage = RaftServerConfigKeys.storage_dirs(cluster.properties)[0]
     try:
-        await _sealed(cluster, cluster.start(wave=_wave(cluster),
-                                             timeout=600))
+        await sealed(cluster, cluster.start(wave=bring_up_wave(cluster),
+                                            timeout=600))
         timeouts = [cluster.election_timeouts()]
         acked = (await cluster.write_all(WARMUP_WRITES,
                                          CONCURRENCY))["commits"]
@@ -850,7 +868,7 @@ async def durable_rung(cluster, writes: int = 8, after=None) -> dict:
         acked += stats["commits"]
         read_back = [await cluster.check_variables(timeout=300)]
         _check_engines(engines, dev)
-        await _sealed(cluster, cluster.restart(timeout=600))
+        await sealed(cluster, cluster.restart(timeout=600))
         restart_timeouts = cluster.election_timeouts()
         read_back.append(await cluster.check_variables(timeout=300))
         probe = {} if after is None else {"after": after(cluster)}
@@ -997,11 +1015,12 @@ async def churn_rung(cluster, writes: int = 8) -> dict:
     outside the joint rounds) and the first ``CHURN_JOINT_GROUPS`` groups
     each go through one joint-consensus round; read every counter back
     from every replica in the final configuration, close."""
+    from ratis_tpu_torch.tools.cluster import bring_up_wave, sealed
     dev = torch.device(cluster.device)
     groups = cluster.num_groups
     try:
-        await _sealed(cluster, cluster.start(wave=_wave(cluster),
-                                             timeout=600))
+        await sealed(cluster, cluster.start(wave=bring_up_wave(cluster),
+                                            timeout=600))
         timeouts = [cluster.election_timeouts()]
         engines = [s.engine for s in cluster.servers]
         saved = _fresh_dispatch_timers(engines)
@@ -1104,9 +1123,10 @@ def main(argv=None) -> int:
                     help=f"groups of the rungs that bring up a cluster "
                          f"(default {GROUPS}; filestore5, upkeep and the "
                          f"sparse pair {FILESTORE5_GROUPS}; placement 48; "
-                         f"not the mesh pair's)")
+                         f"peer7 {PEER7['groups']}; not the mesh pair's)")
     ap.add_argument("--writes", type=int, default=None,
-                    help="writes per group (default 8; readmix 4)")
+                    help="writes per group (default 8; readmix, snapcatch "
+                         "and peer7 4)")
     ap.add_argument("--seed", type=int, default=0,
                     help="seed of the streams' bytes")
     ap.add_argument("--trace-out", default=None, metavar="FILE",
@@ -1237,6 +1257,28 @@ def main(argv=None) -> int:
             concurrency=args.concurrency or load["concurrency"],
             element_limit=limit,
             unsat_clients=args.unsat_clients or load["unsat_clients"]))
+    # BASELINE config 5's halves: InstallSnapshot catch-up under writes
+    # (tools/snapshot_bench.py), and 7 peers end to end, traced
+    if "snapcatch" in rungs:
+        from ratis_tpu_torch.tools import snapshot_bench as sb
+        load = sb.SNAPCATCH
+        with tempfile.TemporaryDirectory(prefix="ratis-snapcatch-") as tmp:
+            res = asyncio.run(sb.snapcatch_rung(
+                sb.snapcatch_cluster(args.device, groups, tmp),
+                writes=args.writes if args.writes is not None
+                else load["writes"],
+                concurrency=args.concurrency or load["concurrency"]))
+        res["missed_installs"] = res["groups"] - res["installs"]
+        # one line: the per-group maps as counts
+        del res["counters"]
+        res["snapshot_index"] = dict(sorted(collections.Counter(
+            res["snapshot_index"].values()).items()))
+        out["snapcatch"] = res
+    if "peer7" in rungs:
+        out["peer7"] = asyncio.run(e2e_rung(
+            peer7_cluster(args.device, args.groups),
+            PEER7["writes"] if args.writes is None else args.writes,
+            warmup=PEER7["warmup"], trace_out=args.trace_out))
     # the FileStore rungs, each under its load in filestore_bench.LOADS
     from ratis_tpu_torch.tools import filestore_bench as fb
     for rung in fb.LOADS:
@@ -1245,7 +1287,8 @@ def main(argv=None) -> int:
                                     args.seed)
     print(json.dumps(out), flush=True)
     failed = sum(r.get("streams_failed", 0) + r.get("read_mismatches", 0)
-                 + r.get("replica_mismatches", 0) for r in out.values()
+                 + r.get("replica_mismatches", 0)
+                 + r.get("missed_installs", 0) for r in out.values()
                  if isinstance(r, dict))
     return 1 if failed else 0
 

@@ -38,7 +38,11 @@ are the JAX bench's (``filestore_message``: a 128-byte file through the
 log); ``stream_file()`` streams a file's bytes over the DataStream plane
 (``stream_payload``: seeded bytes, so a packet lost or out of order
 shows), and ``check_files()`` holds every replica's files, names, sizes
-and bytes, to the acknowledged writes and streams.
+and bytes, to the acknowledged writes and streams.  With
+``sm_storage_root`` every group's state machine keeps its snapshots in
+``{root}/{peer}/{group}`` (the in-memory log purges what a snapshot
+covers), and ``wipe(server, groups)`` removes a server's replicas and
+adds them afresh, on the engine rows they released.
 
     cluster = Cluster(num_groups=1024, device="cuda", transport="tcp")
     cluster.prewarm()             # optional: start() prewarms otherwise
@@ -71,6 +75,7 @@ and bytes, to the acknowledged writes and streams.
 from __future__ import annotations
 
 import asyncio
+import gc
 import os
 import time
 
@@ -102,6 +107,8 @@ STATE_MACHINES = {"counter": CounterStateMachine,
 FILE_WRITE_BYTES = 128
 # the JAX bench's traced rung: every 16th write traced end to end
 TRACE_SAMPLE = 16
+# the JAX snapshot rung's wipes: this many groups removed and added at once
+WIPE_WAVE = 256
 # the routes of a server's HTTP endpoint (raft.tpu.metrics.http-port) with
 # telemetry on (raft.tpu.telemetry.enabled): Prometheus text, then JSON
 HTTP_ROUTES = ("/metrics", "/health", "/divisions", "/events", "/lag",
@@ -173,7 +180,8 @@ def cluster_properties(num_groups: int, num_servers: int = 3,
                        mesh_devices: int = 0, storage_dir: str = None,
                        shared_log: bool = False,
                        trace: bool = False,
-                       hibernate: bool = False) -> RaftProperties:
+                       hibernate: bool = False,
+                       trace_sample: int = TRACE_SAMPLE) -> RaftProperties:
     """The batched deployment of ``num_groups`` groups on ``num_servers``
     servers: the JAX bench's ``bench_properties(batched=True, num_groups,
     num_servers=..., transport=..., mesh_devices=..., trace=...,
@@ -183,7 +191,7 @@ def cluster_properties(num_groups: int, num_servers: int = 3,
     it rides the coalesced heartbeats).  ``mesh_devices`` > 0 runs every
     engine as that many slices of its group batch (``parallel/mesh.py``);
     ``trace`` records the host-path stage spans of every
-    ``TRACE_SAMPLE``-th write (``trace/``).  With
+    ``trace_sample``-th write (``trace/``).  With
     ``storage_dir`` the log is the server's default durable one there
     (``raft.server.log.use.memory=false``), per group or, with
     ``shared_log``, the shared plane (``raft.tpu.log.shared``), as the
@@ -221,7 +229,7 @@ def cluster_properties(num_groups: int, num_servers: int = 3,
         RaftServerConfigKeys.TpuLog.set_shared(p, shared_log)
     if trace:
         p.set(RaftServerConfigKeys.Trace.ENABLED_KEY, "true")
-        p.set(RaftServerConfigKeys.Trace.SAMPLE_EVERY_KEY, str(TRACE_SAMPLE))
+        p.set(RaftServerConfigKeys.Trace.SAMPLE_EVERY_KEY, str(trace_sample))
     # heap discipline: tuned collector thresholds, one seal after bring-up,
     # a steady-state re-freeze every 15s (the memory log never purges)
     p.set(RaftServerConfigKeys.Gc.DISCIPLINE_KEY, "true")
@@ -240,11 +248,32 @@ def cluster_properties(num_groups: int, num_servers: int = 3,
     return p
 
 
+def bring_up_wave(cluster) -> int:
+    """Groups per bring-up wave: a tenth, at least 128.  Election timeouts
+    grow with the channel count (8-16 s at 10240 groups), so a bring-up
+    takes about ten waves at any size."""
+    return max(128, cluster.num_groups // 10)
+
+
+async def sealed(cluster, bring_up) -> None:
+    """Await ``bring_up`` (``cluster.start(...)`` or ``restart(...)``),
+    then seal the heap.  Bring-up allocates long-lived objects only, so
+    the collector stays off until the servers' one deliberate seal (the
+    JAX bench's scaffold)."""
+    gc.disable()
+    try:
+        await bring_up
+        cluster.servers[0].seal_heap()
+    finally:
+        gc.enable()
+
+
 class Cluster:
     def __init__(self, num_groups: int, num_servers: int = 3,
                  device: str = "cuda", properties=None,
                  transport: str = "sim", mesh_devices: int = 0,
-                 sm: str = "counter", datastream: bool = False):
+                 sm: str = "counter", datastream: bool = False,
+                 sm_storage_root: str = None):
         if sm not in STATE_MACHINES:
             raise ValueError(f"sm {sm!r}: one of {sorted(STATE_MACHINES)}")
         self.num_groups = num_groups
@@ -252,6 +281,7 @@ class Cluster:
         self.transport = transport
         self.sm = sm
         self.datastream = datastream
+        self.sm_storage_root = sm_storage_root
         self.properties = properties or cluster_properties(
             num_groups, num_servers, device, transport, mesh_devices)
         if transport in ("tcp", "grpc"):
@@ -297,17 +327,51 @@ class Cluster:
         """Servers on ``addresses``; with ``datastream``, each with its
         DataStream plane on the matching entry of ``datastream_addresses``
         (default ``127.0.0.1:0``), which the server's ``start()`` binds."""
-        sm = STATE_MACHINES[self.sm]
-        servers = [RaftServer(RaftPeerId.value_of(f"s{i}"), a,
-                              state_machine_registry=lambda gid: sm(),
+        servers = [RaftServer(peer, a,
+                              state_machine_registry=self._registry(peer),
                               properties=self.properties,
                               transport_factory=self.factory)
-                   for i, a in enumerate(addresses)]
+                   for peer, a in ((RaftPeerId.value_of(f"s{i}"), a)
+                                   for i, a in enumerate(addresses))]
         if self.datastream:
             for s, a in zip(servers, datastream_addresses
                             or ["127.0.0.1:0"] * len(servers)):
                 s.datastream = DataStreamManagement(s, a)
         return servers
+
+    def _registry(self, peer_id):
+        """The state machine registry of server ``peer_id``: a fresh state
+        machine per group; with ``sm_storage_root`` its snapshot storage
+        in ``{root}/{peer_id}/{group_id}`` (the JAX bench's real snapshot
+        storage under the in-memory log, ``BenchCluster._registry_for``)."""
+        sm, root = STATE_MACHINES[self.sm], self.sm_storage_root
+        if root is None:
+            return lambda gid: sm()
+
+        def registry(gid):
+            m = sm()
+            m.get_state_machine_storage().init(f"{root}/{peer_id}/{gid}")
+            return m
+        return registry
+
+    async def wipe(self, server: RaftServer, groups) -> None:
+        """Wipe ``server``'s replicas of ``groups``: ``group_remove``, then
+        a fresh ``group_add`` of the same group, in waves of ``WIPE_WAVE``
+        (the JAX snapshot rung's in-memory analog of losing a disk).  The new
+        divisions start from an empty log and reuse the engine rows the
+        old ones released.  Each wiped replica's snapshot directory
+        (``sm_storage_root``) goes too, so a snapshot it holds afterwards
+        is one a leader installed."""
+        import shutil
+        for i in range(0, len(groups), WIPE_WAVE):
+            batch = groups[i:i + WIPE_WAVE]
+            await asyncio.gather(*(server.group_remove(g.group_id)
+                                   for g in batch))
+            if self.sm_storage_root is not None:
+                for g in batch:
+                    shutil.rmtree(f"{self.sm_storage_root}/{server.peer_id}"
+                                  f"/{g.group_id}", ignore_errors=True)
+            await asyncio.gather(*(server.group_add(g) for g in batch))
 
     def datastream_address(self, server: RaftServer):
         """The DataStream address ``server`` listens on, or None."""

@@ -229,8 +229,9 @@ async def run_stream_throughput_bench(cluster, streams: int,
 
 
 async def _start(cluster) -> None:
-    from ratis_tpu_torch.tools.bench import _sealed, _wave
-    await _sealed(cluster, cluster.start(wave=_wave(cluster), timeout=600))
+    from ratis_tpu_torch.tools.cluster import bring_up_wave, sealed
+    await sealed(cluster, cluster.start(wave=bring_up_wave(cluster),
+                                        timeout=600))
 
 
 def run_rung(rung: str, device, groups: int = None, seed: int = 0) -> dict:

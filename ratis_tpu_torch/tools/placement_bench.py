@@ -94,7 +94,7 @@ async def placement_rung(cluster, clients: int = 384,
                                                    admin_request_type,
                                                    read_request_type,
                                                    write_request_type)
-    from ratis_tpu_torch.tools.bench import _sealed, _wave
+    from ratis_tpu_torch.tools.cluster import bring_up_wave, sealed
     from ratis_tpu_torch.util import injection
 
     num_groups = cluster.num_groups
@@ -108,8 +108,8 @@ async def placement_rung(cluster, clients: int = 384,
     call_ids = itertools.count(1)
     client = None
     try:
-        await _sealed(cluster, cluster.start(wave=_wave(cluster),
-                                             timeout=600))
+        await sealed(cluster, cluster.start(wave=bring_up_wave(cluster),
+                                            timeout=600))
         # group id -> the server a request goes to first (the JAX bench's
         # BenchCluster._leader_hint), from the elected leaders
         hint = {g.group_id: cluster.leader_of(g) or cluster.servers[0]

@@ -254,13 +254,13 @@ async def readmix_rung(cluster, writes: int = READMIX["writes"],
     from ratis_tpu_torch.protocol.ids import ClientId
     from ratis_tpu_torch.protocol.requests import (read_request_type,
                                                    stale_read_request_type)
-    from ratis_tpu_torch.tools.bench import _sealed, _wave
+    from ratis_tpu_torch.tools.cluster import bring_up_wave, sealed
 
     num_groups = cluster.num_groups
     reqs = None
     try:
-        await _sealed(cluster, cluster.start(wave=_wave(cluster),
-                                             timeout=600))
+        await sealed(cluster, cluster.start(wave=bring_up_wave(cluster),
+                                            timeout=600))
         reqs = _Requests(cluster)
         checks = ReadChecks()
         sem = asyncio.Semaphore(concurrency)
@@ -400,15 +400,15 @@ async def zipf_rung(cluster, clients: int = ZIPF["clients"],
     from ratis_tpu_torch.protocol.ids import ClientId
     from ratis_tpu_torch.protocol.requests import (read_request_type,
                                                    write_request_type)
-    from ratis_tpu_torch.tools.bench import _sealed, _wave
+    from ratis_tpu_torch.tools.cluster import bring_up_wave, sealed
 
     num_groups = cluster.num_groups
     rng = random.Random(seed)
     cdf, expected_top_share = zipf_cdf(num_groups, zipf_s)
     reqs = None
     try:
-        await _sealed(cluster, cluster.start(wave=_wave(cluster),
-                                             timeout=600))
+        await sealed(cluster, cluster.start(wave=bring_up_wave(cluster),
+                                            timeout=600))
         reqs = _Requests(cluster)
         checks = ReadChecks()
 

@@ -154,11 +154,11 @@ async def upkeep_rung(cluster, settle_s: float = UPKEEP_SETTLE_S,
     bring-up, ``settle_s`` for the idle fleet to fall asleep and the tick
     pair.  ``teardown=False`` leaves the cluster up (a process that exits
     right after reporting need not unwind its divisions)."""
-    from ratis_tpu_torch.tools.bench import _sealed, _wave
+    from ratis_tpu_torch.tools.cluster import bring_up_wave, sealed
     sweeps = {"sweep_ms_64": scan_ms(64), "sweep_ms_1024": scan_ms(1024)}
     try:
-        await _sealed(cluster, cluster.start(wave=_wave(cluster),
-                                             timeout=600))
+        await sealed(cluster, cluster.start(wave=bring_up_wave(cluster),
+                                            timeout=600))
         await asyncio.sleep(settle_s)
         pair = tick_pair(cluster)
         engine = cluster.servers[0].engine

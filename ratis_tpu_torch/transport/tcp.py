@@ -561,11 +561,23 @@ class TcpServerTransport(ServerTransport):
 
     async def close(self) -> None:
         await self._pool.close()
-        for writer in list(self._accepted):
-            writer.close()
-        if self._server is not None:
-            self._server.close()
-            await self._server.wait_closed()
+        if self._server is None:
+            for writer in list(self._accepted):
+                writer.close()
+            return
+        # stop accepting first; wait_closed() then waits for every accepted
+        # connection, so close each one, also one whose handler registers
+        # only after this pass (accepted just before the listener closed,
+        # its handler task not yet run): a peer's open connection would
+        # otherwise hold the close forever
+        self._server.close()
+        closed = asyncio.ensure_future(self._server.wait_closed())
+        while True:
+            for writer in list(self._accepted):
+                writer.close()
+            done, _ = await asyncio.wait({closed}, timeout=0.05)
+            if done:
+                break
 
 
 def _decode_error(body: bytes) -> RaftException:

@@ -224,20 +224,23 @@ def test_chaos_properties_are_the_jax_package_s(groups):
 
 async def _cancelled_follower_append(pkg: str, kind: str, tmp) -> tuple:
     """Append entry 0, then entry 1 through the follower path under a
-    10 ms deadline while every flush takes 300 ms; wait for the worker;
-    the log's (next index, flush index)."""
+    10 ms deadline while every flush takes 300 ms; wait until the worker
+    has written and synced entry 1's batch (its flush count, the wait
+    bounded at 30 s: how long the sync takes is the disk's) and its
+    callbacks have run; the log's (next index, flush index)."""
     seg = importlib.import_module(f"{pkg}.server.log.segmented")
     shared = importlib.import_module(f"{pkg}.server.log.shared")
     injection = importlib.import_module(f"{pkg}.util.injection")
     logentry = importlib.import_module(f"{pkg}.protocol.logentry")
     ids = importlib.import_module(f"{pkg}.protocol.ids")
+    worker = seg.LogWorker(f"{pkg}-w")
     if kind == "shared":
         log = shared.SharedGroupLog("g", b"A" * 16, shared.SharedLogStore(
-            tmp, seg.LogWorker(f"{pkg}-w"), name=f"{pkg}-s"))
+            tmp, worker, name=f"{pkg}-s"))
     else:
-        log = seg.SegmentedRaftLog("g", tmp / "current",
-                                   worker=seg.LogWorker(f"{pkg}-w"))
+        log = seg.SegmentedRaftLog("g", tmp / "current", worker=worker)
     await log.open()
+    flushes = worker.registry_metrics.flush_count
 
     def entry(i):
         return logentry.make_transaction_entry(1, i, ids.ClientId.random_id(),
@@ -246,12 +249,17 @@ async def _cancelled_follower_append(pkg: str, kind: str, tmp) -> tuple:
     async def slow_sync(*_):
         await asyncio.sleep(0.3)
     await log.append_entries_follower([entry(0)])
+    synced = flushes.count
     injection.put(injection.LOG_SYNC, slow_sync)
     try:
         with pytest.raises(asyncio.TimeoutError):
             await asyncio.wait_for(log.append_entries_follower([entry(1)]),
                                    0.01)
-        await asyncio.sleep(0.8)
+        deadline = asyncio.get_running_loop().time() + 30.0
+        while flushes.count == synced \
+                and asyncio.get_running_loop().time() < deadline:
+            await asyncio.sleep(0.05)
+        await asyncio.sleep(0.05)
     finally:
         injection.remove(injection.LOG_SYNC)
     out = (log.next_index, log.flush_index)

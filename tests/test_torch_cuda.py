@@ -1073,3 +1073,82 @@ def test_read_rung_runs_tiny_on_the_card(card, rung):
     assert res["engine_device"].startswith("cuda")
     assert all(n > 0 for n in launched[:4]) and launched[4:] == [0, 0], \
         launched
+
+
+# -- BASELINE config 5: 7 of 8 lanes, the snapshot rung, 7 peers ------------
+
+def _seven_lanes(rng, g: int, joint: bool) -> list:
+    """``resident_state`` with every conf of 7 members (the 8th lane
+    empty); ``joint``: every row in a joint round from 5 to the 7."""
+    st = cases.resident_state(rng, g, P, NOW, members=7)
+    st[4][:] = False
+    if joint:
+        st[4][:, :5] = True
+    return st
+
+
+@pytest.mark.parametrize("joint", [False, True], ids=["seven", "joint5to7"])
+@pytest.mark.parametrize("g", [64, 1024])
+def test_k1_k2_k3_at_seven_of_eight_lanes_match_plain(card, g, joint):
+    rng = np.random.default_rng(g + joint)
+    st = _seven_lanes(rng, g, joint)
+    ev, meta = _cuda([cases.fast_events(rng, g, P, 256, NOW),
+                      np.array([NOW, 300], np.int32)])
+    a = tq.device_state_from_numpy(st, card)
+    b = tq.device_state_from_numpy(st, card)
+    k = tq.engine_step_resident_fast(a, ev, meta)
+    assert torch.equal(k.out, tq._resident_fast_plain(b, ev, meta))
+    for x, y in zip(a, b):
+        assert torch.equal(x, y)
+    rf_idx, rf, acks = cases.refresh(rng, g, P, 64, 256, NOW)
+    rf[3][:] = False
+    rf[3][:, :7] = True
+    rf[4][:] = False
+    if joint:
+        rf[4][:, :5] = True
+    _refresh_kernel_and_plain(card, st, rf_idx, rf, acks)
+    arrays = cases.tally_inputs(rng, g, P, members=7)
+    if joint:
+        arrays[3][:] = False
+        arrays[3][:, :5] = True
+    rows = np.arange(g)
+    plan = cases.tally_plan(arrays, rows, card, 64 if g <= 64 else 1024)
+    got = plan.run(64 if g <= 64 else 1024).copy()
+    want = tq._tally_plain(*(torch.from_numpy(np.ascontiguousarray(x))
+                             for x in arrays))
+    assert np.array_equal(got[:, :g], want.numpy()[:, :g])
+
+
+def test_snapcatch_rung_runs_tiny_on_the_card(card, tmp_path):
+    """The bench's snapcatch rung small on the card (3 x 64 over TCP, 4 +
+    4 writes: at 8 groups a load is 16 writes and one slow install write
+    on the card host's filesystem reads as the rung's write collapse):
+    every wiped replica caught up by an install, every counter equal to
+    both loads' writes, the wiped engine on the rows it released; K1-K4
+    launched, K5 not."""
+    from ratis_tpu_torch.tools import snapshot_bench as sb
+    kernels = (tq.K1, tq.K2, tq.K3, tl.K4, tq.K5)
+    before = [k.launches for k in kernels]
+    res = asyncio.run(sb.snapcatch_rung(
+        sb.snapcatch_cluster("cuda", 64, str(tmp_path)), writes=4))
+    launched = [k.launches - n for k, n in zip(kernels, before)]
+    assert res["installs"] == 64 and res["replica_mismatches"] == 0
+    assert res["commits"] == 512 and res["victim_live_rows"] == 64
+    assert res["victim_rows_reused"] == 64
+    assert res["engine_device"].startswith("cuda")
+    assert all(n > 0 for n in launched[:4]) and launched[4] == 0, launched
+
+
+def test_seven_peer_rung_runs_tiny_on_the_card(card):
+    """The bench's peer7 rung tiny on the card (7 x 16 over the simulated
+    transport, 4 writes a group, traced): every counter read back from 7
+    replicas; K1-K4 launched, K5 not."""
+    kernels = (tq.K1, tq.K2, tq.K3, tl.K4, tq.K5)
+    before = [k.launches for k in kernels]
+    res = asyncio.run(bench.e2e_rung(bench.peer7_cluster("cuda", 16), 4,
+                                     warmup=0))
+    launched = [k.launches - n for k, n in zip(kernels, before)]
+    assert res["acked"] == 64 and res["replicas_read_back"] == 16 * 7
+    assert res["engine_device"].startswith("cuda")
+    assert "host_path_decomposition" in res
+    assert all(n > 0 for n in launched[:4]) and launched[4] == 0, launched

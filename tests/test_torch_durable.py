@@ -10,7 +10,8 @@ port's: ``raft.server.log.use.memory`` defaults to false and
   once lacked ``server/storage.py`` and the durable logs, and raised
   ``ModuleNotFoundError`` on start);
 - 3 servers x 16 groups over localhost TCP, ``ArithmeticStateMachine``,
-  per-group segment files and the shared log plane: the same script on
+  per-group segment files and the shared log plane, on the durable rungs'
+  4 s / 8 s timeout tier (``_props``): the same script on
   the port's harness (``tools/cluster.py``) and on the JAX package (the
   harness renamed, ``tests/jax_mirror.py``) — writes, every replica's
   variable map held to the fold of the acknowledged writes, a full
@@ -98,6 +99,72 @@ def test_server_on_default_properties_starts_and_restarts(tmp_path):
     assert runs["ratis_tpu_torch"] == runs["ratis_tpu"]
 
 
+async def _step_down_mid_write(pkg: str):
+    """A one-peer group on ``pkg``'s server; a write whose state machine's
+    ``start_transaction`` waits until the test steps the leader down:
+    the reply's exception (and whether the leader had a context left)."""
+    m = lambda name: importlib.import_module(f"{pkg}.{name}")
+    conf, ids = m("conf"), m("protocol.ids")
+    sim = m("transport.simulated")
+    counter = m("models.counter")
+    props = conf.RaftProperties()
+    conf.RaftServerConfigKeys.Log.set_use_memory(props, True)
+    if pkg == "ratis_tpu_torch":
+        props.set(conf.RaftServerConfigKeys.Engine.DEVICE_KEY, "cpu")
+    entered, release = asyncio.Event(), asyncio.Event()
+
+    class Held(counter.CounterStateMachine):
+        async def start_transaction(self, request):
+            entered.set()
+            await release.wait()
+            return await super().start_transaction(request)
+
+    pid = ids.RaftPeerId.value_of("s0")
+    server = m("server.server").RaftServer(
+        pid, "sim:s0", properties=props,
+        transport_factory=sim.SimulatedTransportFactory(
+            sim.SimulatedNetwork()),
+        state_machine_registry=lambda gid: Held())
+    group = m("protocol.group").RaftGroup.value_of(
+        ids.RaftGroupId.random_id(),
+        [m("protocol.peer").RaftPeer(pid, address="sim:s0")])
+    try:
+        await server.start()
+        await server.group_add(group)
+        d = server.divisions[group.group_id]
+        deadline = asyncio.get_running_loop().time() + TIMEOUT
+        while not (d.is_leader() and d.leader_ctx is not None
+                   and d.leader_ctx.leader_ready.done()):
+            assert asyncio.get_running_loop().time() < deadline
+            await asyncio.sleep(0.01)
+        req = m("protocol.requests").RaftClientRequest(
+            ids.ClientId.random_id(), pid, group.group_id, 1,
+            m("protocol.message").Message.value_of(b"INCREMENT"),
+            type=m("protocol.requests").write_request_type())
+        write = asyncio.ensure_future(d.submit_client_request(req))
+        await entered.wait()
+        await d.change_to_follower(d.state.current_term + 1, None,
+                                   reason="test: mid-write step-down")
+        release.set()
+        reply = await asyncio.wait_for(write, TIMEOUT)
+        return type(reply.exception).__name__, str(reply.exception)
+    finally:
+        await server.close()
+
+
+def test_write_whose_leader_steps_down_mid_transaction_answers_not_leader():
+    """The port's leader re-checks its leadership after the state
+    machine's transaction: a write whose leader stepped down meanwhile is
+    answered NotLeader, which a client retries at the new leader.  The
+    reference appends through the cleared leader context and answers an
+    AttributeError's text, which no client retries (a durable cluster's
+    writes after a restart failed on it)."""
+    port = asyncio.run(_step_down_mid_write("ratis_tpu_torch"))
+    assert port[0] == "NotLeaderException", port
+    jax = asyncio.run(_step_down_mid_write("ratis_tpu"))
+    assert "'NoneType' object has no attribute 'pending'" in jax[1], jax
+
+
 def test_default_properties_are_durable():
     from ratis_tpu_torch.conf import RaftProperties
     p = RaftProperties()
@@ -108,8 +175,18 @@ def test_default_properties_are_durable():
 # -- 3 x 16 durable arithmetic clusters, port and JAX -------------------------
 
 def _props(tmp, shared: bool):
-    return cluster_properties(GROUPS, 3, "cpu", "tcp", storage_dir=str(tmp),
-                              shared_log=shared)
+    """The durable rungs' properties at 16 groups: the 4 s / 8 s tier
+    (``bench.DURABLE_TIER``) over the cluster's.  Every vote and term
+    change persists ``raft-meta`` (a new file, an fsync and a rename), and
+    where such a write takes tens of ms, 48 divisions electing at once
+    queue their votes behind each other for seconds: under the 1 s / 2 s
+    tier that 16 groups would get, candidates then time out faster than
+    the votes land, and bring-up never converges."""
+    p = cluster_properties(GROUPS, 3, "cpu", "tcp", storage_dir=str(tmp),
+                           shared_log=shared)
+    for k, v in bench.DURABLE_TIER.items():
+        p.set(k, v)
+    return p
 
 
 async def _durable_script(cluster) -> dict:
@@ -125,6 +202,10 @@ async def _durable_script(cluster) -> dict:
         await cluster.restart(TIMEOUT)
         after = [s.transport.address for s in cluster.servers]
         assert await cluster.check_variables(TIMEOUT) == GROUPS * 3
+        # a restart's elections may still be moving leaders (each vote an
+        # fsynced raft-meta write): write once every group has a ready
+        # leader again, as the writes before the restart did
+        await cluster.wait_leaders(cluster.groups, TIMEOUT)
         await cluster.write_all(1)
         assert await cluster.check_variables(TIMEOUT) == GROUPS * 3
         maps = [cluster.servers[0].divisions[g.group_id].state_machine

@@ -6,7 +6,9 @@ device="cpu")`` (the kernels' plain-torch versions), take ONE seeded random
 intake script: attach/detach, acks (scalar and batched), flush advances and
 regressions, deadline re-arms, conf and role changes (dirty-row refreshes),
 vote rounds with replies and early expiry, a backlog above the dispatch
-chunk cap, and an epoch rebase.  After EVERY tick the listener callbacks,
+chunk cap, and an epoch rebase.  A detached row's queued events are
+dropped from the JAX engine's rings before its detach, as the port's
+detach drops them (``detach_both``).  After EVERY tick the listener callbacks,
 the vote results, the host mirrors and the device-resident state must be
 equal.
 """
@@ -73,6 +75,19 @@ def _assert_same(j, t, step):
             np.testing.assert_array_equal(
                 b.numpy(), np.asarray(a),
                 err_msg=f"step {step}: device {name}")
+
+
+def detach_both(j, t, slot: int) -> None:
+    """Detach ``slot`` from both engines.  The port's detach drops the
+    row's queued acks and vote replies, so a division attached to the same
+    row before the next tick never takes them; the JAX engine keeps them
+    (its next tick scatters a released row's acks over the row's next
+    owner), so they are dropped from its rings here first, and the two
+    engines then hold the same state."""
+    j._ack_ring = [a for a in j._ack_ring if a[0] != slot]
+    j._vote_ring = [v for v in j._vote_ring if v[0] != slot]
+    j.detach(slot)
+    t.detach(slot)
 
 
 # the engine counters that name the kind of each tick
@@ -177,7 +192,7 @@ def _lockstep(on_step=None) -> None:
                 both(lambda e: e.on_ack_batch(big))
             if step == 30:
                 g = slots[0]
-                both(lambda e: e.detach(g))
+                detach_both(j, t, g)
                 recs.pop(g)
                 attach()
             before = t.metrics["batched_dispatches"]

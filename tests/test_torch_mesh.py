@@ -41,6 +41,7 @@ from ratis_tpu_torch.tools import bench, cases
 from ratis_tpu_torch.tools.cluster import cluster_properties
 
 from tests.test_torch_cluster import GROUPS, WRITES, run_both_and_compare
+from tests.test_torch_engine import detach_both
 
 P = 8
 NOW = 100_000
@@ -223,7 +224,8 @@ def test_mesh_engine_churn_matches_jax(n_slices, seed):
     batched, flush advances and regressions, deadline re-arms, role and
     conf flips (dirty-row refreshes), vote rounds, and a backlog above the
     dispatch chunk cap.  Raw slot numbers, mirrors, device state,
-    callbacks and metrics must be equal after every tick."""
+    callbacks and metrics must be equal after every tick (a detached row's
+    queued events dropped from the JAX engine first, ``detach_both``)."""
     g = 64
 
     async def run():
@@ -316,7 +318,7 @@ def test_mesh_engine_churn_matches_jax(n_slices, seed):
                     both(lambda e: e.on_vote_reply(s_, p, granted))
             if step in (10, 25):
                 s_ = rng.choice(slots)
-                both(lambda e: e.detach(s_))
+                detach_both(j, t, s_)
                 recs.pop(s_)
                 attach()
                 attach()

@@ -1,7 +1,8 @@
 """The slice over real TCP sockets: the JAX package's cluster and the
 port's, 3 servers x 32 groups each on ``127.0.0.1`` ports the kernel
-picks when the servers bind (``transport/tcp.py``, a verbatim copy in the
-port), through the same two runs as ``test_torch_cluster.py``; the
+picks when the servers bind (``transport/tcp.py``, a copy in the port
+whose server close also closes connections accepted while it runs),
+through the same two runs as ``test_torch_cluster.py``; the
 port's groups must name the ports its servers listen on.
 
 Both must acknowledge every write, read counter == writes back from every
@@ -10,6 +11,8 @@ tallies and ledger samples; their counters must be equal.  The harness's
 properties must be the JAX bench's ``bench_properties(batched=True)`` key
 for key, plus the port's engine device.
 """
+
+import asyncio
 
 import pytest
 
@@ -48,3 +51,39 @@ def test_properties_are_the_jax_bench_properties(transport, groups):
 def test_unknown_transport_is_refused():
     with pytest.raises(ValueError, match="transport"):
         cluster_properties(4, 3, "cpu", "udp")
+
+
+def test_server_close_closes_a_connection_accepted_while_it_runs():
+    """A connection the listener accepted whose handler registers it only
+    after ``close()`` began (a peer's late re-dial on a loaded loop, held
+    back here by a delay in the handler) must not hold the server's
+    close: ``close()`` returns and the connection is closed.  (The old
+    close closed the connections registered when it began, then waited in
+    ``wait_closed()`` for the late one until its peer hung up, which a
+    peer that is itself closing may never do.)"""
+    from ratis_tpu_torch.protocol.ids import RaftPeerId
+    from ratis_tpu_torch.transport.tcp import TcpServerTransport
+
+    async def run():
+        t = TcpServerTransport(RaftPeerId.value_of("s0"), "127.0.0.1:0",
+                               None, None)
+        accepted = asyncio.Event()
+        handler = t._on_connect
+
+        async def late(reader, writer):
+            accepted.set()
+            await asyncio.sleep(0.3)
+            await handler(reader, writer)
+        t._on_connect = late
+        await t.start()
+        host, port = t.address.rsplit(":", 1)
+        reader, writer = await asyncio.open_connection(host, int(port))
+        await accepted.wait()
+        try:
+            await asyncio.wait_for(t.close(), 5.0)
+            # the server closed its side: the peer reads end of stream
+            return await asyncio.wait_for(reader.read(1), 5.0)
+        finally:
+            writer.close()
+
+    assert asyncio.run(run()) == b""
