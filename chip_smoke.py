@@ -3,8 +3,9 @@
 
     python3 chip_smoke.py [--groups 1024] [--writes 2] [--seed 0] [--out FILE]
 
-Phases, in order; any failure raises, exits non-zero and prints no
-result line:
+Phases, in order; any failure raises, prints ``chip_smoke: FAILED in
+phase <name>: <error>`` on stdout and stderr, exits non-zero and prints
+no result line:
 
 1. environment: the card's name and power limit (nvidia-smi), CUDA present,
    which msgpack the wire codec uses;
@@ -61,7 +62,7 @@ result line:
       and K4 > 0; K1 must stay 0: a mesh engine's fast ticks are K5);
       then ``dryrun_multichip(8)`` and the bench's ``mesh_100k`` rung
       (K5 against the flat K1 at 102400 x 8 x 8192);
-   e. ``durable_1024``, the bench's ``durable`` rung: 3 servers x 512
+   e. ``durable_1024``, the bench's ``durable`` rung: 3 servers x 256
       groups (the bench: 1024) over localhost TCP on the server's default
       durable log
       (per-group segment files in a fresh temporary directory),
@@ -127,7 +128,12 @@ result line:
       on the shared
       durable log in a fresh temporary directory; every scenario must pass
       its SLOs and every injected fault be journaled and recovered; the
-      servers a crash rebuilds are counted too (K1-K4 > 0, K5 0);
+      servers a crash rebuilds are counted too (K1-K4 > 0, K5 0); it runs
+      in a process of its own (``chip_smoke.py --path chaos_1024``),
+      started after phase 3 and running beside a-k, which counts its own
+      launches and reports them with its recorder's shapes and samples
+      (its scenarios' fault holds took 330-360 s of a run that went past
+      the 1200 s limit);
    m. ``placement_48``, the bench's ``placement`` rung: 4 servers x 48
       groups over localhost TCP, 384 zipf clients (3 write+read pairs
       each, 0.25 s apart) with a pinned hotspot and a grey follower, phase
@@ -173,7 +179,24 @@ result line:
       write traced; every write acknowledged and every counter read back
       from all 7 replicas, the host-path decomposition printed, the vote
       rounds counted by their members (K1-K4 > 0, K5 0);
-   on every served path (a, c-q) each ledger sample (the watchdogs', the
+   r. ``mp5_1024``, the bench's ``peer5_mp`` rung (``tools/bench.py``,
+      ``tools/multiproc_bench.py``) cut to 1024 groups (the bench: 10240):
+      5 server processes over localhost TCP, each with its own engine on
+      the card and its divisions on 3 loop shards, the load from 4 client
+      processes (2 and 2 on a host of fewer than 8 CPUs), leaders
+      appointed by server 0, 2 writes a group at 128 in flight, every 32nd
+      write traced; every write acknowledged (or failures within the JAX
+      harness's bound), every counter on all 5 servers between its
+      group's writes acknowledged and sent, no client process touching
+      CUDA, the merged snapshot of the 5 servers' HTTP endpoints with 5
+      pids, all healthy, the merged trace over at least 2 pids, and no
+      child process left; after the load each server takes one group's
+      leadership by a transfer (its own election); each server process
+      counts its own launches from after its prewarm and reports them
+      (K1-K4 > 0, K5-K7 and the public K3 0 in every one), with none of
+      its prepared calls made off its home loop's thread, the shapes its
+      kernels were given (checked in phase 5) and its ledger samples;
+   on every served path (a, c-r) each ledger sample (the watchdogs', the
    telemetry samplers', the placement controllers' and each ``GET
    /lag``'s) must make exactly one call into the kernel library, its
    prepared call's, and launch K4 once;
@@ -189,7 +212,8 @@ result line:
    line);
 5. kernel parity again at every shape the main paths gave K1-K5 (K3 at
    every padded row count of the vote passes; on the ``filestore5_1024``
-   path's shapes also with every row's conf of exactly 5 members, on the
+   and ``mp5_1024`` paths' shapes (the latter as the server processes
+   reported them) also with every row's conf of exactly 5 members, on the
    ``peer7_1024`` path's with 7 of the 8 lanes and on the
    ``snapcatch_1024`` path's, after its rows' reuse, with 3), and
    K1 and K2 on the sleeping-rows family (``cases.sleeping_state``: most
@@ -261,6 +285,8 @@ from ratis_tpu_torch.tools.fast_tick_timing import (K6_SHAPES,
                                                      ledger_earlier_route,
                                                      tally_design, timed,
                                                      timed_host, vote_design)
+from ratis_tpu_torch.tools.plan_recorder import (ShapeRecorder,
+                                                 kernel_launchers)
 
 P = 8
 NOW = 100_000
@@ -366,10 +392,10 @@ NO_LIBRARY = {
            "two calls",
     "K7c": "none: no one PyTorch call takes the lease's majority-min with "
            "its wrapping expiry"}
-# the durable paths: 3 x 512 per-group logs (the bench: 1024), 3 x 256 on
+# the durable paths: 3 x 256 per-group logs (the bench: 1024), 3 x 256 on
 # the shared plane, 1 warm-up + 1 measured write per group (the bench: 8);
 # the churn path: 3 x 1024, 4 writes per group (the bench: 8)
-DURABLE_GROUPS = 512
+DURABLE_GROUPS = 256
 SHARED_GROUPS = 256
 DURABLE_WRITES = 1
 CHURN_GROUPS = 1024
@@ -400,6 +426,8 @@ FS5_SERVERS = 5
 FS5_WRITES = 1
 TEL_GROUPS = 1024
 TEL_WRITES = 2
+# the telemetry path's wait for a ready leader in every group after the writes
+TEL_SETTLE_S = 60.0
 # the sparse path: 3 servers x 4096 hosted groups over the simulated
 # transport, hibernation and the upkeep plane on, settled until the idle
 # leaders sleep (at most the JAX sparse rung's 20 s), then 4 writes per
@@ -419,6 +447,8 @@ CHAOS_SCENARIOS = 12
 # cut to 256 groups (the bench: 1024) for the smoke's time, every scenario
 # kept
 CHAOS_GROUPS = 256
+# the chaos process (``ChaosProcess``) fails past this many seconds
+CHAOS_TIMEOUT_S = 900.0
 # the sleeping-rows parity family: sparse paths' buckets (4096, and the
 # bench's 16384), and a clock late in the epoch where
 # now + 62000 passes INT32_MAX and the armed deadlines clamp
@@ -433,6 +463,13 @@ READ_GROUPS = 1024
 # groups and 2 writes a group (the bench: 2048 and 4)
 PEER7_GROUPS = 1024
 PEER7_WRITES = 2
+# the multi-process deployment: the bench's peer5_mp rung cut to 1024
+# groups (the bench: 10240), 2 writes a group as there
+MP5_GROUPS = 1024
+MP5_WRITES = 2
+# its bring-up and load each fail past this (the harness's defaults are
+# 900 s and 1200 s)
+MP5_TIMEOUT_S = 240.0
 # this checkout's root: the shell and parse_log run from it as
 # subprocesses (``python -m ratis_tpu_torch...``)
 ROOT = pathlib.Path(__file__).resolve().parent
@@ -444,6 +481,12 @@ def log(*a) -> None:
 
 # seconds since the start at the end of each phase (``mark``)
 PHASE_END_S = {}
+# the phase running now (``begin``): a failure names it
+RUNNING = ["1 environment"]
+
+
+def begin(phase: str) -> None:
+    RUNNING[0] = phase
 
 
 def mark(phase: str, t_start: float) -> None:
@@ -1045,123 +1088,6 @@ async def drive(cluster, writes: int) -> dict:
                                    for s in cluster.servers]}
     finally:
         await cluster.close()
-
-
-class ShapeRecorder:
-    """Records the shapes the engine hands K1 (E of the flat fast plan's
-    runs), K2 (D, E of the refresh plan's runs), K3 (the rows R of the
-    tally plan's runs, padding included) and K5 ((S, E) of the sliced fast
-    plan's runs) while active (the plans' ``run`` are swapped for counting
-    ones and restored on exit), and the members of every round the vote
-    passes tallied (``members``: count of rounds by the size of their
-    current conf; ``QuorumEngine._tally_rounds`` swapped likewise); and
-    checks that every ledger sample taken meanwhile (the watchdogs', once
-    a second on every server, the telemetry samplers' and each ``GET
-    /lag``'s) made ONE call into the kernel library, its prepared call's
-    ``k4_tick``, that launched K4 once (``LagLedger.sample`` and
-    ``LedgerPlan.run`` swapped likewise): on exit it raises if a sample
-    did not, or if none was taken."""
-
-    def __init__(self, tq, tl):
-        self.tq, self.tl = tq, tl
-        self.shapes = {"K1": collections.Counter(),
-                       "K2": collections.Counter(),
-                       "K3": collections.Counter(),
-                       "K5": collections.Counter()}
-        self.members = collections.Counter()
-        # (capacity, peers, ledger table width) of the engines sampled
-        self.engine_shapes = collections.Counter()
-        # samples taken, and the (library calls, K4 launches) of those
-        # that were not (1, 1)
-        self.ledger_samples = 0
-        self.ledger_faults = []
-        self._ledger_calls = 0
-
-    def __enter__(self):
-        from ratis_tpu_torch.engine.engine import QuorumEngine
-        from ratis_tpu_torch.engine.ledger import LagLedger
-        tq, tl, shapes = self.tq, self.tl, self.shapes
-        self.tally_rounds = tally_rounds = QuorumEngine._tally_rounds
-
-        def rec_tally_rounds(engine, slots):
-            self.members.update(
-                engine.state.conf_cur[slots].sum(axis=1).tolist())
-            return tally_rounds(engine, slots)
-        self.fast, self.refresh, self.tally = (
-            tq.FastPlan.run, tq.RefreshPlan.run, tq.TallyPlan.run)
-        self.ledger_run, self.sample = tl.LedgerPlan.run, LagLedger.sample
-        fast, refresh, tally = self.fast, self.refresh, self.tally
-        ledger_run, sample = self.ledger_run, self.sample
-
-        def rec_ledger_run(plan, *a):
-            tick = plan._tick
-
-            def counting(*b):
-                self._ledger_calls += 1
-                return tick(*b)
-            plan._tick = counting
-            try:
-                return ledger_run(plan, *a)
-            finally:
-                plan._tick = tick
-
-        def rec_sample(ledger):
-            self._ledger_calls = 0
-            n = tl.K4.launches
-            res = sample(ledger)
-            got = (self._ledger_calls, tl.K4.launches - n)
-            self.ledger_samples += 1
-            e = ledger.engine
-            self.engine_shapes[(e.state.capacity, e.state.max_peers,
-                                ledger._table_width())] += 1
-            if got != (1, 1):
-                self.ledger_faults.append(got)
-            return res
-
-        def rec_fast(plan, e, *rest):
-            if plan.sliced:
-                shapes["K5"][(plan.n_slices, e)] += 1
-            else:
-                shapes["K1"][e] += 1
-            return fast(plan, e, *rest)
-
-        def rec_refresh(plan, d, e, *rest):
-            shapes["K2"][(d, e)] += 1
-            return refresh(plan, d, e, *rest)
-
-        def rec_tally(plan, r):
-            shapes["K3"][r] += 1
-            return tally(plan, r)
-
-        tq.FastPlan.run = rec_fast
-        tq.RefreshPlan.run = rec_refresh
-        tq.TallyPlan.run = rec_tally
-        tl.LedgerPlan.run = rec_ledger_run
-        LagLedger.sample = rec_sample
-        QuorumEngine._tally_rounds = rec_tally_rounds
-        return self
-
-    def __exit__(self, exc_type, *exc):
-        from ratis_tpu_torch.engine.engine import QuorumEngine
-        from ratis_tpu_torch.engine.ledger import LagLedger
-        QuorumEngine._tally_rounds = self.tally_rounds
-        self.tq.FastPlan.run = self.fast
-        self.tq.RefreshPlan.run = self.refresh
-        self.tq.TallyPlan.run = self.tally
-        self.tl.LedgerPlan.run = self.ledger_run
-        LagLedger.sample = self.sample
-        if exc_type is None and (self.ledger_faults
-                                 or self.ledger_samples == 0):
-            raise AssertionError(
-                f"ledger samples: {self.ledger_samples}, (library calls, "
-                f"K4 launches) of those that were not one call and one "
-                f"launch: {self.ledger_faults[:10]}")
-
-    def engine(self) -> dict:
-        """The most common engine shape of the samples (``engine_shape``'s
-        keys), for a path whose cluster the recorder never sees."""
-        (g, p, w), _ = self.engine_shapes.most_common(1)[0]
-        return {"capacity": g, "peers": p, "ledger_width": w}
 
 
 class StaleSkips:
@@ -1931,9 +1857,14 @@ def run_telemetry_path(kernels, bench, rec):
     port it binds: every route fetched over HTTP from every server during
     the measured writes and after them (each must answer 200 and parse);
     ``/timeseries`` holding a sample for each second of the writes but
-    one; after the writes settle, every row a server leads carrying its
-    division's own commit index in the ledger sample its ``/lag`` request
-    took."""
+    one; after the writes settle (every group led by a ready leader
+    again), every row a server leads carrying its division's own commit
+    index in the ledger sample its ``/lag`` request took, and every group
+    led in one of those samples.  The settled ``/lag`` requests go to the
+    servers at once: fetched one server after the other, a leadership
+    that moved between two servers' samples (elections follow a loop
+    pause at this 1 s / 2 s tier) was counted by neither or by both."""
+    from ratis_tpu_torch.metrics.aggregate import fetch_json
     from ratis_tpu_torch.tools.cluster import HTTP_ROUTES
     watched = {}
 
@@ -1946,8 +1877,11 @@ def run_telemetry_path(kernels, bench, rec):
         return _route_summary(routes)
 
     async def after(cluster):
-        n = len(watched["lag"])
         routes = await cluster.fetch_routes()
+        await cluster.wait_leaders(cluster.groups, TEL_SETTLE_S)
+        n = len(watched["lag"])
+        await asyncio.gather(*(fetch_json(a, f"/lag?n={TEL_GROUPS}")
+                               for a in cluster.http_addresses()))
         settled = watched["lag"][n:]
         mismatched = [(peer, str(gid), ledger, own)
                       for peer, rows, _ in settled
@@ -2038,6 +1972,60 @@ def run_sparse_path(kernels, bench, rec):
         raise AssertionError(f"sparse path: engine on {res['engine_device']}")
     res["engine"] = engine_shape(cluster)
     return res, launches
+
+
+class ChaosProcess:
+    """Phase 4l in a process of its own, beside 4a-4k: ``chip_smoke.py
+    --path chaos_1024 --result FILE`` runs ``run_chaos_path`` under its
+    own ``ShapeRecorder`` (its launch counts zeroed just before it drives
+    the path and read just after, as every path's) and writes the result,
+    the launches and the recorder's report to FILE; its output goes to a
+    file beside it.  The campaign's 12 scenarios hold their faults for
+    330-360 s on the card host, most of which this process spent idle
+    waiting on them.  ``collect`` waits for it and raises with the end of
+    its output if it failed; ``kill`` stops it."""
+
+    def __init__(self, tmp: str):
+        self.result = os.path.join(tmp, "chaos.json")
+        self.output = os.path.join(tmp, "chaos.out")
+        with open(self.output, "wb") as out:
+            self.proc = subprocess.Popen(
+                [sys.executable, str(ROOT / "chip_smoke.py"), "--path",
+                 "chaos_1024", "--result", self.result], cwd=ROOT,
+                env=module_env(), stdout=out, stderr=subprocess.STDOUT)
+        self.t0 = time.monotonic()
+
+    def collect(self, rec) -> tuple:
+        try:
+            rc = self.proc.wait(max(1.0, CHAOS_TIMEOUT_S
+                                    - (time.monotonic() - self.t0)))
+        except subprocess.TimeoutExpired:
+            self.kill()
+            rc = f"none after {CHAOS_TIMEOUT_S:.0f} s"
+        if rc != 0:
+            with open(self.output, errors="replace") as f:
+                tail = f.read().splitlines()[-40:]
+            raise AssertionError(f"chaos process: exit {rc}; its output "
+                                 f"ended:\n" + "\n".join(tail))
+        with open(self.result) as f:
+            out = json.load(f)
+        rec.merge(out["recorder"])
+        return out["res"], out["launches"]
+
+    def kill(self) -> None:
+        if self.proc.poll() is None:
+            self.proc.kill()
+            self.proc.wait()
+
+
+def chaos_process_main(result: str) -> int:
+    """``--path chaos_1024``: phase 4l alone, into ``result``."""
+    rec = ShapeRecorder()
+    res, launches = run_chaos_path(kernel_launchers(), rec)
+    with open(result, "w") as f:
+        json.dump({"res": res, "launches": launches,
+                   "recorder": rec.report()}, f, default=str)
+    return 0
 
 
 def run_chaos_path(kernels, rec):
@@ -2219,6 +2207,84 @@ def run_peer7_path(kernels, bench, rec):
         raise AssertionError(f"peer7 path: engine on {res['engine_device']}")
     res["engine"] = engine_shape(cluster)
     res["vote_round_members"] = dict(rec.members)
+    return res, launches
+
+
+def run_mp5_path(bench, rec):
+    """The bench's peer5_mp rung at ``MP5_GROUPS`` x ``MP5_WRITES``: 5
+    server processes over localhost TCP, loop shards and client processes
+    by ``bench.peer5_mp_shape``, leaders appointed by server 0, every
+    32nd write traced.  Every write acked (or failures within the JAX
+    bound, which the harness raises past) and every counter on all 5
+    servers between its group's writes acked and sent; each server's
+    engine on the card with K1-K4 > 0 (K3 at least from the election by
+    which it took one group's leadership after the load) and K5, K6,
+    K7a-c and the public K3 at 0 in its own counts (each process counts
+    its own launches, from after its prewarm: the smoke's counts see none
+    of them), none of its
+    prepared calls off the home loop's thread, and each of its ledger
+    samples one library call and one K4 launch; no client touched CUDA;
+    the merged snapshot holds 5 pids, all healthy; the merged trace at
+    least 2 pids; and no child is left.  The children's shapes and
+    samples go into ``rec``.  Returns the result and the launches summed
+    over the children."""
+    import tempfile
+    from ratis_tpu_torch.tools.multiproc_bench import live_children
+    with tempfile.TemporaryDirectory(prefix="ratis-mp5-") as tmp:
+        res = asyncio.run(bench.peer5_mp_rung(
+            "cuda", MP5_GROUPS, MP5_WRITES,
+            trace_out=os.path.join(tmp, "trace.json"), record_plans=True,
+            bringup_timeout_s=MP5_TIMEOUT_S, load_timeout_s=MP5_TIMEOUT_S))
+    servers, n = res["servers"], bench.PEER5["servers"]
+    faults = []
+    left = live_children(res["child_pids"])
+    if left:
+        faults.append(f"children left running: {left}")
+    if len(servers) != n:
+        faults.append(f"{len(servers)} of {n} servers reported")
+    for r in servers:
+        who = f"{r['peer']} (pid {r['pid']})"
+        if not r["device"].startswith("cuda"):
+            faults.append(f"{who}: engine on {r['device']}")
+        idle = [k for k in ("K1", "K2", "K3", "K4") if not r["launches"][k]]
+        busy = [k for k in ("K5", "K6", *OFF_PATH) if r["launches"][k]]
+        if idle or busy:
+            faults.append(f"{who}: never launched {idle}, launched {busy}: "
+                          f"{r['launches']}")
+        if r["off_home_calls"]:
+            faults.append(f"{who}: prepared calls off the home loop's "
+                          f"thread {r['off_home_calls']}")
+        if not r["ledger_samples"] or r["ledger_faults"]:
+            faults.append(f"{who}: ledger samples {r['ledger_samples']}, "
+                          f"(library calls, K4 launches) of those not one "
+                          f"and one {r['ledger_faults']}")
+        if r["divisions"] != MP5_GROUPS:
+            faults.append(f"{who}: {r['divisions']} divisions")
+    failed_transfers = [t for t in res["transfers"] if not t["ok"]]
+    if failed_transfers:
+        faults.append(f"leadership transfers failed: {failed_transfers}")
+    touched = [c["pid"] for c in res["clients"] if c["cuda_initialized"]]
+    if touched:
+        faults.append(f"clients that initialized CUDA: {touched}")
+    if res["replica_mismatches"] \
+            or res["replicas_read_back"] != n * MP5_GROUPS:
+        faults.append(f"{res['replica_mismatches']} of "
+                      f"{res['replicas_read_back']} counters outside their "
+                      f"writes acked and sent: {res['mismatch_examples']}")
+    cm = res["cluster_metrics"]
+    if len(cm["procs"]) != n or cm["healthy"] != n:
+        faults.append(f"merged snapshot: {len(cm['procs'])} pids, "
+                      f"{cm['healthy']} healthy")
+    if res["trace_pids"] < 2:
+        faults.append(f"merged trace over {res['trace_pids']} pids")
+    if faults:
+        raise AssertionError("mp5 path: " + "; ".join(faults))
+    for r in servers:
+        rec.merge(r)
+    res["engine"] = servers[0]["engine_shape"]
+    res["vote_round_members"] = dict(rec.members)
+    launches = {k: sum(r["launches"][k] for r in servers)
+                for k in servers[0]["launches"]}
     return res, launches
 
 
@@ -2556,13 +2622,18 @@ def main(argv=None) -> int:
     ap.add_argument("--out", help="also write the results as JSON here")
     ap.add_argument("--seed", type=int, default=0,
                     help="seed of the FileStore streams' bytes")
+    ap.add_argument("--path", choices=("chaos_1024",),
+                    help=argparse.SUPPRESS)
+    ap.add_argument("--result", help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
+    if args.path:
+        begin("4l chaos_1024")
+        return chaos_process_main(args.result)
 
     # 1. environment
     t_start = time.monotonic()
     if not torch.cuda.is_available():
-        print("chip_smoke: CUDA is not available", file=sys.stderr)
-        return 1
+        raise RuntimeError("CUDA is not available")
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, check=True)
@@ -2577,11 +2648,10 @@ def main(argv=None) -> int:
     from ratis_tpu_torch.ops import ledger as tl
     from ratis_tpu_torch.ops import quorum as tq
     from ratis_tpu_torch.tools import bench, cases
-    kernels = {"K1": tq.K1, "K2": tq.K2, "K3": tq.K3,
-               "K3_public": tq.K3_PUBLIC, "K4": tl.K4, "K5": tq.K5,
-               "K6": tq.K6, "K7a": tq.K7a, "K7b": tq.K7b, "K7c": tq.K7c}
+    kernels = kernel_launchers()
 
     # 2. build
+    begin("2 build")
     t0 = time.monotonic()
     _build.build_all()
     log(f"build: {time.monotonic() - t0:.2f} s wall; nvcc per source "
@@ -2595,6 +2665,7 @@ def main(argv=None) -> int:
 
     # 3. parity at fixed shapes (the off-path kernels' launches here and
     # in phase 5 are their only ones: every path checks they made none)
+    begin("3 parity")
     par = Parity()
     off_before = {k: kernels[k].launches for k in OFF_PATH}
     run_parity(tq, tl, cases, bench, par)
@@ -2613,8 +2684,19 @@ def main(argv=None) -> int:
 
     mark("3 parity", t_start)
 
+    # 4l. the chaos campaign, in a process of its own from here on, beside
+    # 4a-4k (``ChaosProcess``); stopped at exit if the run fails first
+    import atexit
+    import shutil
+    import tempfile
+    chaos_tmp = tempfile.mkdtemp(prefix="ratis-smoke-chaos-")
+    atexit.register(shutil.rmtree, chaos_tmp, True)
+    chaos = ChaosProcess(chaos_tmp)
+    atexit.register(chaos.kill)
+
     # 4a. the main path over the simulated transport
-    recs = {k: ShapeRecorder(tq, tl) for k in ("sim", "tcp", "mesh",
+    begin("4a sim")
+    recs = {k: ShapeRecorder() for k in ("sim", "tcp", "mesh",
                                                "durable_1024", "shared_256",
                                                "churn_1024", "stream",
                                                "filestore5_1024",
@@ -2623,7 +2705,7 @@ def main(argv=None) -> int:
                                                "placement_48",
                                                "readmix_1024", "zipf_1024",
                                                "snapcatch_1024",
-                                               "peer7_1024")}
+                                               "peer7_1024", "mp5_1024")}
     main_res, sim_launches = run_main_path(tq, kernels, args.groups,
                                            args.writes, recs["sim"])
     log(f"main path (sim): {card} | 3 servers x {args.groups} groups | "
@@ -2638,6 +2720,7 @@ def main(argv=None) -> int:
     mark("4a sim", t_start)
 
     # 4b. the bench's kernel rungs
+    begin("4b kernel rungs")
     rungs, rung_launches = run_kernel_rungs(kernels, bench)
     log(f"kernel rungs: {card} | 10240 x 8 x 4096: "
         f"{rungs['kernel']['group_updates_per_sec']:.1f} group updates/s, "
@@ -2649,6 +2732,7 @@ def main(argv=None) -> int:
     mark("4b kernel rungs", t_start)
 
     # 4c. the headline e2e rung over localhost TCP
+    begin("4c tcp")
     tcp_res, tcp_launches = run_tcp_path(kernels, bench, recs["tcp"])
     log(f"main path (tcp): {card} | 3 servers x {TCP_GROUPS} groups | "
         f"bring-up {tcp_res['election_convergence_s']:.3f} s | "
@@ -2665,6 +2749,7 @@ def main(argv=None) -> int:
     mark("4c tcp", t_start)
 
     # 4d. the mesh path, then dryrun_multichip and the mesh100k rung
+    begin("4d mesh")
     rec_mesh = recs["mesh"]
     mesh_res, mesh_launches = run_mesh_path(kernels, rec_mesh)
     log(f"main path (mesh): {card} | 3 servers x {MESH_GROUPS} groups in "
@@ -2695,6 +2780,7 @@ def main(argv=None) -> int:
     durable = {}
     for key, groups, shared in (("durable_1024", DURABLE_GROUPS, False),
                                 ("shared_256", SHARED_GROUPS, True)):
+        begin(key)
         res, launches = run_durable_path(kernels, bench, groups, shared,
                                          recs[key])
         durable[key] = (res, launches)
@@ -2715,6 +2801,7 @@ def main(argv=None) -> int:
         if "parse_log" in res:
             log(f"{key} parse_log: {res['parse_log']}")
         mark(key, t_start)
+    begin("4g churn_1024")
     churn_res, churn_launches = run_churn_path(tq, kernels, bench,
                                                recs["churn_1024"])
     log(f"churn_1024: {card} | 3 servers x {CHURN_GROUPS} groups (sim) | "
@@ -2737,6 +2824,7 @@ def main(argv=None) -> int:
     # 4h. the stream rung; 4i. BASELINE config 3 at 5 x 1024; 4j. the
     # telemetry plane over HTTP
     from ratis_tpu_torch.tools import filestore_bench as fb
+    begin("4h stream")
     stream_res, stream_launches = run_stream_path(kernels, fb, args.seed,
                                                   recs["stream"])
     log(f"stream: {card} | {stream_res['streams']} streams x "
@@ -2749,6 +2837,7 @@ def main(argv=None) -> int:
         f"{stream_res['elapsed_s']:.3f} s")
     log(f"stream launches: {stream_launches}")
     mark("4h stream", t_start)
+    begin("4i filestore5_1024")
     fs5_res, fs5_launches = run_filestore5_path(kernels, fb, args.seed,
                                                 recs["filestore5_1024"])
     log(f"filestore5_1024: {card} | {FS5_SERVERS} servers x {FS5_GROUPS} "
@@ -2768,6 +2857,7 @@ def main(argv=None) -> int:
     log(f"filestore5_1024 launches: {fs5_launches}; vote rounds by "
         f"members {fs5_res['vote_round_members']}")
     mark("4i filestore5_1024", t_start)
+    begin("4j telemetry_1024")
     tel_res, tel_launches = run_telemetry_path(kernels, bench,
                                                recs["telemetry_1024"])
     tel, got = tel_res["telemetry"], tel_res["after"]
@@ -2800,6 +2890,7 @@ def main(argv=None) -> int:
 
     # 4k. the sparse shape with the upkeep plane; 4l. the chaos campaign;
     # 4m. the placement controller
+    begin("4k sparse_4096")
     sp_res, sp_launches = run_sparse_path(kernels, bench,
                                           recs["sparse_4096"])
     pair, settled = sp_res["settle"]["tick_pair"], sp_res["settle"]
@@ -2823,7 +2914,8 @@ def main(argv=None) -> int:
         f"{sp_res['election_timeouts']}")
     log(f"sparse_4096 launches: {sp_launches}")
     mark("4k sparse_4096", t_start)
-    chaos_res, chaos_launches = run_chaos_path(kernels, recs["chaos_1024"])
+    begin("4l chaos_1024")
+    chaos_res, chaos_launches = chaos.collect(recs["chaos_1024"])
     log(f"chaos_1024: {card} | 3 servers x {chaos_res['groups']} groups "
         f"(sim, shared durable log) seed {chaos_res['seed']} | "
         f"{chaos_res['passed']} of {chaos_res['total']} scenarios passed | "
@@ -2837,6 +2929,7 @@ def main(argv=None) -> int:
         log(f"chaos_1024 {name}: {e}")
     log(f"chaos_1024 launches: {chaos_launches}")
     mark("4l chaos_1024", t_start)
+    begin("4m placement_48")
     pl_res, pl_launches = run_placement_path(kernels, recs["placement_48"])
     log(f"placement_48: {card} | {pl_res['peers']} servers x "
         f"{pl_res['groups']} groups over TCP, {pl_res['clients']} clients, "
@@ -2856,6 +2949,7 @@ def main(argv=None) -> int:
     mark("4m placement_48", t_start)
 
     # 4n. the read paths; 4o. the zipf client fleet under admission
+    begin("4n readmix_1024")
     rm_res, rm_launches = run_readmix_path(kernels, recs["readmix_1024"])
     log(f"readmix_1024: {card} | 3 servers x {rm_res['groups']} groups "
         f"over TCP, linearizable reads with the leader lease | bring-up "
@@ -2877,6 +2971,7 @@ def main(argv=None) -> int:
         f"{rm_res['confirmed_reads']}")
     log(f"readmix_1024 launches: {rm_launches}")
     mark("4n readmix_1024", t_start)
+    begin("4o zipf_1024")
     zf_res, zf_launches = run_zipf_path(kernels, recs["zipf_1024"])
     log(f"zipf_1024: {card} | 3 servers x {zf_res['groups']} groups over "
         f"TCP, {zf_res['clients']} clients zipf({zf_res['zipf_s']}), "
@@ -2903,6 +2998,7 @@ def main(argv=None) -> int:
     mark("4o zipf_1024", t_start)
 
     # 4p. InstallSnapshot catch-up under writes; 4q. 7 peers end to end
+    begin("4p snapcatch_1024")
     sc_res, sc_launches = run_snapcatch_path(kernels,
                                              recs["snapcatch_1024"])
     log(f"snapcatch_1024: {card} | {sc_res['peers']} servers x "
@@ -2930,6 +3026,7 @@ def main(argv=None) -> int:
         f"{sc_res['replica_mismatches']} of {sc_res['replicas_read_back']}")
     log(f"snapcatch_1024 launches: {sc_launches}")
     mark("4p snapcatch_1024", t_start)
+    begin("4q peer7_1024")
     p7_res, p7_launches = run_peer7_path(kernels, bench, recs["peer7_1024"])
     log(f"peer7_1024: {card} | {p7_res['servers']} servers x "
         f"{p7_res['groups']} groups (sim), every 32nd write traced | "
@@ -2945,11 +3042,41 @@ def main(argv=None) -> int:
     log(f"peer7_1024 launches: {p7_launches}")
     mark("4q peer7_1024", t_start)
 
+    # 4r. the multi-process deployment: one process per server
+    begin("4r mp5_1024")
+    mp_res, mp_launches = run_mp5_path(bench, recs["mp5_1024"])
+    mp = mp_res["mp"]
+    log(f"mp5_1024: {card} | {mp['server_procs']} server processes x "
+        f"{mp_res['groups']} groups over TCP, {mp['loop_shards']} loop "
+        f"shards each, {mp['client_procs']} client processes, nproc "
+        f"{os.cpu_count()} | start-up {max(mp_res['startup_s']):.3f} s, "
+        f"groups added {mp_res['addgroups_s']:.3f} s, leaders appointed "
+        f"{mp_res['election_convergence_s']:.2f} s | {mp_res['commits']} "
+        f"writes acked ({mp_res['write_failures']} failed) | "
+        f"{mp_res['commits_per_sec']:.1f} commits/s | p50 "
+        f"{mp_res['p50_ms']:.2f} ms | p99 {mp_res['p99_ms']:.2f} ms | "
+        f"counters outside their writes acked and sent "
+        f"{mp_res['replica_mismatches']} of {mp_res['replicas_read_back']} "
+        f"| merged snapshot {len(mp_res['cluster_metrics']['procs'])} pids, "
+        f"{mp_res['cluster_metrics']['healthy']} healthy, merged trace "
+        f"{mp_res['trace_pids']} pids | vote rounds by members "
+        f"{mp_res['vote_round_members']}")
+    for r in mp_res["servers"]:
+        log(f"mp5_1024 {r['peer']} (pid {r['pid']}, {r['device']}, "
+            f"{r['shards_used']} of {r['loop_shards']} shards used): "
+            f"launches {r['launches']}, ledger samples "
+            f"{r['ledger_samples']}, off the home thread "
+            f"{r['off_home_calls']}, host path "
+            f"{json.dumps(r.get('host_path_decomposition'))}")
+    log(f"mp5_1024 launches (the children's): {mp_launches}")
+    mark("4r mp5_1024", t_start)
+
     ledger_checks = {k: r.ledger_samples for k, r in recs.items()}
     log(f"ledger samples by path, each one call into the kernel library "
         f"and K4 +1: {ledger_checks}")
 
     # 5. parity at every shape the main paths gave a kernel, then timing
+    begin("5 parity")
     run_parity_observed(tq, tl, cases, main_res, shapes, par, "main path")
     run_parity_observed(tq, tl, cases, mesh_res, rec_mesh.shapes, par,
                         "mesh path")
@@ -2963,11 +3090,13 @@ def main(argv=None) -> int:
                               ("zipf_1024", zf_res, None),
                               ("snapcatch_1024", sc_res, 3),
                               ("peer7_1024", p7_res,
-                               bench.PEER7["servers"])):
+                               bench.PEER7["servers"]),
+                              ("mp5_1024", mp_res, bench.PEER5["servers"])):
         run_parity_observed(tq, tl, cases, res["engine"], recs[key].shapes,
                             par, f"{key} path", members)
     run_parity_sleeping(tq, cases, par)
     mark("5 parity", t_start)
+    begin("5 timing")
     routes = run_route_timing(tq, card)
     timing = run_timing(tq, tl, cases, bench, main_res, shapes,
                                    mesh_res, rec_mesh.shapes)
@@ -3001,6 +3130,7 @@ def main(argv=None) -> int:
     mark("5 timing", t_start)
 
     # 6. results
+    begin("6 results")
     # each kernel's counts as every path's run read them (the off-path
     # kernels' are all 0, checked there); their comparison launches are
     # listed beside them
@@ -3013,7 +3143,8 @@ def main(argv=None) -> int:
              "telemetry_1024": tel_launches, "sparse_4096": sp_launches,
              "chaos_1024": chaos_launches, "placement_48": pl_launches,
              "readmix_1024": rm_launches, "zipf_1024": zf_launches,
-             "snapcatch_1024": sc_launches, "peer7_1024": p7_launches}
+             "snapcatch_1024": sc_launches, "peer7_1024": p7_launches,
+             "mp5_1024": mp_launches}
     by_path = {k: {p: n[k] for p, n in paths.items() if k in n}
                for k in kernels}
     # one call's CUDA-graph nodes, per kernel
@@ -3058,6 +3189,7 @@ def main(argv=None) -> int:
                        "snapcatch_path": {k: v for k, v in sc_res.items()
                                           if k != "counters"},
                        "peer7_path": p7_res,
+                       "mp5_path": mp_res,
                        "seconds": time.monotonic() - t_start,
                        "phase_end_s": PHASE_END_S,
                        "shapes": {k: {str(s): n for s, n in v.items()}
@@ -3088,5 +3220,20 @@ def main(argv=None) -> int:
     return 0
 
 
+def failed(exc: BaseException) -> int:
+    """Name the phase a failure stopped, on stdout and stderr."""
+    import traceback
+    traceback.print_exception(exc)
+    line = f"chip_smoke: FAILED in phase {RUNNING[0]}: " \
+        f"{type(exc).__name__}: {exc}"
+    print(line, flush=True)
+    print(line, file=sys.stderr, flush=True)
+    return 1
+
+
 if __name__ == "__main__":
-    sys.exit(main())
+    try:
+        code = main()
+    except Exception as e:
+        code = failed(e)
+    sys.exit(code)

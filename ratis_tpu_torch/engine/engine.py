@@ -320,6 +320,15 @@ class QuorumEngine:
         # serializes the mutation windows; the home loop lets off-loop
         # intake wake the tick via call_soon_threadsafe.  With one loop
         # (the default) every acquisition is uncontended.
+        # Checked for the loop-sharded server (server/shards.py): worker
+        # loops reach only the intake (on_ack*, on_flush*, on_deadline, the
+        # vote-round calls, attach/detach).  The tick, with its prepared
+        # calls (FastPlan, RefreshPlan, TallyPlan) and their pinned
+        # buffers, runs in the engine's task on the home loop, and the
+        # ledger samples (LedgerPlan) come from the watchdog, the
+        # telemetry sampler and the HTTP routes, all tasks of the home
+        # loop (tools/plan_recorder.py counts any prepared call made on
+        # another thread; the multi-process harness reports it: 0).
         self._lock = threading.RLock()
         # off-loop wake already scheduled and not yet fired (guarded by
         # the intake lock): dedupes call_soon_threadsafe notify storms

@@ -13,6 +13,7 @@ headline end-to-end rung, run on the port.
     python -m ratis_tpu_torch.tools.bench --rungs placement   # one a process
     python -m ratis_tpu_torch.tools.bench --rungs readmix     # or zipf
     python -m ratis_tpu_torch.tools.bench --rungs snapcatch   # or peer7
+    python -m ratis_tpu_torch.tools.bench --rungs peer5_mp    # or peer5_sp
 
 Prints exactly one JSON line on stdout, with the key names of ``bench.py``'s
 rungs (the first three by default, the mesh rungs when ``--rungs`` names
@@ -163,12 +164,27 @@ them; at most one rung that brings up a cluster per run):
   servers x ``--groups`` (2048) over the simulated transport, 4 writes a
   group, no warm-up, 128 in flight, every 32nd write traced: the e2e
   metrics, every counter read back from all 7 replicas, and
-  ``host_path_decomposition`` (``--trace-out FILE`` writes the trace).
+  ``host_path_decomposition`` (``--trace-out FILE`` writes the trace);
+- ``peer5_mp`` (``bench.py``'s north star, ``bench.py:756-773``): 5
+  servers x ``--groups`` (10240) over localhost TCP as the multi-process
+  deployment (``tools/multiproc_bench.py``): one process per server, its
+  divisions on 3 loop shards, the load from 4 client processes (2 shards
+  and 2 clients on a host of fewer than 8 CPUs), leaders appointed by
+  the first server, 2 writes a group at 128 in flight, every 32nd write
+  traced: ``run_multiproc_bench``'s keys, every counter on every replica
+  between the writes acknowledged and sent (``replica_mismatches``);
+- ``peer5_sp`` (its one-process control, ``bench.py:774-778``): the same
+  5 x 10240 over TCP in one process, leaders elected, no warm-up: the
+  e2e metrics, every counter read back from all 5 replicas, and
+  ``host_path_decomposition``.
 
 ``--seed`` seeds the streams' bytes.  A rung whose streams failed, whose
 reads or replicas broke their checks, or (``snapcatch``) whose wiped
 replicas were not all caught up by a snapshot install, prints its line
-and exits 1.
+and exits 1; so does a ``peer5_mp`` or ``peer5_sp`` rung that did not
+finish, its line holding ``dnf``: the error, and a ``peer5_mp`` rung in
+which a server failed to take its group's leadership after the load
+(``transfers_failed``).
 
 ``dryrun_multichip(n)`` is the counterpart of
 ``__graft_entry__.dryrun_multichip``: the stateless tick through
@@ -201,7 +217,8 @@ from ratis_tpu_torch.ops import reference as ref
 RUNGS = ("kernel", "kernel_100k", "e2e", "mesh_100k", "mesh", "sim_10240",
          "durable", "shared", "churn", "mixed", "stream", "filestore5",
          "telemetry", "traced", "upkeep", "sparse_hib", "sparse_plain",
-         "chaos", "placement", "readmix", "zipf", "snapcatch", "peer7")
+         "chaos", "placement", "readmix", "zipf", "snapcatch", "peer7",
+         "peer5_mp", "peer5_sp")
 # what a run without --rungs measures: the headline and the kernel rungs
 # (the mesh pair's bring-up of 2 x 10240 groups takes minutes)
 DEFAULT_RUNGS = RUNGS[:3]
@@ -219,7 +236,8 @@ MESH_WRITES = 2
 E2E_RUNGS = ("e2e", "sim_10240", "mesh", "durable", "shared", "churn",
              "mixed", "stream", "filestore5", "telemetry", "traced",
              "upkeep", "sparse_hib", "sparse_plain", "chaos", "placement",
-             "readmix", "zipf", "snapcatch", "peer7")
+             "readmix", "zipf", "snapcatch", "peer7", "peer5_mp",
+             "peer5_sp")
 # groups of the rungs that bring up a cluster when --groups is not given
 GROUPS = 1024
 FILESTORE5_GROUPS = 10_240
@@ -227,6 +245,10 @@ FILESTORE5_GROUPS = 10_240
 # per group, no warm-up, every 32nd write traced
 PEER7 = {"groups": 2048, "servers": 7, "writes": 4, "warmup": 0,
          "transport": "sim", "trace_sample": 32}
+# bench.py's north star and its one-process control (bench.py:756-778):
+# 5 peers over TCP, 2 writes per group, no warm-up, every 32nd write traced
+PEER5 = {"groups": 10_240, "servers": 5, "writes": 2, "warmup": 0,
+         "transport": "tcp", "trace_sample": 32}
 # bench.py's tel_on leg: the sampler on, one sample a second
 TELEMETRY = {"raft.tpu.telemetry.enabled": "true",
              "raft.tpu.telemetry.interval": "1s"}
@@ -573,6 +595,41 @@ def peer7_cluster(device="cuda", groups: int = None):
     return e2e_cluster(device, groups or PEER7["groups"], PEER7["transport"],
                        trace=True, servers=PEER7["servers"],
                        trace_sample=PEER7["trace_sample"])
+
+
+def peer5_cluster(device="cuda", groups: int = None):
+    """The peer5_sp rung's cluster (``PEER5``): 5 servers x ``groups``
+    (10240) groups over TCP in this process, every ``trace_sample``-th
+    write traced."""
+    return e2e_cluster(device, groups or PEER5["groups"], PEER5["transport"],
+                       trace=True, servers=PEER5["servers"],
+                       trace_sample=PEER5["trace_sample"])
+
+
+def peer5_mp_shape(cpus: int = None) -> tuple[int, int]:
+    """(client processes, loop shards) of the peer5_mp rung on a host of
+    ``cpus`` CPUs (default this one's): 4 and 3 from 8 CPUs, else 2 and
+    2 (bench.py:766-767)."""
+    cpus = cpus or os.cpu_count() or 1
+    return (4, 3) if cpus >= 8 else (2, 2)
+
+
+async def peer5_mp_rung(device="cuda", groups: int = None,
+                        writes: int = None, trace_out: str = None,
+                        **harness) -> dict:
+    """The peer5_mp rung: ``PEER5`` as the multi-process deployment
+    (``run_multiproc_bench``, which takes ``harness``: its bring-up and
+    load timeouts, ``record_plans``), its shards and client processes by
+    ``peer5_mp_shape``."""
+    from ratis_tpu_torch.tools.multiproc_bench import run_multiproc_bench
+    clients, shards = peer5_mp_shape()
+    return await run_multiproc_bench(
+        groups or PEER5["groups"],
+        PEER5["writes"] if writes is None else writes,
+        num_servers=PEER5["servers"], device=str(_device(device)),
+        loop_shards=shards, client_procs=clients, concurrency=CONCURRENCY,
+        trace=True, trace_sample=PEER5["trace_sample"], trace_out=trace_out,
+        **harness)
 
 
 def _blocking_best_of_3(fn, clock=time.thread_time) -> float:
@@ -1123,14 +1180,16 @@ def main(argv=None) -> int:
                     help=f"groups of the rungs that bring up a cluster "
                          f"(default {GROUPS}; filestore5, upkeep and the "
                          f"sparse pair {FILESTORE5_GROUPS}; placement 48; "
-                         f"peer7 {PEER7['groups']}; not the mesh pair's)")
+                         f"peer7 {PEER7['groups']}; the peer5 pair "
+                         f"{PEER5['groups']}; not the mesh pair's)")
     ap.add_argument("--writes", type=int, default=None,
                     help="writes per group (default 8; readmix, snapcatch "
-                         "and peer7 4)")
+                         "and peer7 4; the peer5 pair 2)")
     ap.add_argument("--seed", type=int, default=0,
                     help="seed of the streams' bytes")
     ap.add_argument("--trace-out", default=None, metavar="FILE",
-                    help="the traced rung's Chrome trace")
+                    help="the traced, peer7 and peer5 rungs' Chrome "
+                         "trace")
     ap.add_argument("--mesh-groups", type=int, default=10_240,
                     help="groups of the mesh and sim_10240 rungs")
     ap.add_argument("--active", type=int, default=None,
@@ -1279,6 +1338,20 @@ def main(argv=None) -> int:
             peer7_cluster(args.device, args.groups),
             PEER7["writes"] if args.writes is None else args.writes,
             warmup=PEER7["warmup"], trace_out=args.trace_out))
+    # the north star as the multi-process deployment and in one process;
+    # a run that does not finish is recorded as a DNF with its error
+    peer5 = {"peer5_mp": lambda: peer5_mp_rung(
+                 args.device, args.groups, args.writes, args.trace_out),
+             "peer5_sp": lambda: e2e_rung(
+                 peer5_cluster(args.device, args.groups),
+                 PEER5["writes"] if args.writes is None else args.writes,
+                 warmup=PEER5["warmup"], trace_out=args.trace_out)}
+    for rung, run in peer5.items():
+        if rung in rungs:
+            try:
+                out[rung] = asyncio.run(run())
+            except Exception as e:
+                out[rung] = {"dnf": f"{type(e).__name__}: {e}"[:4000]}
     # the FileStore rungs, each under its load in filestore_bench.LOADS
     from ratis_tpu_torch.tools import filestore_bench as fb
     for rung in fb.LOADS:
@@ -1288,8 +1361,9 @@ def main(argv=None) -> int:
     print(json.dumps(out), flush=True)
     failed = sum(r.get("streams_failed", 0) + r.get("read_mismatches", 0)
                  + r.get("replica_mismatches", 0)
-                 + r.get("missed_installs", 0) for r in out.values()
-                 if isinstance(r, dict))
+                 + r.get("missed_installs", 0) + ("dnf" in r)
+                 + r.get("transfers_failed", 0)
+                 for r in out.values() if isinstance(r, dict))
     return 1 if failed else 0
 
 

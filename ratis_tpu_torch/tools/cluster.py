@@ -76,6 +76,7 @@ from __future__ import annotations
 
 import asyncio
 import gc
+import math
 import os
 import time
 
@@ -109,6 +110,12 @@ FILE_WRITE_BYTES = 128
 TRACE_SAMPLE = 16
 # the JAX snapshot rung's wipes: this many groups removed and added at once
 WIPE_WAVE = 256
+# the harness's clients retry every 100 ms for two of the cluster's
+# longest election timeouts (a lost leader, a split vote, the next
+# election), never fewer than the client's default 50 times: 50 at the
+# 1 s / 2 s tier, 160 at the durable rungs' 4 s / 8 s
+RETRY_SLEEP_MS = 100
+RETRY_MIN = 50
 # the routes of a server's HTTP endpoint (raft.tpu.metrics.http-port) with
 # telemetry on (raft.tpu.telemetry.enabled): Prometheus text, then JSON
 HTTP_ROUTES = ("/metrics", "/health", "/divisions", "/events", "/lag",
@@ -181,11 +188,15 @@ def cluster_properties(num_groups: int, num_servers: int = 3,
                        shared_log: bool = False,
                        trace: bool = False,
                        hibernate: bool = False,
-                       trace_sample: int = TRACE_SAMPLE) -> RaftProperties:
+                       trace_sample: int = TRACE_SAMPLE,
+                       loop_shards: int = 1) -> RaftProperties:
     """The batched deployment of ``num_groups`` groups on ``num_servers``
     servers: the JAX bench's ``bench_properties(batched=True, num_groups,
     num_servers=..., transport=..., mesh_devices=..., trace=...,
-    hibernate=...)`` key for key, plus the port's engine device.
+    hibernate=..., loop_shards=...)`` key for key, plus the port's engine
+    device.  ``loop_shards`` > 1 runs every server's divisions on that
+    many event loops, each division pinned to one
+    (``raft.tpu.server.loop-shards``, ``server/shards.py``).
     ``hibernate`` lets an idle group's leader stop heartbeating it and its
     followers arm the long backstop deadline (``raft.tpu.hibernate.*``;
     it rides the coalesced heartbeats).  ``mesh_devices`` > 0 runs every
@@ -199,6 +210,8 @@ def cluster_properties(num_groups: int, num_servers: int = 3,
     if transport not in TRANSPORTS:
         raise ValueError(f"transport {transport!r}: one of {TRANSPORTS}")
     p = RaftProperties()
+    if loop_shards > 1:
+        p.set(RaftServerConfigKeys.LOOP_SHARDS_KEY, str(loop_shards))
     channels = num_groups * max(num_servers - 1, 1)
     if channels >= 2048:
         # a busy handler at thousands of channels outlives a 3s deadline
@@ -246,6 +259,16 @@ def cluster_properties(num_groups: int, num_servers: int = 3,
     if hibernate:
         p.set(RaftServerConfigKeys.Hibernate.ENABLED_KEY, "true")
     return p
+
+
+def client_retry_policy(properties):
+    """The harness clients' retry policy for a cluster of
+    ``properties`` (``RETRY_SLEEP_MS``, ``RETRY_MIN``)."""
+    from ratis_tpu_torch.retry.policies import RetryPolicies
+    longest = RaftServerConfigKeys.Rpc.timeout_max(properties).seconds
+    attempts = max(RETRY_MIN, math.ceil(2e3 * longest / RETRY_SLEEP_MS))
+    return RetryPolicies.retry_up_to_maximum_count_with_fixed_sleep(
+        attempts, f"{RETRY_SLEEP_MS}ms")
 
 
 def bring_up_wave(cluster) -> int:
@@ -460,6 +483,7 @@ class Cluster:
                  .set_transport(self._client_transport)
                  .set_properties(self.properties)
                  .set_leader_id(leader.peer_id if leader else None)
+                 .set_retry_policy(client_retry_policy(self.properties))
                  .build())
             self._clients[group.group_id] = c
         return c

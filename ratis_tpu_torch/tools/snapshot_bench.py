@@ -37,10 +37,12 @@ timeouts and the groups that changed leader, poll by poll
 
 Where the harnesses differ (``PERF.md`` section 4): the port elects its
 leaders, where the JAX bench appoints them all on its first server, so
-before the snapshots every leadership the last server holds is
-transferred to the first (a leader on the wiped server would hand its
-group to a follower whose log was never purged, and that follower would
-catch the wiped replica up by appends, not by a snapshot); a wiped
+before the seed load every leadership the last server holds is
+transferred to the first, and at its snapshot a group the seed load
+left between leaders or led by the last server again is waited for and
+moved off it (a leader on the wiped server would hand its group to a
+follower whose log was never purged, and that follower would catch the
+wiped replica up by appends, not by a snapshot); a wiped
 replica's snapshot directory goes with it, so a snapshot it holds after
 the wipe is one a leader installed; and the replicas that are neither the
 leader nor wiped snapshot (and purge) too, so a group that elects another
@@ -151,7 +153,21 @@ async def snapcatch_rung(cluster, writes: int = SNAPCATCH["writes"],
         timeouts_snap = [_timeouts(s) for s in cluster.servers]
 
         async def snap(g) -> None:
-            leader = leaders[g.group_id] = cluster.leader_of(g)
+            nonlocal transfers
+            # the seed load may have moved a leadership back to the victim
+            # or left a group between leaders: wait for its leader and
+            # move it off the victim again before the snapshot
+            for _ in range(TRANSFER_ROUNDS):
+                await cluster.wait_leaders([g], 60.0)
+                leader = cluster.leader_of(g)
+                if leader is not None and leader is not victim:
+                    break
+                if leader is victim:
+                    reply = (await asyncio.gather(
+                        cluster.client(g).admin().transfer_leadership(
+                            keeper.peer_id), return_exceptions=True))[0]
+                    transfers += bool(getattr(reply, "success", False))
+            leaders[g.group_id] = leader
             if leader is None or leader is victim:
                 raise RuntimeError(f"{g.group_id}: leader {leader} at the "
                                    f"snapshot")

@@ -72,6 +72,21 @@ def test_bench_needs_a_card_unless_asked_for_the_cpu():
     assert "no CUDA card" in proc.stderr
 
 
+def test_smoke_names_the_phase_a_failure_stopped():
+    """``chip_smoke.py`` on a machine without a card fails in its first
+    phase, names it on stdout and on stderr, and prints no result."""
+    if torch.cuda.is_available():
+        return  # this machine has a card: the smoke runs
+    proc = subprocess.run([sys.executable, "chip_smoke.py"], cwd=ROOT,
+                          capture_output=True, text=True, timeout=120)
+    line = ("chip_smoke: FAILED in phase 1 environment: RuntimeError: "
+            "CUDA is not available")
+    assert proc.returncode != 0
+    assert line in proc.stdout.splitlines()
+    assert line in proc.stderr.splitlines()
+    assert '"ok"' not in proc.stdout
+
+
 def test_churn_probe_counts_timeouts_per_window():
     proc = subprocess.run([sys.executable, "-m",
                            "ratis_tpu_torch.tools.churn_probe", "--device",

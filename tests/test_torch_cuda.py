@@ -1152,3 +1152,30 @@ def test_seven_peer_rung_runs_tiny_on_the_card(card):
     assert res["engine_device"].startswith("cuda")
     assert "host_path_decomposition" in res
     assert all(n > 0 for n in launched[:4]) and launched[4] == 0, launched
+
+
+def test_multiproc_run_tiny_on_the_card(card):
+    """The multi-process harness tiny on the card (3 server processes x 4
+    groups on 2 loop shards each, 2 client processes): every write acked
+    and counted on all 3 replicas; each server's engine on the card, K2
+    launched in its own process and K5-K7 and the public K3 not, no
+    prepared call off its home loop's thread; no client touched CUDA; no
+    child left."""
+    from ratis_tpu_torch.tools.multiproc_bench import (live_children,
+                                                       run_multiproc_bench)
+    res = asyncio.run(run_multiproc_bench(
+        4, 2, num_servers=3, loop_shards=2, client_procs=2, device="cuda",
+        concurrency=8, record_plans=True, bringup_timeout_s=300.0,
+        load_timeout_s=300.0))
+    assert res["commits"] == 8 and res["write_failures"] == 0
+    assert res["replicas_read_back"] == 12
+    assert res["replica_mismatches"] == 0, res["mismatch_examples"]
+    assert res["transfers_failed"] == 0, res["transfers"]
+    for r in res["servers"]:
+        assert r["device"].startswith("cuda")
+        assert r["launches"]["K2"] > 0, r["launches"]
+        assert not any(r["launches"][k] for k in
+                       ("K5", "K6", "K7a", "K7b", "K7c", "K3_public"))
+        assert r["off_home_calls"] == {} and r["ledger_faults"] == []
+    assert not any(c["cuda_initialized"] for c in res["clients"])
+    assert live_children(res["child_pids"]) == []

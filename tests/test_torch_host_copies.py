@@ -15,11 +15,13 @@ import pytest
 from ratis_tpu_torch.tools import sync_copies
 
 # the port's own modules: kernels' loader, bench entry point, harness,
-# FileStore, upkeep, placement, read and snapshot loads, kernel inputs,
-# main-path profile, fast-tick timing, copy script
+# FileStore, upkeep, placement, read and snapshot loads, the
+# multi-process deployment and its plan recorder, kernel inputs, main-path
+# profile, fast-tick timing, copy script
 NEW = ("ops/_build.py", "tools/__init__.py", "tools/bench.py",
        "tools/cases.py", "tools/churn_probe.py", "tools/cluster.py",
        "tools/fast_tick_timing.py", "tools/filestore_bench.py",
+       "tools/multiproc_bench.py", "tools/plan_recorder.py",
        "tools/placement_bench.py", "tools/profile_main_path.py",
        "tools/read_bench.py", "tools/snapshot_bench.py",
        "tools/sync_copies.py", "tools/upkeep_bench.py")

@@ -8,7 +8,8 @@ transport and over TCP, the bench's kernel rung, the mesh engine's
 prefix, so names are matched exactly).  On a machine without CUDA an
 engine built without ``device=`` must raise rather than fall back to the
 CPU.  A source scan backs this up for ``ratis_tpu_torch/`` and
-``chip_smoke.py``.
+``chip_smoke.py``.  (The multi-process harness's server and client
+processes report what they loaded: ``tests/test_torch_multiproc.py``.)
 """
 
 import json
@@ -79,7 +80,8 @@ def test_port_loads_no_jax_and_no_ratis_tpu():
                  "tools.chaos_replay", "tools.upkeep_bench",
                  "tools.placement_bench", "tools.read_bench",
                  "transport.grpc", "shell", "shell.cli", "tools.parse_log",
-                 "tools.loadgen", "tools.membership_console"):
+                 "tools.loadgen", "tools.membership_console",
+                 "tools.multiproc_bench", "tools.plan_recorder"):
         assert f"ratis_tpu_torch.{name}" in res["modules"], name
     assert res["raised"] in (True, None)  # None: this machine has CUDA
 
