@@ -69,8 +69,10 @@ no result line:
       ``ArithmeticStateMachine``, 1 + 1 writes per group at 128 in
       flight; every replica's variable map equal to the fold of the
       acknowledged writes, then a full restart from disk and the same
-      check (K1-K4 > 0, K5 0); fsyncs per commit and the storage's
-      filesystem are printed; then, before the storage is removed,
+      check (K1-K4 > 0, K5 0); fsyncs per commit, each server's fsync
+      seconds in the measured writes (its log workers' ``syncTime``) and
+      their share of the writes, and the storage's filesystem are
+      printed; then, before the storage is removed,
       ``python -m ratis_tpu_torch.tools.parse_log`` on the segment files
       of one group's division on one server: the entries it counts must
       equal that division's log;
@@ -171,8 +173,8 @@ no result line:
       (deadline 600 s), ``installs`` must be 1024, the wiped engine must
       hold 1024 live rows, every counter on all three servers must equal
       both loads' acknowledged writes, and the commits/s during the
-      installs must stay above a quarter of those before (K1-K4 > 0, K5
-      0);
+      installs must stay above a quarter of those before (the ratio is
+      printed) (K1-K4 > 0, K5 0);
    q. ``peer7_1024``, the bench's ``peer7`` rung cut to 1024 groups and 2
       writes a group (the bench: 2048 and 4): 7 servers x 1024 groups over
       the simulated transport, no warm-up, 128 in flight, every 32nd
@@ -196,7 +198,30 @@ no result line:
       (K1-K4 > 0, K5-K7 and the public K3 0 in every one), with none of
       its prepared calls made off its home loop's thread, the shapes its
       kernels were given (checked in phase 5) and its ledger samples;
-   on every served path (a, c-r) each ledger sample (the watchdogs', the
+   s. ``scalar_512``, the bench's ``scalar`` rung (the TCP headline's
+      scalar control, ``cluster_properties(batched=False)``: a 2 ms tick
+      that never leaves the per-division host loop, one RPC per group and
+      follower, no coalescing, no replication sweep) at c's writes cut to
+      3 servers x 512 groups (the bench: 1024) over localhost TCP, one
+      warm-up write and 2 writes per group at 128 in flight; every write
+      acknowledged and
+      every counter read back from all three replicas, every engine on
+      the card, K1, K2, K3 and K5 launched 0 times and K4 once per ledger
+      sample of the phase; then the batched deployment at the same shape
+      and load, a control outside the phase's counts; the scalar
+      control's commits/s, p99 and election timeouts and the batched
+      control's commits/s over its own are printed (not gated); like l
+      it runs in a process of its own (``chip_smoke.py --path
+      scalar_512``), started after c and running beside d-k;
+   t. ``profile_256``: 3 servers x 256 groups over the simulated
+      transport, the batched deployment, 2 writes per group, with
+      ``raft.tpu.engine.profile-dir`` in a fresh temporary directory: the
+      first engine owns the process's ``torch.profiler`` session (CPU and
+      CUDA activity) and names each tick ``engine_tick``; after the close
+      exactly one trace file, with ``engine_tick`` ranges and kernel
+      events of ``tile_tick``, and no engine owning a session (K1-K4 > 0,
+      K5 0);
+   on every served path (a, c-t) each ledger sample (the watchdogs', the
    telemetry samplers', the placement controllers' and each ``GET
    /lag``'s) must make exactly one call into the kernel library, its
    prepared call's, and launch K4 once;
@@ -447,7 +472,7 @@ CHAOS_SCENARIOS = 12
 # cut to 256 groups (the bench: 1024) for the smoke's time, every scenario
 # kept
 CHAOS_GROUPS = 256
-# the chaos process (``ChaosProcess``) fails past this many seconds
+# the chaos process (``PathProcess``) fails past this many seconds
 CHAOS_TIMEOUT_S = 900.0
 # the sleeping-rows parity family: sparse paths' buckets (4096, and the
 # bench's 16384), and a clock late in the epoch where
@@ -470,6 +495,19 @@ MP5_WRITES = 2
 # its bring-up and load each fail past this (the harness's defaults are
 # 900 s and 1200 s)
 MP5_TIMEOUT_S = 240.0
+# the headline's scalar control: the bench's scalar rung at the TCP
+# path's writes (1 + TCP_WRITES a group) cut to 3 x 512 (the bench:
+# 1024).  At 1024 its one loop, walking every group each 2 ms tick beside
+# 6144 heartbeat streams, held the phase for 229 s alone (18.2 commits/s),
+# which the smoke's time cannot take on a slow card host, and beside the
+# other phases a write starved past the JAX write budget
+SCALAR_GROUPS = 512
+# the scalar process (``PathProcess``) fails past this many seconds
+SCALAR_TIMEOUT_S = 600.0
+# the engine's profiler hook: 3 x 256 over the simulated transport, the
+# batched deployment, 2 writes a group, no warm-up
+PROFILE_GROUPS = 256
+PROFILE_WRITES = 2
 # this checkout's root: the shell and parse_log run from it as
 # subprocesses (``python -m ratis_tpu_torch...``)
 ROOT = pathlib.Path(__file__).resolve().parent
@@ -1306,7 +1344,8 @@ def run_route_timing(tq, log_card) -> dict:
     (and launch K2, K1 or K5, K3 once, and no other of K1, K2, K5).  The
     refresh and fast ticks' device operations come from a profiler trace,
     the refresh tick's failed only on a trace that shows another kernel
-    (on the card hosts a trace sometimes records nothing); the ticks
+    (on the card hosts a trace sometimes records nothing, or the tick's
+    copies without its kernel: such a trace is taken again); the ticks
     synchronise, so they cannot be captured in a graph, but their kernels
     come from the C launchers of the wrappers', which phase 3 holds to one
     kernel in a graph."""
@@ -1337,8 +1376,13 @@ def run_route_timing(tq, log_card) -> dict:
         raise AssertionError(f"refresh tick: {calls.calls} calls into the "
                              f"library, K2 +{tq.K2.launches - n2}, K1 "
                              f"+{tq.K1.launches - n1}")
-    ops = device_ops(lambda: (dirty(), refresh()))
-    kernels = [op for op in ops if not is_copy(op)]
+    for _ in range(3):
+        # a trace that dropped the kernel's record (it holds the tick's
+        # download, no kernel) is taken again, as an empty one is
+        ops = device_ops(lambda: (dirty(), refresh()))
+        kernels = [op for op in ops if not is_copy(op)]
+        if kernels or not ops:
+            break
     if ops and (len(kernels) != 1 or "tile_tick" not in kernels[0]
                 or "RefreshEvents" not in kernels[0]):
         raise AssertionError(f"refresh tick put {ops} on the card")
@@ -1974,39 +2018,42 @@ def run_sparse_path(kernels, bench, rec):
     return res, launches
 
 
-class ChaosProcess:
-    """Phase 4l in a process of its own, beside 4a-4k: ``chip_smoke.py
-    --path chaos_1024 --result FILE`` runs ``run_chaos_path`` under its
-    own ``ShapeRecorder`` (its launch counts zeroed just before it drives
-    the path and read just after, as every path's) and writes the result,
-    the launches and the recorder's report to FILE; its output goes to a
-    file beside it.  The campaign's 12 scenarios hold their faults for
-    330-360 s on the card host, most of which this process spent idle
-    waiting on them.  ``collect`` waits for it and raises with the end of
-    its output if it failed; ``kill`` stops it."""
+class PathProcess:
+    """A phase in a process of its own, beside the main process's phases:
+    ``chip_smoke.py --path NAME --result FILE`` runs the path
+    (``PROCESS_PATHS``) under its own ``ShapeRecorder`` (its launch counts
+    zeroed just before it drives the path and read just after, as every
+    path's) and writes the result, the launches and the recorder's report
+    to FILE; its output goes to a file beside it.  Phase 4l: the chaos
+    campaign's 12 scenarios hold their faults for 330-360 s on the card
+    host, most of which its process spends idle waiting on them.  Phase
+    4s: the scalar control's one loop is busy for 229 s, on a core of its
+    own.  ``collect`` waits for it (``timeout_s`` from its start) and
+    raises with the end of its output if it failed; ``kill`` stops it."""
 
-    def __init__(self, tmp: str):
-        self.result = os.path.join(tmp, "chaos.json")
-        self.output = os.path.join(tmp, "chaos.out")
+    def __init__(self, path: str, tmp: str, timeout_s: float):
+        self.path, self.timeout_s = path, timeout_s
+        self.result = os.path.join(tmp, f"{path}.json")
+        self.output = os.path.join(tmp, f"{path}.out")
         with open(self.output, "wb") as out:
             self.proc = subprocess.Popen(
                 [sys.executable, str(ROOT / "chip_smoke.py"), "--path",
-                 "chaos_1024", "--result", self.result], cwd=ROOT,
+                 path, "--result", self.result], cwd=ROOT,
                 env=module_env(), stdout=out, stderr=subprocess.STDOUT)
         self.t0 = time.monotonic()
 
     def collect(self, rec) -> tuple:
         try:
-            rc = self.proc.wait(max(1.0, CHAOS_TIMEOUT_S
+            rc = self.proc.wait(max(1.0, self.timeout_s
                                     - (time.monotonic() - self.t0)))
         except subprocess.TimeoutExpired:
             self.kill()
-            rc = f"none after {CHAOS_TIMEOUT_S:.0f} s"
+            rc = f"none after {self.timeout_s:.0f} s"
         if rc != 0:
             with open(self.output, errors="replace") as f:
                 tail = f.read().splitlines()[-40:]
-            raise AssertionError(f"chaos process: exit {rc}; its output "
-                                 f"ended:\n" + "\n".join(tail))
+            raise AssertionError(f"{self.path} process: exit {rc}; its "
+                                 f"output ended:\n" + "\n".join(tail))
         with open(self.result) as f:
             out = json.load(f)
         rec.merge(out["recorder"])
@@ -2018,10 +2065,10 @@ class ChaosProcess:
             self.proc.wait()
 
 
-def chaos_process_main(result: str) -> int:
-    """``--path chaos_1024``: phase 4l alone, into ``result``."""
+def path_process_main(path: str, result: str) -> int:
+    """``--path PATH``: that phase alone, into ``result``."""
     rec = ShapeRecorder()
-    res, launches = run_chaos_path(kernel_launchers(), rec)
+    res, launches = PROCESS_PATHS[path](kernel_launchers(), rec)
     with open(result, "w") as f:
         json.dump({"res": res, "launches": launches,
                    "recorder": rec.report()}, f, default=str)
@@ -2285,6 +2332,103 @@ def run_mp5_path(bench, rec):
     res["vote_round_members"] = dict(rec.members)
     launches = {k: sum(r["launches"][k] for r in servers)
                 for k in servers[0]["launches"]}
+    return res, launches
+
+
+def run_scalar_path(kernels, rec):
+    """The bench's scalar rung (the TCP headline's scalar control) at
+    ``SCALAR_GROUPS`` x (1 + ``TCP_WRITES``): every write acked and every
+    counter read back from 3 replicas, every engine on the card, no K1,
+    K2, K3 or K5 launched (every tick on the per-division host loop) and
+    one K4 launch per ledger sample of the phase.  Then the batched
+    deployment at the same shape and load (``batched_control``: the
+    comparison's numerator, outside the phase's counts)."""
+    from ratis_tpu_torch.tools import bench
+    cluster = bench.e2e_cluster("cuda", SCALAR_GROUPS, batched=False)
+    with rec:
+        res, launches = counted(
+            kernels, ("K4",),
+            lambda: asyncio.run(bench.e2e_rung(cluster, TCP_WRITES)),
+            never=("K1", "K2", "K3", "K5"))
+    want = SCALAR_GROUPS * (bench.WARMUP_WRITES + TCP_WRITES)
+    if res["mode"] != "scalar" or res["acked"] != want \
+            or res["replicas_read_back"] != SCALAR_GROUPS * 3:
+        raise AssertionError(f"scalar path ({res['mode']}): {res['acked']} "
+                             f"of {want} writes acked, "
+                             f"{res['replicas_read_back']} replicas read "
+                             f"back")
+    if not res["engine_device"].startswith("cuda") or any(
+            s.engine.device.type != "cuda" for s in cluster.servers):
+        raise AssertionError(f"scalar path: engine on "
+                             f"{res['engine_device']}")
+    if launches["K4"] != rec.ledger_samples:
+        raise AssertionError(f"scalar path: {launches['K4']} K4 launches "
+                             f"for {rec.ledger_samples} ledger samples")
+    control = asyncio.run(bench.e2e_rung(
+        bench.e2e_cluster("cuda", SCALAR_GROUPS), TCP_WRITES))
+    if control["mode"] != "batched" or control["acked"] != want:
+        raise AssertionError(f"scalar path's batched control "
+                             f"({control['mode']}): {control['acked']} of "
+                             f"{want} writes acked")
+    res["batched_control"] = {k: control[k] for k in (
+        "commits_per_sec", "p50_ms", "p99_ms", "election_timeouts",
+        "election_convergence_s")}
+    return res, launches
+
+
+# the phases that run in a process of their own (``PathProcess``)
+PROCESS_PATHS = {"chaos_1024": run_chaos_path,
+                 "scalar_512": run_scalar_path}
+
+
+def run_profile_path(kernels, bench, rec):
+    """``PROFILE_GROUPS`` x ``PROFILE_WRITES`` over the simulated transport
+    with ``raft.tpu.engine.profile-dir`` in a fresh temporary directory:
+    after the close exactly one trace file, holding ``engine_tick``
+    ranges and kernel events of ``tile_tick`` (the session's CUDA
+    activity), and no engine owning a session any more (K1-K4 > 0, K5
+    0)."""
+    import tempfile
+
+    from ratis_tpu_torch.conf import RaftServerConfigKeys
+    from ratis_tpu_torch.engine.engine import QuorumEngine
+    with tempfile.TemporaryDirectory(prefix="ratis-smoke-profile-") as tmp:
+        cluster = bench.e2e_cluster("cuda", PROFILE_GROUPS, "sim", props={
+            RaftServerConfigKeys.Engine.PROFILE_DIR_KEY: tmp})
+        with rec:
+            res, launches = counted(
+                kernels, ("K1", "K2", "K3", "K4"),
+                lambda: asyncio.run(bench.e2e_rung(cluster, PROFILE_WRITES,
+                                                   warmup=0)),
+                never=("K5",))
+        traces = sorted(os.listdir(tmp))
+        if len(traces) != 1:
+            raise AssertionError(f"profile path: trace files {traces}")
+        path = os.path.join(tmp, traces[0])
+        with open(path) as f:
+            events = json.load(f)["traceEvents"]
+        trace_bytes = os.path.getsize(path)
+    kernel_events = collections.Counter(
+        e.get("name", "") for e in events if e.get("cat") == "kernel")
+    ranges = sum(1 for e in events if e.get("name") == "engine_tick")
+    tile = sum(n for name, n in kernel_events.items() if "tile_tick" in name)
+    owners = [s.peer_id for s in cluster.servers
+              if s.engine._profiler is not None]
+    if not ranges or not tile or owners \
+            or QuorumEngine._profiling_owner is not None:
+        raise AssertionError(
+            f"profile path: {ranges} engine_tick ranges, {tile} tile_tick "
+            f"kernel events ({dict(kernel_events)}), sessions still owned "
+            f"by {owners} / {QuorumEngine._profiling_owner}")
+    if res["acked"] != PROFILE_GROUPS * PROFILE_WRITES:
+        raise AssertionError(f"profile path: {res['acked']} writes acked")
+    res["profile"] = {
+        "trace_file": traces[0], "trace_bytes": trace_bytes,
+        "events": len(events), "engine_tick_ranges": ranges,
+        "tile_tick_events": tile,
+        # kernel events by name (a mangled name cut to 80 characters)
+        "kernel_events": {name[:80]: n for name, n in kernel_events.items()}}
+    res["engine"] = engine_shape(cluster)
     return res, launches
 
 
@@ -2622,13 +2766,13 @@ def main(argv=None) -> int:
     ap.add_argument("--out", help="also write the results as JSON here")
     ap.add_argument("--seed", type=int, default=0,
                     help="seed of the FileStore streams' bytes")
-    ap.add_argument("--path", choices=("chaos_1024",),
+    ap.add_argument("--path", choices=tuple(PROCESS_PATHS),
                     help=argparse.SUPPRESS)
     ap.add_argument("--result", help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
     if args.path:
-        begin("4l chaos_1024")
-        return chaos_process_main(args.result)
+        begin(args.path)
+        return path_process_main(args.path, args.result)
 
     # 1. environment
     t_start = time.monotonic()
@@ -2685,13 +2829,13 @@ def main(argv=None) -> int:
     mark("3 parity", t_start)
 
     # 4l. the chaos campaign, in a process of its own from here on, beside
-    # 4a-4k (``ChaosProcess``); stopped at exit if the run fails first
+    # 4a-4k (``PathProcess``); stopped at exit if the run fails first
     import atexit
     import shutil
     import tempfile
     chaos_tmp = tempfile.mkdtemp(prefix="ratis-smoke-chaos-")
     atexit.register(shutil.rmtree, chaos_tmp, True)
-    chaos = ChaosProcess(chaos_tmp)
+    chaos = PathProcess("chaos_1024", chaos_tmp, CHAOS_TIMEOUT_S)
     atexit.register(chaos.kill)
 
     # 4a. the main path over the simulated transport
@@ -2705,7 +2849,9 @@ def main(argv=None) -> int:
                                                "placement_48",
                                                "readmix_1024", "zipf_1024",
                                                "snapcatch_1024",
-                                               "peer7_1024", "mp5_1024")}
+                                               "peer7_1024", "mp5_1024",
+                                               "scalar_512",
+                                               "profile_256")}
     main_res, sim_launches = run_main_path(tq, kernels, args.groups,
                                            args.writes, recs["sim"])
     log(f"main path (sim): {card} | 3 servers x {args.groups} groups | "
@@ -2747,6 +2893,11 @@ def main(argv=None) -> int:
     log(f"K1 E {dict(shapes['K1'])}; K2 (D, E) {dict(shapes['K2'])}")
 
     mark("4c tcp", t_start)
+
+    # 4s. the scalar control, in a process of its own from here on, beside
+    # 4d-4k (``PathProcess``); stopped at exit if the run fails first
+    scalar = PathProcess("scalar_512", chaos_tmp, SCALAR_TIMEOUT_S)
+    atexit.register(scalar.kill)
 
     # 4d. the mesh path, then dryrun_multichip and the mesh100k rung
     begin("4d mesh")
@@ -2792,7 +2943,10 @@ def main(argv=None) -> int:
             f"acked | {res['commits_per_sec']:.1f} commits/s | p50 "
             f"{res['p50_ms']:.2f} ms | p99 {res['p99_ms']:.2f} ms | "
             f"fsyncs {res['fsyncs']} ({res['fsyncs_per_commit']:.4f} per "
-            f"commit) | election timeouts (bring-up, warm-up, writes) "
+            f"commit), the log workers' fsync s per server in the writes "
+            f"{[round(t, 4) for t in res['sync_time_s']]} (share of the "
+            f"writes {[round(x, 4) for x in res['sync_share']]}) | "
+            f"election timeouts (bring-up, warm-up, writes) "
             f"{res['election_timeouts']} | restart to all leaders "
             f"{res['restart_s']:.3f} s ({res['restart_election_timeouts']} "
             f"election timeouts) | replicas equal to the fold before, after "
@@ -3020,7 +3174,9 @@ def main(argv=None) -> int:
         f"longest pause {sc_res['loop_longest_pause_s']:.3f} s, pauses at "
         f"least the election timeout's minimum "
         f"{sc_res['loop_pauses_over_timeout_min']} | during the installs "
-        f"{sc_res['commits_per_sec']:.1f} commits/s | p50 "
+        f"{sc_res['commits_per_sec']:.1f} commits/s, during / before "
+        f"{sc_res['commits_per_sec'] / sc_res['cps_before']:.3f} (gate "
+        f"0.25) | p50 "
         f"{sc_res['p50_ms']:.2f} ms | p99 {sc_res['p99_ms']:.2f} ms | "
         f"{sc_res['commits']} writes acked, replica mismatches "
         f"{sc_res['replica_mismatches']} of {sc_res['replicas_read_back']}")
@@ -3071,6 +3227,42 @@ def main(argv=None) -> int:
     log(f"mp5_1024 launches (the children's): {mp_launches}")
     mark("4r mp5_1024", t_start)
 
+    # 4s. the headline's scalar control (its process's); 4t. the engine's
+    # profiler hook
+    begin("4s scalar_512")
+    sc1_res, sc1_launches = scalar.collect(recs["scalar_512"])
+    ctl = sc1_res["batched_control"]
+    log(f"scalar_512: {card} | 3 servers x {SCALAR_GROUPS} groups (the "
+        f"bench: 1024) over TCP, the scalar control (every tick on the "
+        f"host loop), in its own process beside 4d-4k | bring-up "
+        f"{sc1_res['election_convergence_s']:.3f} s | {sc1_res['acked']} "
+        f"writes acked, all replicas read back | "
+        f"{sc1_res['commits_per_sec']:.1f} commits/s | p50 "
+        f"{sc1_res['p50_ms']:.2f} ms | p99 {sc1_res['p99_ms']:.2f} ms | "
+        f"election timeouts (bring-up, warm-up, writes) "
+        f"{sc1_res['election_timeouts']} | the batched deployment at "
+        f"{SCALAR_GROUPS} groups, same process and load: "
+        f"{ctl['commits_per_sec']:.1f} commits/s, p99 "
+        f"{ctl['p99_ms']:.2f} ms; batched / scalar "
+        f"{ctl['commits_per_sec'] / sc1_res['commits_per_sec']:.3f}")
+    log(f"scalar_512 launches: {sc1_launches}; ledger samples "
+        f"{recs['scalar_512'].ledger_samples}")
+    mark("4s scalar_512", t_start)
+    begin("4t profile_256")
+    prof_res, prof_launches = run_profile_path(kernels, bench,
+                                               recs["profile_256"])
+    pr = prof_res["profile"]
+    log(f"profile_256: {card} | 3 servers x {PROFILE_GROUPS} groups "
+        f"(sim), raft.tpu.engine.profile-dir set | {prof_res['acked']} "
+        f"writes acked | {prof_res['commits_per_sec']:.1f} commits/s | p99 "
+        f"{prof_res['p99_ms']:.2f} ms | one trace {pr['trace_file']} "
+        f"({pr['trace_bytes']} bytes, {pr['events']} events): "
+        f"{pr['engine_tick_ranges']} engine_tick ranges, "
+        f"{pr['tile_tick_events']} tile_tick kernel events | kernel events "
+        f"{pr['kernel_events']} | ownership released")
+    log(f"profile_256 launches: {prof_launches}")
+    mark("4t profile_256", t_start)
+
     ledger_checks = {k: r.ledger_samples for k, r in recs.items()}
     log(f"ledger samples by path, each one call into the kernel library "
         f"and K4 +1: {ledger_checks}")
@@ -3091,7 +3283,8 @@ def main(argv=None) -> int:
                               ("snapcatch_1024", sc_res, 3),
                               ("peer7_1024", p7_res,
                                bench.PEER7["servers"]),
-                              ("mp5_1024", mp_res, bench.PEER5["servers"])):
+                              ("mp5_1024", mp_res, bench.PEER5["servers"]),
+                              ("profile_256", prof_res, None)):
         run_parity_observed(tq, tl, cases, res["engine"], recs[key].shapes,
                             par, f"{key} path", members)
     run_parity_sleeping(tq, cases, par)
@@ -3144,7 +3337,8 @@ def main(argv=None) -> int:
              "chaos_1024": chaos_launches, "placement_48": pl_launches,
              "readmix_1024": rm_launches, "zipf_1024": zf_launches,
              "snapcatch_1024": sc_launches, "peer7_1024": p7_launches,
-             "mp5_1024": mp_launches}
+             "mp5_1024": mp_launches, "scalar_512": sc1_launches,
+             "profile_256": prof_launches}
     by_path = {k: {p: n[k] for p, n in paths.items() if k in n}
                for k in kernels}
     # one call's CUDA-graph nodes, per kernel
@@ -3190,6 +3384,7 @@ def main(argv=None) -> int:
                                           if k != "counters"},
                        "peer7_path": p7_res,
                        "mp5_path": mp_res,
+                       "scalar_path": sc1_res, "profile_path": prof_res,
                        "seconds": time.monotonic() - t_start,
                        "phase_end_s": PHASE_END_S,
                        "shapes": {k: {str(s): n for s, n in v.items()}

@@ -22,6 +22,7 @@ from __future__ import annotations
 import asyncio
 import itertools
 import logging
+import os
 import threading
 import time
 import zlib
@@ -205,6 +206,11 @@ class Clock:
 
 
 class QuorumEngine:
+    # Which engine (if any) owns the process's torch.profiler session: one
+    # session per process, and co-hosted servers each build an engine, so
+    # only the first profiled engine starts it (raft.tpu.engine.profile-dir)
+    _profiling_owner = None
+
     def __init__(self, max_groups: int = 1024, max_peers: int = 8,
                  tick_interval_s: float = 0.002,
                  scalar_fallback_threshold: int = 16,
@@ -246,12 +252,11 @@ class QuorumEngine:
             # auto-pad: mesh size no longer needs to divide max-groups —
             # padded rows stay ROLE_UNUSED and cost nothing
             max_groups = pad_to_mesh(max_groups, n_slices)
-        # raft.tpu.engine.profile-dir is accepted and ignored: the JAX
-        # engine's profiler hooks are not ported.
+        # raft.tpu.engine.profile-dir: the owner's torch.profiler session
+        # (``_start_profiling``), its Chrome trace written there at close
         self.profile_dir = profile_dir
-        if profile_dir:
-            LOG.info("engine profiling is not ported; ignoring %s",
-                     profile_dir)
+        self._profiler = None
+        self.trace_file = None
         self.state = GroupBatchState(max_groups, max_peers,
                                      n_slices=n_slices)
         self.clock = Clock()
@@ -741,10 +746,54 @@ class QuorumEngine:
     async def start(self) -> None:
         self._running = True
         self._home_loop = asyncio.get_running_loop()
+        if self.profile_dir and QuorumEngine._profiling_owner is None:
+            self._start_profiling()
         self._task = asyncio.create_task(self._run(), name="quorum-engine")
+
+    def _start_profiling(self) -> None:
+        """Start the process's ``torch.profiler`` session, CPU activity and
+        CUDA activity on a card, and own it.  If it cannot start (another
+        session is active in the process: a second would silently take
+        the first one's place), log it and own nothing."""
+        from torch.profiler import ProfilerActivity, profile
+        activities = [ProfilerActivity.CPU]
+        if self.device.type == "cuda":
+            activities.append(ProfilerActivity.CUDA)
+        try:
+            if torch.autograd.profiler._is_profiler_enabled:
+                raise RuntimeError("a torch.profiler session is already "
+                                   "active in this process")
+            prof = profile(activities=activities)
+            prof.start()
+        except Exception:
+            LOG.exception("could not start the torch profiler")
+            return
+        self._profiler = prof
+        QuorumEngine._profiling_owner = self
+        LOG.info("engine profiling -> %s", self.profile_dir)
+
+    def _stop_profiling(self) -> None:
+        """Stop the owned session, write its Chrome trace into
+        ``profile_dir`` (``trace_file``: the pid and the time in its name,
+        as each server process of a multi-process deployment owns a
+        session, and a process may profile one cluster after another) and
+        release ownership."""
+        prof, self._profiler = self._profiler, None
+        QuorumEngine._profiling_owner = None
+        self.trace_file = os.path.join(
+            self.profile_dir,
+            f"engine-trace-{os.getpid()}-{time.time_ns()}.json")
+        try:
+            prof.stop()
+            os.makedirs(self.profile_dir, exist_ok=True)
+            prof.export_chrome_trace(self.trace_file)
+        except Exception:
+            LOG.exception("could not write the torch profiler trace")
 
     async def close(self) -> None:
         self._running = False
+        if QuorumEngine._profiling_owner is self:
+            self._stop_profiling()
         if self._task is not None:
             self._wake.set()
             self._task.cancel()
@@ -779,7 +828,13 @@ class QuorumEngine:
                     pass
             self._wake.clear()
             t0 = loop.time()
-            await self.tick()
+            if QuorumEngine._profiling_owner is self:
+                # a named range a tick in the trace; only the owner
+                # annotates (co-hosted engines share its one session)
+                with torch.profiler.record_function("engine_tick"):
+                    await self.tick()
+            else:
+                await self.tick()
             self.last_tick_monotonic = loop.time()
             cost = loop.time() - t0
             if cost > self.tick_interval_s:

@@ -9,6 +9,13 @@ enters the write path and completed at apply time, which is what makes the
 failover case work: followers populate the cache while applying replicated
 entries.  Client-piggybacked replied-call-ids GC entries early (reference
 RaftClientImpl.RepliedCallIds).
+
+An entry expires ``expiry_s`` after its reply, never while its write is
+pending.  The reference (and the JAX package's copy) ages an entry from its
+creation, so a retry that reaches a live leader more than ``expiry_s``
+after the original request, while the original is still uncommitted,
+found the entry gone and appended the write a second time: both entries
+committed, and an acknowledged write was applied twice.
 """
 
 from __future__ import annotations
@@ -27,6 +34,8 @@ class CacheEntry:
         self.key = key
         self.future: asyncio.Future = asyncio.get_running_loop().create_future()
         self.created = time.monotonic()
+        # when the reply landed: the entry's age counts from here
+        self.replied: Optional[float] = None
 
     @property
     def done(self) -> bool:
@@ -35,6 +44,7 @@ class CacheEntry:
     def complete(self, reply: RaftClientReply) -> None:
         if not self.future.done():
             self.future.set_result(reply)
+            self.replied = time.monotonic()
 
     def fail(self) -> None:
         """Invalidate (e.g. leadership lost before apply): the retry must
@@ -49,8 +59,18 @@ class RetryCache:
         self.expiry_s = expiry_s
         self.stats = {"hits": 0, "misses": 0}
 
+    def _expiry(self, e: CacheEntry, now: float) -> float:
+        """When ``e`` expires: at once if cancelled, ``expiry_s`` after its
+        reply, and while pending no sooner than ``expiry_s`` from ``now``."""
+        if e.future.cancelled():
+            return now
+        if e.replied is not None:
+            return e.replied + self.expiry_s
+        return now + self.expiry_s
+
     def _expired(self, e: CacheEntry, now: float) -> bool:
-        return (now - e.created) > self.expiry_s or e.future.cancelled()
+        return e.future.cancelled() or (e.replied is not None
+                                        and now - e.replied > self.expiry_s)
 
     def get_or_create(self, client_id: bytes, call_id: int
                       ) -> tuple[CacheEntry, bool]:
@@ -99,7 +119,8 @@ class RetryCache:
         the per-sweep tick."""
         if not self._map:
             return float("inf")
-        return min(e.created for e in self._map.values()) + self.expiry_s
+        now = time.monotonic()
+        return min(self._expiry(e, now) for e in self._map.values())
 
     def __len__(self) -> int:
         return len(self._map)

@@ -14,6 +14,11 @@ headline end-to-end rung, run on the port.
     python -m ratis_tpu_torch.tools.bench --rungs readmix     # or zipf
     python -m ratis_tpu_torch.tools.bench --rungs snapcatch   # or peer7
     python -m ratis_tpu_torch.tools.bench --rungs peer5_mp    # or peer5_sp
+    python -m ratis_tpu_torch.tools.bench --rungs scalar      # peer5_scalar,
+    python -m ratis_tpu_torch.tools.bench --rungs win1        # win4, win16,
+    python -m ratis_tpu_torch.tools.bench --rungs sim_64      # sim_1, sim_1024
+    python -m ratis_tpu_torch.tools.bench --rungs upk_64      # or upk_1024
+    python -m ratis_tpu_torch.tools.bench --rungs mix_fs
 
 Prints exactly one JSON line on stdout, with the key names of ``bench.py``'s
 rungs (the first three by default, the mesh rungs when ``--rungs`` names
@@ -176,13 +181,49 @@ them; at most one rung that brings up a cluster per run):
 - ``peer5_sp`` (its one-process control, ``bench.py:774-778``): the same
   5 x 10240 over TCP in one process, leaders elected, no warm-up: the
   e2e metrics, every counter read back from all 5 replicas, and
-  ``host_path_decomposition``.
+  ``host_path_decomposition``;
+- ``scalar`` (the headline's scalar control, ``bench.py:812-818``) and
+  ``peer5_scalar`` (the north star's, ``bench.py:784-787``: 5 x
+  ``--groups`` (10240) over TCP, 2 writes a group, no warm-up; a run that
+  does not finish is recorded as a DNF, as there): the e2e rung on
+  ``cluster_properties(..., batched=False)``, every tick on the
+  per-division host loop (no kernel tick may run), one RPC per group and
+  follower;
+- ``win1``, ``win4``, ``win16`` (the window-depth sweep,
+  ``bench.py:819-833``): the headline with
+  ``raft.tpu.replication.window-depth`` 1, 4 or 16, its line's
+  ``sweep_entry`` the JAX sweep's [commits/s, p99 ms, window occupancy];
+- ``sim_1``, ``sim_64``, ``sim_1024`` (the sim ladder, ``bench.py:730-742``;
+  ``SIM_LADDER``): 3 servers x 1, 64 or 1024 groups over the simulated
+  transport, one warm-up write, then 256 writes a group at 32 in flight,
+  128 at 128, or 8 at 128;
+- ``upk_64``, ``upk_1024`` (the upkeep dip pair, ``bench.py:922-940``):
+  ``sim_64`` and ``sim_1024``'s loads (``UPKEEP_LADDER``) with
+  ``raft.tpu.upkeep.enabled``; ``--upkeep-triple`` folds the ``upkeep``,
+  ``upk_64`` and ``upk_1024`` lines into the JAX bench's ``upkeep``
+  triple;
+- ``mix_fs`` (``child_mixed_durable``, ``bench.py:369-414``): the
+  ``mixed`` load on the server's default durable log with the durable
+  rungs' timeout tier, per-group segment files (``pergroup``), the shared
+  plane (``shared``) and both under a modeled disk whose fsync takes 5
+  ms (``pergroup_5ms``, ``shared_5ms``), each leg on a cluster of its own:
+  each leg's ``mixed`` keys with ``fsyncs_per_commit`` and each server's
+  fsync seconds in the writes and their share of them.
+
+Every e2e rung's result holds the keys of the JAX harness's
+``run_bench`` too (``mode``, ``peers``, ``scheduling_hops``,
+``reply_hops_per_commit``, ``append_rewinds``, ``window_occupancy``,
+``window_rewinds``, ``lane_resets``, ``codec``, the dispatch reasons,
+``engine_occupancy``, ``watchdog_events``); the durable rungs' results
+hold each server's log-worker fsync seconds in the measured writes
+(``sync_time_s``) and their share of the writes' wall (``sync_share``).
 
 ``--seed`` seeds the streams' bytes.  A rung whose streams failed, whose
 reads or replicas broke their checks, or (``snapcatch``) whose wiped
 replicas were not all caught up by a snapshot install, prints its line
-and exits 1; so does a ``peer5_mp`` or ``peer5_sp`` rung that did not
-finish, its line holding ``dnf``: the error, and a ``peer5_mp`` rung in
+and exits 1; so does a ``scalar``, ``peer5_mp``, ``peer5_sp`` or
+``peer5_scalar`` rung that did not finish, its line holding ``dnf``: the
+error, and a ``peer5_mp`` rung in
 which a server failed to take its group's leadership after the load
 (``transfers_failed``).
 
@@ -218,7 +259,9 @@ RUNGS = ("kernel", "kernel_100k", "e2e", "mesh_100k", "mesh", "sim_10240",
          "durable", "shared", "churn", "mixed", "stream", "filestore5",
          "telemetry", "traced", "upkeep", "sparse_hib", "sparse_plain",
          "chaos", "placement", "readmix", "zipf", "snapcatch", "peer7",
-         "peer5_mp", "peer5_sp")
+         "peer5_mp", "peer5_sp", "scalar", "peer5_scalar", "win1", "win4",
+         "win16", "sim_1", "sim_64", "sim_1024", "upk_64", "upk_1024",
+         "mix_fs")
 # what a run without --rungs measures: the headline and the kernel rungs
 # (the mesh pair's bring-up of 2 x 10240 groups takes minutes)
 DEFAULT_RUNGS = RUNGS[:3]
@@ -237,7 +280,7 @@ E2E_RUNGS = ("e2e", "sim_10240", "mesh", "durable", "shared", "churn",
              "mixed", "stream", "filestore5", "telemetry", "traced",
              "upkeep", "sparse_hib", "sparse_plain", "chaos", "placement",
              "readmix", "zipf", "snapcatch", "peer7", "peer5_mp",
-             "peer5_sp")
+             "peer5_sp", *RUNGS[25:])
 # groups of the rungs that bring up a cluster when --groups is not given
 GROUPS = 1024
 FILESTORE5_GROUPS = 10_240
@@ -252,6 +295,19 @@ PEER5 = {"groups": 10_240, "servers": 5, "writes": 2, "warmup": 0,
 # bench.py's tel_on leg: the sampler on, one sample a second
 TELEMETRY = {"raft.tpu.telemetry.enabled": "true",
              "raft.tpu.telemetry.interval": "1s"}
+# the headline's window-depth sweep (bench.py:819-833): the e2e rung with
+# the append window this deep
+WINDOW_DEPTH_KEY = "raft.tpu.replication.window-depth"
+WINDOW_DEPTHS = {"win1": 1, "win4": 4, "win16": 16}
+# the sim ladder's rungs below 10240 groups (bench.py:730-742; its 1024
+# rung also runs on the chip as tpu_e2e, bench.py:957-960): groups, writes
+# per group and writes in flight, one warm-up write per group
+SIM_LADDER = {"sim_1": (1, 256, 32), "sim_64": (64, 128, 128),
+              "sim_1024": (1024, 8, 128)}
+# the upkeep dip pair (bench.py:922-940): the sim rungs at 64 and 1024
+# groups (128 and 8 writes per group) with the upkeep plane on
+UPKEEP_PROPS = {"raft.tpu.upkeep.enabled": "true"}
+UPKEEP_LADDER = {"upk_64": (64, 128), "upk_1024": (1024, 8)}
 
 
 def _example_batch(num_groups: int, num_peers: int, num_events: int,
@@ -547,26 +603,29 @@ def dryrun_multichip(n_devices: int, device="cuda") -> dict:
 
 
 def e2e_cluster(device="cuda", groups: int = 1024, transport: str = "tcp",
-                mesh_devices: int = 0, extra: dict = None,
+                mesh_devices: int = 0, props: dict = None,
                 trace: bool = False, hibernate: bool = False,
-                servers: int = 3, trace_sample: int = None):
+                servers: int = 3, trace_sample: int = None,
+                batched: bool = True):
     """An e2e rung's cluster: ``servers`` servers x ``groups`` groups over
-    ``transport``, engines in ``mesh_devices`` slices when > 0, host-path
-    tracing on with ``trace`` (every ``trace_sample``-th write, default
-    the cluster's ``TRACE_SAMPLE``), idle groups hibernating with
-    ``hibernate``, the properties ``extra`` set over the cluster's, its
-    kernels built and launched once (``Cluster.prewarm``), not yet
-    started."""
+    ``transport``, the batched deployment or (``batched=False``) the
+    scalar control, engines in ``mesh_devices`` slices when > 0,
+    host-path tracing on with ``trace`` (every ``trace_sample``-th write,
+    default the cluster's ``TRACE_SAMPLE``), idle groups hibernating with
+    ``hibernate``, the properties ``props`` set over the cluster's (the
+    JAX child's ``props``), its kernels built and launched once
+    (``Cluster.prewarm``), not yet started."""
     from ratis_tpu_torch.tools.cluster import (TRACE_SAMPLE, Cluster,
                                                cluster_properties)
     dev = str(_device(device))
-    props = cluster_properties(groups, servers, dev, transport, mesh_devices,
-                               trace=trace, hibernate=hibernate,
-                               trace_sample=trace_sample or TRACE_SAMPLE)
-    for k, v in (extra or {}).items():
-        props.set(k, v)
+    properties = cluster_properties(
+        groups, servers, dev, transport, mesh_devices, trace=trace,
+        hibernate=hibernate, trace_sample=trace_sample or TRACE_SAMPLE,
+        batched=batched)
+    for k, v in (props or {}).items():
+        properties.set(k, v)
     cluster = Cluster(groups, servers, device=dev, transport=transport,
-                      properties=props)
+                      properties=properties)
     cluster.prewarm()
     return cluster
 
@@ -579,7 +638,7 @@ def telemetry_cluster(device="cuda", groups: int = 1024,
     extra = dict(TELEMETRY)
     if http_port is not None:
         extra[RaftServerConfigKeys.Metrics.HTTP_PORT_KEY] = str(http_port)
-    return e2e_cluster(device, groups, "tcp", extra=extra)
+    return e2e_cluster(device, groups, "tcp", props=extra)
 
 
 def traced_cluster(device="cuda", groups: int = 1024):
@@ -686,13 +745,13 @@ DURABLE_TIER = {"raft.server.rpc.timeout.min": "4s",
 
 
 def durable_properties(groups: int, device: str, storage_dir: str,
-                       shared: bool):
-    """A durable rung's properties over TCP: the cluster's
+                       shared: bool, transport: str = "tcp"):
+    """A durable rung's properties over ``transport``: the cluster's
     (``bench_properties`` key for key) with the default durable log under
     ``storage_dir``, per group or on the shared plane, and
     ``DURABLE_TIER``."""
     from ratis_tpu_torch.tools.cluster import cluster_properties
-    p = cluster_properties(groups, 3, device, "tcp",
+    p = cluster_properties(groups, 3, device, transport,
                            storage_dir=storage_dir, shared_log=shared)
     for k, v in DURABLE_TIER.items():
         p.set(k, v)
@@ -768,13 +827,17 @@ def pack_ms(engine, acks: int, reps: int = 200) -> dict:
     return out
 
 
-def _check_engines(engines, dev: torch.device, n_slices: int = 1) -> None:
+def _check_engines(engines, dev: torch.device, n_slices: int = 1,
+                   batched: bool = True) -> None:
     """Every engine ran on ``dev`` in ``n_slices`` slices, its state there
-    too, and made batched dispatches."""
+    too, and made batched dispatches; a scalar control's engines
+    (``batched=False``) hold no device state (their ticks run on the
+    host)."""
     for e in engines:
         on = e._dev.match_index.device if e._dev is not None else None
         if e.device.type != dev.type or (on and on.type != dev.type) \
-                or e.metrics["batched_dispatches"] == 0 \
+                or (e.metrics["batched_dispatches"] == 0 if batched
+                    else on is not None) \
                 or e.state.n_slices != n_slices:
             raise AssertionError(f"engine on {e.device}, state on {on}, "
                                  f"{e.metrics['batched_dispatches']} "
@@ -782,13 +845,55 @@ def _check_engines(engines, dev: torch.device, n_slices: int = 1) -> None:
                                  f"{e.state.n_slices} slices")
 
 
+def device_ticks(engines) -> list[int]:
+    """Each engine's fast and refresh ticks so far (its kernel ticks)."""
+    return [e.metrics["fast_ticks"] + e.metrics["refresh_ticks"]
+            for e in engines]
+
+
+# run_bench's counts of why the engines dispatched (bench_cluster.py:
+# 1383-1389), each reported when not 0
+DISPATCH_REASONS = ("dispatch_upload", "dispatch_commit", "dispatch_dirty",
+                    "dispatch_votes", "dispatch_sweep", "dispatch_backlog")
+
+
+def run_bench_keys(cluster, engines) -> dict:
+    """``run_bench``'s observability keys over ``cluster`` (bench_cluster.py:
+    1349-1398): append rewinds, the append window's peak occupancy (frames
+    in flight over the envelope slots, worst server), its windowed
+    rewinds and lane resets, the codec's counts, the dispatch reasons, the
+    engines' live rows over their capacity and the watchdogs' events."""
+    from ratis_tpu_torch.server.replication import ReplicationScheduler
+    reps = [s.replication for s in cluster.servers]
+    out = {"append_rewinds": sum(r.metrics.get("rewinds", 0) for r in reps),
+           "window_occupancy": max(r.metrics.get("win_hwm", 0)
+                                   / max(1, r.lane_slots) for r in reps),
+           "window_rewinds": sum(r.metrics.get("windowed_rewinds", 0)
+                                 for r in reps),
+           "lane_resets": sum(r.metrics.get("lane_resets", 0) for r in reps),
+           "codec": ReplicationScheduler.codec_stats()}
+    for reason in DISPATCH_REASONS:
+        v = sum(e.metrics.get(reason, 0) for e in engines)
+        if v:
+            out[reason] = v
+    out["engine_occupancy"] = (sum(len(e.state.active) for e in engines)
+                               / max(1, sum(e.state.capacity
+                                            for e in engines)))
+    out["watchdog_events"] = sum(s.watchdog.event_count()
+                                 for s in cluster.servers
+                                 if s.watchdog is not None)
+    return out
+
+
 async def e2e_rung(cluster, writes: int = 8, warmup: int = WARMUP_WRITES,
                    trace_out: str = None, during=None, after=None,
-                   settle=None, active_groups: int = None) -> dict:
+                   settle=None, active_groups: int = None,
+                   concurrency: int = CONCURRENCY) -> dict:
     """``run_bench`` on an ``e2e_cluster``: bring it up (elections in
     waves of a tenth of the groups, at least 128), warm up with ``warmup``
-    writes per group, measure ``writes`` writes per group, read every
-    counter back from every replica, close it.  With ``active_groups``
+    writes per group, measure ``writes`` writes per group (``concurrency``
+    in flight), read every counter back from every replica, close it.
+    With ``active_groups``
     only the first that many groups take writes (the sparse shape; the
     others' counters must read 0 on every replica).  With telemetry on,
     the result carries ``telemetry`` (``telemetry_summary``); with tracing
@@ -798,12 +903,22 @@ async def e2e_rung(cluster, writes: int = 8, warmup: int = WARMUP_WRITES,
     ``settle(cluster)``, ``during(cluster)`` and ``after(cluster)``
     (coroutine functions) run after the bring-up, beside the measured
     writes and after the read-back; their results are ``settle``,
-    ``during`` and ``after``."""
-    from ratis_tpu_torch.tools.cluster import bring_up_wave, sealed
+    ``during`` and ``after``.  The result holds ``run_bench``'s keys
+    (``mode``, ``peers``, ``scheduling_hops``, ``reply_hops_per_commit``
+    over the measured writes, ``run_bench_keys``) beside the port's.  On
+    the scalar control (``mode`` "scalar") no engine may make a fast or
+    refresh tick after its prewarm.  A replica whose counter is not its
+    group's acknowledged writes raises."""
+    from ratis_tpu_torch.metrics import hops
+    from ratis_tpu_torch.tools.cluster import (bring_up_wave, is_batched,
+                                               sealed)
     from ratis_tpu_torch.trace import get_tracer
     dev = torch.device(cluster.device)
     groups = cluster.num_groups
     tracing = RaftServerConfigKeys.Trace.enabled(cluster.properties)
+    batched = is_batched(cluster.properties)
+    engines = [s.engine for s in cluster.servers]
+    ticks0 = device_ticks(engines)
     try:
         await sealed(cluster, cluster.start(wave=bring_up_wave(cluster),
                                             timeout=600))
@@ -814,19 +929,26 @@ async def e2e_rung(cluster, writes: int = 8, warmup: int = WARMUP_WRITES,
         acked = 0
         if warmup:
             acked = (await cluster.write_all(
-                warmup, CONCURRENCY, active_groups))["commits"]
+                warmup, concurrency, active_groups))["commits"]
         timeouts.append(cluster.election_timeouts())
-        engines = [s.engine for s in cluster.servers]
         saved = _fresh_dispatch_timers(engines)
         if tracing:
             # decompose the measured writes only
             get_tracer().reset()
-        load = cluster.write_all(writes, CONCURRENCY, active_groups)
+        # scheduling hops per commit over the measured writes only
+        hops.reset()
+        advances = sum(e.metrics["commit_advances"] for e in engines)
+        load = cluster.write_all(writes, concurrency, active_groups)
         if during is None:
             stats = await load
         else:
             stats, probe["during"] = await asyncio.gather(load,
                                                           during(cluster))
+        advances = sum(e.metrics["commit_advances"]
+                       for e in engines) - advances
+        probe["scheduling_hops"] = hops.snapshot()
+        probe["reply_hops_per_commit"] = (hops.reply_plane_hops()
+                                          / max(1, advances))
         if tracing:
             records = get_tracer().snapshot()
         timeouts.append(cluster.election_timeouts())
@@ -851,7 +973,10 @@ async def e2e_rung(cluster, writes: int = 8, warmup: int = WARMUP_WRITES,
                 raise AssertionError("no ledger sample on some server")
             await asyncio.sleep(0.1)
         mesh_n = RaftServerConfigKeys.Engine.mesh_devices(cluster.properties)
-        _check_engines(engines, dev, max(1, mesh_n))
+        _check_engines(engines, dev, max(1, mesh_n), batched)
+        if not batched and device_ticks(engines) != ticks0:
+            raise AssertionError(f"the scalar control made kernel ticks: "
+                                 f"{ticks0} -> {device_ticks(engines)}")
         if after is not None:
             probe["after"] = await after(cluster)
         if any(s.telemetry is not None for s in cluster.servers):
@@ -859,8 +984,10 @@ async def e2e_rung(cluster, writes: int = 8, warmup: int = WARMUP_WRITES,
         if tracing:
             probe.update(_trace_blocks(records, trace_out))
         return {**probe, "groups": groups, "servers": len(cluster.servers),
+                "peers": len(cluster.servers),
+                "mode": "batched" if batched else "scalar",
                 "transport": cluster.transport, "writes": writes,
-                "warmup": warmup, "concurrency": CONCURRENCY,
+                "warmup": warmup, "concurrency": concurrency,
                 "mesh_devices": mesh_n,
                 "active_groups": len(active),
                 "commits": stats["commits"],
@@ -880,11 +1007,14 @@ async def e2e_rung(cluster, writes: int = 8, warmup: int = WARMUP_WRITES,
                 "batched_dispatches": sum(e.metrics["batched_dispatches"]
                                           for e in engines),
                 "engine_ticks": sum(e.metrics["ticks"] for e in engines),
+                **run_bench_keys(cluster, engines),
                 # each engine's dispatches in the measured writes, and the
-                # two packs' host time at the largest p99 ack batch
+                # two packs' host time at the largest p99 ack batch (none
+                # on the scalar control: its ticks pack nothing)
                 "dispatch": dispatch,
                 "pack_ms": pack_ms(engines[0], max(
-                    d["ack_batch_p99"] for d in dispatch)),
+                    d["ack_batch_p99"] for d in dispatch))
+                if batched else None,
                 "ledger_samples": [e.ledger.samples.count for e in engines],
                 "engine_device": str(engines[0].device)}
     finally:
@@ -904,7 +1034,8 @@ async def durable_rung(cluster, writes: int = 8, after=None) -> dict:
     writes nothing to a device) and ``restart_s``: new servers started ->
     every group has a ready leader."""
     from ratis_tpu_torch.tools.cluster import (bring_up_wave, fs_type,
-                                               log_fsyncs, sealed)
+                                               log_fsyncs, log_sync_seconds,
+                                               sealed, sync_keys)
     dev = torch.device(cluster.device)
     groups = cluster.num_groups
     storage = RaftServerConfigKeys.storage_dirs(cluster.properties)[0]
@@ -917,9 +1048,11 @@ async def durable_rung(cluster, writes: int = 8, after=None) -> dict:
         timeouts.append(cluster.election_timeouts())
         engines = [s.engine for s in cluster.servers]
         saved = _fresh_dispatch_timers(engines)
-        fsyncs = log_fsyncs()
+        fsyncs, synced = log_fsyncs(), log_sync_seconds(cluster.servers)
         stats = await cluster.write_all(writes, CONCURRENCY)
         fsyncs = log_fsyncs() - fsyncs
+        sync = sync_keys(synced, log_sync_seconds(cluster.servers),
+                         stats["elapsed_s"])
         timeouts.append(cluster.election_timeouts())
         dispatch = _dispatch_summary(engines, saved, stats["elapsed_s"])
         acked += stats["commits"]
@@ -944,6 +1077,9 @@ async def durable_rung(cluster, writes: int = 8, after=None) -> dict:
                                       timeouts[2] - timeouts[1]],
                 "fsyncs": fsyncs,
                 "fsyncs_per_commit": fsyncs / max(1, stats["commits"]),
+                # per server: the log workers' fsync seconds in the
+                # measured writes, and their share of the writes' wall
+                **sync,
                 "storage_fs": fs_type(storage),
                 "restart_s": cluster.restart_s,
                 "restart_election_timeouts": restart_timeouts,
@@ -1155,6 +1291,15 @@ def _trace_blocks(records, trace_out: str = None) -> dict:
     return out
 
 
+def upkeep_triple(upkeep: dict, upk_64: dict, upk_1024: dict) -> list:
+    """bench.py's ``upkeep`` triple (bench.py:932-940) from the ``upkeep``,
+    ``upk_64`` and ``upk_1024`` rungs' results: the upkeep plane's raw
+    scans at 64 and 1024 groups, and the dip fraction, one less the
+    commits/s at 1024 groups over those at 64 with the plane on."""
+    return [upkeep["sweep_ms_64"], upkeep["sweep_ms_1024"],
+            1.0 - upk_1024["commits_per_sec"] / upk_64["commits_per_sec"]]
+
+
 def _shape(text: str) -> tuple[int, int, int]:
     g, p, e = (int(x) for x in text.split(","))
     return g, p, e
@@ -1216,7 +1361,24 @@ def main(argv=None) -> int:
     ap.add_argument("--unsat-clients", type=int, default=None,
                     help="clients of the zipf rung's unsaturated phase "
                          "(default 256)")
+    ap.add_argument("--loop-shards", type=int, default=1,
+                    help="event loops of each server's divisions in the "
+                         "snapcatch rung (default 1)")
+    ap.add_argument("--upkeep-triple", default=None,
+                    metavar="UPKEEP,UPK_64,UPK_1024",
+                    help="print bench.py's upkeep triple from the lines "
+                         "three runs of these rungs printed (files), and "
+                         "exit")
     args = ap.parse_args(argv)
+    if args.upkeep_triple:
+        lines = []
+        for path, rung in zip(args.upkeep_triple.split(","),
+                              ("upkeep", "upk_64", "upk_1024")):
+            with open(path) as f:
+                lines.append(json.loads(f.read().strip().splitlines()[-1])
+                             [rung])
+        print(json.dumps({"upkeep": upkeep_triple(*lines)}))
+        return 0
     rungs = [r for r in args.rungs.split(",") if r]
     unknown = sorted(set(rungs) - set(RUNGS))
     if unknown:
@@ -1259,6 +1421,26 @@ def main(argv=None) -> int:
     if "churn" in rungs:
         out["churn"] = asyncio.run(churn_rung(
             churn_cluster(args.device, groups), writes))
+    # the headline's window-depth sweep: [commits/s, p99 ms, occupancy]
+    for rung, depth in WINDOW_DEPTHS.items():
+        if rung in rungs:
+            res = asyncio.run(e2e_rung(e2e_cluster(
+                args.device, groups, props={WINDOW_DEPTH_KEY: str(depth)}),
+                writes))
+            res["sweep_entry"] = [res["commits_per_sec"], res["p99_ms"],
+                                  res["window_occupancy"]]
+            out[rung] = res
+    # the sim ladder, and the upkeep dip pair
+    ladder = {**{r: (g, w, c, None) for r, (g, w, c) in SIM_LADDER.items()},
+              **{r: (g, w, CONCURRENCY, UPKEEP_PROPS)
+                 for r, (g, w) in UPKEEP_LADDER.items()}}
+    for rung, (g, w, conc, props) in ladder.items():
+        if rung in rungs:
+            out[rung] = asyncio.run(e2e_rung(
+                e2e_cluster(args.device, args.groups or g, "sim",
+                            props=props),
+                w if args.writes is None else args.writes,
+                concurrency=conc))
     if "telemetry" in rungs:
         out["telemetry"] = asyncio.run(e2e_rung(
             telemetry_cluster(args.device, groups), writes))
@@ -1323,7 +1505,8 @@ def main(argv=None) -> int:
         load = sb.SNAPCATCH
         with tempfile.TemporaryDirectory(prefix="ratis-snapcatch-") as tmp:
             res = asyncio.run(sb.snapcatch_rung(
-                sb.snapcatch_cluster(args.device, groups, tmp),
+                sb.snapcatch_cluster(args.device, groups, tmp,
+                                     loop_shards=args.loop_shards),
                 writes=args.writes if args.writes is not None
                 else load["writes"],
                 concurrency=args.concurrency or load["concurrency"]))
@@ -1338,15 +1521,25 @@ def main(argv=None) -> int:
             peer7_cluster(args.device, args.groups),
             PEER7["writes"] if args.writes is None else args.writes,
             warmup=PEER7["warmup"], trace_out=args.trace_out))
-    # the north star as the multi-process deployment and in one process;
-    # a run that does not finish is recorded as a DNF with its error
-    peer5 = {"peer5_mp": lambda: peer5_mp_rung(
+    # the north star as the multi-process deployment and in one process,
+    # and the scalar controls; a run that does not finish is recorded as
+    # a DNF with its error
+    finishing = {"scalar": lambda: e2e_rung(
+                 e2e_cluster(args.device, groups, batched=False), writes),
+             "peer5_mp": lambda: peer5_mp_rung(
                  args.device, args.groups, args.writes, args.trace_out),
              "peer5_sp": lambda: e2e_rung(
                  peer5_cluster(args.device, args.groups),
                  PEER5["writes"] if args.writes is None else args.writes,
-                 warmup=PEER5["warmup"], trace_out=args.trace_out)}
-    for rung, run in peer5.items():
+                 warmup=PEER5["warmup"], trace_out=args.trace_out),
+             # the north star's scalar control (bench.py:784-787)
+             "peer5_scalar": lambda: e2e_rung(
+                 e2e_cluster(args.device, args.groups or PEER5["groups"],
+                             PEER5["transport"], servers=PEER5["servers"],
+                             batched=False),
+                 PEER5["writes"] if args.writes is None else args.writes,
+                 warmup=PEER5["warmup"])}
+    for rung, run in finishing.items():
         if rung in rungs:
             try:
                 out[rung] = asyncio.run(run())
@@ -1358,6 +1551,8 @@ def main(argv=None) -> int:
         if rung in rungs:
             out[rung] = fb.run_rung(rung, args.device, args.groups,
                                     args.seed)
+    if "mix_fs" in rungs:
+        out["mix_fs"] = fb.run_mix_fs(args.device, args.groups, args.seed)
     print(json.dumps(out), flush=True)
     failed = sum(r.get("streams_failed", 0) + r.get("read_mismatches", 0)
                  + r.get("replica_mismatches", 0)

@@ -25,7 +25,9 @@ are the batched multi-Raft deployment of the JAX package's bench harness
 (scalar-fallback-threshold 0), appender and heartbeat coalescing, wire
 write coalescing, the GC discipline, timeouts scaled to the channel
 count, the default stall watchdog (so the ledger pass runs), and host-path
-tracing when asked.
+tracing when asked; ``cluster_properties(..., batched=False)`` is the
+same harness's scalar control (``bench_properties(batched=False)``), whose
+engines never leave the per-division host loop.
 
 Leaders come from ordinary randomized-timeout elections (every round goes
 through the batched vote tally), group by group in waves; writes go
@@ -94,6 +96,9 @@ from ratis_tpu_torch.models.filestore import FileStoreStateMachine
 from ratis_tpu_torch.protocol.group import RaftGroup
 from ratis_tpu_torch.protocol.ids import RaftGroupId, RaftPeerId
 from ratis_tpu_torch.protocol.peer import RaftPeer
+from ratis_tpu_torch.retry.policies import (ClientRetryEvent, RetryAction,
+                                            RetryPolicy)
+from ratis_tpu_torch.util.timeduration import TimeDuration
 from ratis_tpu_torch.server.datastream import DataStreamManagement
 from ratis_tpu_torch.server.server import RaftServer
 from ratis_tpu_torch.transport.base import TransportFactory
@@ -116,6 +121,14 @@ WIPE_WAVE = 256
 # 1 s / 2 s tier, 160 at the durable rungs' 4 s / 8 s
 RETRY_SLEEP_MS = 100
 RETRY_MIN = 50
+# the scalar control's clients retry a call for the JAX harness's write
+# budget instead, on the wall clock (its _write gives up 60 s after the
+# write began, 240 s at 8192 groups and more): the one loop, walking every
+# group each 2 ms tick beside one heartbeat stream per group and follower,
+# can starve one write that long while the aggregate moves
+SCALAR_RETRY_S = 60.0
+SCALAR_RETRY_LARGE_S = 240.0
+SCALAR_RETRY_LARGE_GROUPS = 8192
 # the routes of a server's HTTP endpoint (raft.tpu.metrics.http-port) with
 # telemetry on (raft.tpu.telemetry.enabled): Prometheus text, then JSON
 HTTP_ROUTES = ("/metrics", "/health", "/divisions", "/events", "/lag",
@@ -182,6 +195,29 @@ def log_fsyncs() -> int:
     return sum(w.sync_count for w in LogWorker._instances.values())
 
 
+def log_sync_seconds(servers) -> list[float]:
+    """Seconds each of ``servers`` has spent in its log workers' fsyncs so
+    far: the ``syncTime`` timer (``metrics/server_metrics.py``) of every
+    worker its logs write through (one per storage root with per-group
+    segment files, one per shard on the shared plane), summed per
+    server."""
+    from ratis_tpu_torch.server.log.segmented import LogWorker
+    return [sum(w.registry_metrics.sync_timer._total_s
+                for key, w in LogWorker._instances.items()
+                if key.startswith(f"{s.peer_id}:")) for s in servers]
+
+
+def sync_keys(before: list, after: list, window_s: float) -> dict:
+    """The durable results' fsync keys from ``log_sync_seconds`` before
+    and after a write window of ``window_s``: each server's seconds of
+    fsync in it (``sync_time_s``) and their share of the window
+    (``sync_share``; the workers sync in threads, so shares of servers
+    that sync at once may add up to more than 1)."""
+    spent = [b - a for a, b in zip(before, after)]
+    return {"sync_time_s": spent,
+            "sync_share": [t / max(window_s, 1e-9) for t in spent]}
+
+
 def cluster_properties(num_groups: int, num_servers: int = 3,
                        device: str = "cuda", transport: str = "sim",
                        mesh_devices: int = 0, storage_dir: str = None,
@@ -189,12 +225,22 @@ def cluster_properties(num_groups: int, num_servers: int = 3,
                        trace: bool = False,
                        hibernate: bool = False,
                        trace_sample: int = TRACE_SAMPLE,
-                       loop_shards: int = 1) -> RaftProperties:
-    """The batched deployment of ``num_groups`` groups on ``num_servers``
-    servers: the JAX bench's ``bench_properties(batched=True, num_groups,
+                       loop_shards: int = 1,
+                       batched: bool = True) -> RaftProperties:
+    """The deployment of ``num_groups`` groups on ``num_servers`` servers:
+    the JAX bench's ``bench_properties(batched, num_groups,
     num_servers=..., transport=..., mesh_devices=..., trace=...,
     hibernate=..., loop_shards=...)`` key for key, plus the port's engine
-    device.  ``loop_shards`` > 1 runs every server's divisions on that
+    device.  ``batched`` (the default) is the batched deployment: the
+    batched engine on every tick (scalar-fallback-threshold 0) at a 20 ms
+    cadence, appender and heartbeat coalescing, wire write coalescing.
+    ``batched=False`` is the JAX bench's scalar control, the reference's
+    cost shape: a 2 ms tick whose threshold of 10^9 active groups keeps
+    every tick on the per-division host loop (no kernel but the ledger's
+    runs), one RPC per group and follower (no coalescing of any kind) and
+    no replication sweep; ``hibernate`` needs the coalesced heartbeats and
+    applies to the batched deployment only.  ``loop_shards`` > 1 runs
+    every server's divisions on that
     many event loops, each division pinned to one
     (``raft.tpu.server.loop-shards``, ``server/shards.py``).
     ``hibernate`` lets an idle group's leader stop heartbeating it and its
@@ -226,13 +272,14 @@ def cluster_properties(num_groups: int, num_servers: int = 3,
         RaftServerConfigKeys.Rpc.set_timeout(p, "4s", "8s")
     else:
         RaftServerConfigKeys.Rpc.set_timeout(p, "1s", "2s")
-    # commits advance inline at ack intake; the tick drives timeouts and
-    # staleness, so a 20ms cadence batches more events per launch
-    p.set(RaftServerConfigKeys.Engine.TICK_INTERVAL_KEY, "20ms")
+    # batched: commits advance inline at ack intake; the tick drives
+    # timeouts and staleness, so a 20ms cadence batches more events per
+    # launch.  Scalar: the reference's per-division cadence.
+    p.set(RaftServerConfigKeys.Engine.TICK_INTERVAL_KEY,
+          "20ms" if batched else "2ms")
     # pre-sized: adding the groups never regrows the resident batch
     p.set(RaftServerConfigKeys.Engine.MAX_GROUPS_KEY,
           str(max(QuorumEngine._bucket(num_groups), 64)))
-    p.set(RaftServerConfigKeys.Engine.SCALAR_FALLBACK_THRESHOLD_KEY, "0")
     p.set(RaftServerConfigKeys.Engine.DEVICE_KEY, device)
     if mesh_devices:
         p.set(RaftServerConfigKeys.Engine.MESH_DEVICES_KEY, str(mesh_devices))
@@ -247,6 +294,17 @@ def cluster_properties(num_groups: int, num_servers: int = 3,
     # a steady-state re-freeze every 15s (the memory log never purges)
     p.set(RaftServerConfigKeys.Gc.DISCIPLINE_KEY, "true")
     p.set(RaftServerConfigKeys.Gc.REFREEZE_INTERVAL_KEY, "15s")
+    if not batched:
+        # one Python pass per group per event and one RPC per (group,
+        # follower) batch, with per-request replication scheduling
+        p.set(RaftServerConfigKeys.Engine.SCALAR_FALLBACK_THRESHOLD_KEY,
+              "1000000000")
+        p.set(RaftServerConfigKeys.Log.Appender.COALESCING_ENABLED_KEY,
+              "false")
+        p.set(RaftServerConfigKeys.Heartbeat.COALESCING_ENABLED_KEY, "false")
+        p.set(RaftServerConfigKeys.Replication.SWEEP_KEY, "0")
+        return p
+    p.set(RaftServerConfigKeys.Engine.SCALAR_FALLBACK_THRESHOLD_KEY, "0")
     p.set(RaftServerConfigKeys.Log.Appender.COALESCING_ENABLED_KEY, "true")
     p.set(RaftServerConfigKeys.Heartbeat.COALESCING_ENABLED_KEY, "true")
     # wire write coalescing: pending frames leave in one buffered flush per
@@ -261,10 +319,55 @@ def cluster_properties(num_groups: int, num_servers: int = 3,
     return p
 
 
-def client_retry_policy(properties):
-    """The harness clients' retry policy for a cluster of
-    ``properties`` (``RETRY_SLEEP_MS``, ``RETRY_MIN``)."""
+def is_batched(properties) -> bool:
+    """Whether ``properties`` are the batched deployment (every tick on the
+    batched engine), not the scalar control (``cluster_properties(...,
+    batched=False)``)."""
+    key = RaftServerConfigKeys.Engine
+    return properties.get_int(key.SCALAR_FALLBACK_THRESHOLD_KEY,
+                              key.SCALAR_FALLBACK_THRESHOLD_DEFAULT) == 0
+
+
+class RetryForDuration(RetryPolicy):
+    """Retry a call every ``sleep_ms`` until ``budget_s`` have passed on
+    the wall clock since its first failed attempt (a call keeps its call
+    id across retries), then give up."""
+
+    def __init__(self, budget_s: float, sleep_ms: int):
+        self.budget_s = budget_s
+        self.sleep = TimeDuration.valueOf(f"{sleep_ms}ms")
+        self._first_failure: dict[int, float] = {}
+
+    def handle_attempt_failure(self, event: ClientRetryEvent) -> RetryAction:
+        now = time.monotonic()
+        call = event.request.call_id
+        if event.attempt_count == 1:
+            # calls that failed and later succeeded leave an entry behind
+            self._first_failure = {c: t for c, t
+                                   in self._first_failure.items()
+                                   if now - t <= self.budget_s}
+            self._first_failure[call] = now
+        if now - self._first_failure.get(call, now) > self.budget_s:
+            self._first_failure.pop(call, None)
+            return RetryAction(False)
+        return RetryAction(True, self.sleep)
+
+    def __str__(self) -> str:
+        return f"RetryForDuration({self.budget_s}s, sleep {self.sleep})"
+
+
+def client_retry_policy(properties, num_groups: int):
+    """The harness clients' retry policy for a cluster of ``num_groups``
+    groups on ``properties``: ``RETRY_MIN`` to two of the longest election
+    timeouts' worth of attempts ``RETRY_SLEEP_MS`` apart, or on the scalar
+    control (``is_batched`` false) the JAX harness's wall-clock write
+    budget (``SCALAR_RETRY_S``, ``SCALAR_RETRY_LARGE_S`` from
+    ``SCALAR_RETRY_LARGE_GROUPS`` groups)."""
     from ratis_tpu_torch.retry.policies import RetryPolicies
+    if not is_batched(properties):
+        return RetryForDuration(
+            SCALAR_RETRY_LARGE_S if num_groups >= SCALAR_RETRY_LARGE_GROUPS
+            else SCALAR_RETRY_S, RETRY_SLEEP_MS)
     longest = RaftServerConfigKeys.Rpc.timeout_max(properties).seconds
     attempts = max(RETRY_MIN, math.ceil(2e3 * longest / RETRY_SLEEP_MS))
     return RetryPolicies.retry_up_to_maximum_count_with_fixed_sleep(
@@ -391,9 +494,11 @@ class Cluster:
             await asyncio.gather(*(server.group_remove(g.group_id)
                                    for g in batch))
             if self.sm_storage_root is not None:
-                for g in batch:
-                    shutil.rmtree(f"{self.sm_storage_root}/{server.peer_id}"
-                                  f"/{g.group_id}", ignore_errors=True)
+                # off the loop, which the cluster's elections and
+                # heartbeats share
+                await asyncio.to_thread(lambda: [shutil.rmtree(
+                    f"{self.sm_storage_root}/{server.peer_id}/{g.group_id}",
+                    ignore_errors=True) for g in batch])
             await asyncio.gather(*(server.group_add(g) for g in batch))
 
     def datastream_address(self, server: RaftServer):
@@ -483,7 +588,8 @@ class Cluster:
                  .set_transport(self._client_transport)
                  .set_properties(self.properties)
                  .set_leader_id(leader.peer_id if leader else None)
-                 .set_retry_policy(client_retry_policy(self.properties))
+                 .set_retry_policy(client_retry_policy(self.properties,
+                                                       self.num_groups))
                  .build())
             self._clients[group.group_id] = c
         return c

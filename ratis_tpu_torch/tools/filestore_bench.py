@@ -49,15 +49,24 @@ LOADS = {
 }
 
 
+# the durable mixed pair (bench.py:369-414, child_mixed_durable): the
+# mixed rung on durable logs, per group and on the shared plane, then both
+# again under a modeled disk whose fsync takes this many ms
+MIX_FS_LEGS = (("pergroup", False, 0.0), ("shared", True, 0.0),
+               ("pergroup_5ms", False, 5.0), ("shared_5ms", True, 5.0))
+
+
 def filestore_cluster(device, groups: int, servers: int = 3,
-                      transport: str = "sim"):
+                      transport: str = "sim", properties=None):
     """A FileStore cluster: ``servers`` servers x ``groups`` groups over
-    ``transport``, every server serving the DataStream plane on localhost
-    TCP, its kernels built and launched once, not yet started."""
+    ``transport`` (its ``properties`` when given), every server serving
+    the DataStream plane on localhost TCP, its kernels built and launched
+    once, not yet started."""
     from ratis_tpu_torch.tools.bench import _device
     from ratis_tpu_torch.tools.cluster import Cluster
     cluster = Cluster(groups, servers, device=str(_device(device)),
-                      transport=transport, sm="filestore", datastream=True)
+                      transport=transport, sm="filestore", datastream=True,
+                      properties=properties)
     cluster.prewarm()
     return cluster
 
@@ -119,7 +128,8 @@ def _stream_keys(stats: dict) -> dict:
 async def run_mixed_bench(cluster, writes_per_group: int, streams: int,
                           stream_bytes: int, concurrency: int = 128,
                           stream_window: int = 16, warmup: int = 0,
-                          overlap: bool = True, seed: int = 0) -> dict:
+                          overlap: bool = True, seed: int = 0,
+                          fsync_delay_ms: float = 0.0) -> dict:
     """``run_mixed_bench`` on a ``filestore_cluster``: bring it up, warm up
     with ``warmup`` writes per group and hold every replica's files to
     them (so each replica has applied them, and made its store's
@@ -130,12 +140,20 @@ async def run_mixed_bench(cluster, writes_per_group: int, streams: int,
     packets, ``stream_window`` unacknowledged, 8 at a time) run into the
     groups; every replica's files held to the acknowledged writes and
     streams; close.  ``overlap=False`` runs the streams after the writes
-    and checks the files after each.  Returns the writes' commits/s and
-    p50/p99, the stream keys, ``fsyncs_per_commit`` on a durable log, and
-    the replicas checked (per check)."""
+    and checks the files after each.  ``fsync_delay_ms`` > 0 models a disk
+    whose fsync takes that long over the measured window, as the JAX
+    bench's ``run_mixed_bench`` does: the ``LOG_SYNC`` injection
+    (``util/injection.py``) makes every drain sweep of a log worker wait
+    that many ms for each file it syncs before its real I/O.  Returns the
+    writes' commits/s and p50/p99, the stream keys, on a durable log
+    ``fsyncs_per_commit`` and each server's fsync seconds in the window
+    and their share of it (``cluster.sync_keys``; the modeled wait is not
+    among them), and the replicas checked (per check)."""
     from ratis_tpu_torch.tools.bench import (_check_engines, _dispatch_summary,
                                              _fresh_dispatch_timers)
-    from ratis_tpu_torch.tools.cluster import log_fsyncs
+    from ratis_tpu_torch.tools.cluster import (log_fsyncs, log_sync_seconds,
+                                               sync_keys)
+    from ratis_tpu_torch.util import injection
     dev = torch.device(cluster.device)
     servers = len(cluster.servers)
     try:
@@ -150,15 +168,28 @@ async def run_mixed_bench(cluster, writes_per_group: int, streams: int,
         engines = [s.engine for s in cluster.servers]
         saved = _fresh_dispatch_timers(engines)
         data = payloads(streams, stream_bytes, seed)
-        fsyncs = log_fsyncs()
-        if overlap:
-            stats, sstats = await asyncio.gather(
-                cluster.write_all(writes_per_group, concurrency),
-                run_streams(cluster, data, MIXED_PACKET, stream_window,
-                            MIXED_PARALLEL))
-        else:
-            stats = await cluster.write_all(writes_per_group, concurrency)
+        if fsync_delay_ms > 0:
+            delay_s = fsync_delay_ms / 1000.0
+
+            async def disk_model(_local_id, _remote_id, *args):
+                await asyncio.sleep(delay_s * (args[0] if args else 1))
+            injection.put(injection.LOG_SYNC, disk_model)
+        fsyncs, synced = log_fsyncs(), log_sync_seconds(cluster.servers)
+        try:
+            if overlap:
+                stats, sstats = await asyncio.gather(
+                    cluster.write_all(writes_per_group, concurrency),
+                    run_streams(cluster, data, MIXED_PACKET, stream_window,
+                                MIXED_PARALLEL))
+            else:
+                stats = await cluster.write_all(writes_per_group,
+                                                concurrency)
+        finally:
+            if fsync_delay_ms > 0:
+                injection.remove(injection.LOG_SYNC)
         fsyncs = log_fsyncs() - fsyncs
+        sync = sync_keys(synced, log_sync_seconds(cluster.servers),
+                         stats["elapsed_s"])
         timeouts.append(cluster.election_timeouts())
         dispatch = _dispatch_summary(engines, saved, stats["elapsed_s"])
         acked += stats["commits"]
@@ -176,6 +207,7 @@ async def run_mixed_bench(cluster, writes_per_group: int, streams: int,
                "concurrency": concurrency, "streams": streams,
                "stream_bytes": stream_bytes, "stream_window": stream_window,
                "overlap": overlap, "seed": seed,
+               "fsync_delay_ms": fsync_delay_ms,
                "commits": stats["commits"], "acked": acked,
                "elapsed_s": stats["elapsed_s"],
                "commits_per_sec": stats["commits_per_sec"],
@@ -196,6 +228,7 @@ async def run_mixed_bench(cluster, writes_per_group: int, streams: int,
             out["fsyncs"] = fsyncs
             out["fsyncs_per_commit"] = fsyncs / max(
                 1, stats["commits"] * servers)
+            out.update(sync)
         return out
     finally:
         await cluster.close()
@@ -249,3 +282,34 @@ def run_rung(rung: str, device, groups: int = None, seed: int = 0) -> dict:
     return asyncio.run(run_mixed_bench(
         cluster, load["writes"], load["streams"], load["stream_bytes"],
         stream_window=load["window"], seed=seed))
+
+
+def run_mix_fs(device, groups: int = None, seed: int = 0) -> dict:
+    """The ``mix_fs`` rung (``child_mixed_durable``): the ``mixed`` load
+    (3 x ``groups`` (1024) FileStore groups over the simulated transport,
+    4 writes per group while 32 streams of 256 KB run) on the server's
+    default durable log in a fresh temporary directory, with the durable
+    rungs' timeout tier, once per ``MIX_FS_LEGS`` leg (per-group segment
+    files, the shared plane, and both again under a modeled 5 ms fsync),
+    each leg on a cluster of its own: ``legs`` ({leg:
+    ``run_mixed_bench``'s result}) and the streams that failed in all of
+    them (``streams_failed``)."""
+    import tempfile
+
+    from ratis_tpu_torch.tools.bench import _device, durable_properties
+    load = LOADS["mixed"]
+    groups = groups or load["groups"]
+    dev = str(_device(device))
+    out = {}
+    for leg, shared, delay_ms in MIX_FS_LEGS:
+        with tempfile.TemporaryDirectory(prefix=f"ratis-mixfs-{leg}-") as tmp:
+            props = durable_properties(groups, dev, tmp, shared,
+                                       load["transport"])
+            cluster = filestore_cluster(dev, groups, load["servers"],
+                                        load["transport"], props)
+            out[leg] = asyncio.run(run_mixed_bench(
+                cluster, load["writes"], load["streams"],
+                load["stream_bytes"], stream_window=load["window"],
+                seed=seed, fsync_delay_ms=delay_ms))
+    return {"legs": out,
+            "streams_failed": sum(r["streams_failed"] for r in out.values())}

@@ -32,7 +32,7 @@ writes of both loads; ``installs == groups``; the wiped server's engine
 holding ``groups`` live rows after the wipe, on the rows it released;
 the rows its refresh ticks (K2) rewrote during the catch-up; from the
 wipe to the last install, the loop's pauses, each server's election
-timeouts and the groups that changed leader, poll by poll
+timeouts and the groups that changed leader, once a second
 (``catchup_timeline``); the storage's filesystem.
 
 Where the harnesses differ (``PERF.md`` section 4): the port elects its
@@ -71,6 +71,11 @@ SNAPCATCH = {"groups": 1024, "writes": 4, "concurrency": 128,
 WAVE = 256
 CATCHUP_DEADLINE_S = 600.0
 POLL_S = 0.1
+# the catch-up timeline walks the fleet (every group's leader, every
+# division's timeouts) once in this many polls: a walk at every poll held
+# the one loop the writes and installs share, which the JAX rung's poll
+# does not
+TIMELINE_EVERY = 10
 # leadership transfers off the wiped server: this many at a time, for at
 # most this many passes
 TRANSFER_WAVE = 64
@@ -79,18 +84,22 @@ TRANSFER_ROUNDS = 5
 
 def snapcatch_cluster(device="cuda", groups: int = SNAPCATCH["groups"],
                       storage_root: str = None,
-                      transport: str = SNAPCATCH["transport"]):
+                      transport: str = SNAPCATCH["transport"],
+                      loop_shards: int = 1):
     """The rung's cluster with its snapshot storage under
     ``storage_root`` (its properties the cluster's: the JAX bench's
-    ``bench_properties(batched=True, ...)`` key for key, plus the engine's
-    device), prewarmed, not yet started."""
+    ``bench_properties(batched=True, ..., loop_shards=...)`` key for key,
+    plus the engine's device; ``loop_shards`` > 1 puts each server's
+    divisions on that many event loops, as the JAX rung's
+    ``loop_shards`` does), prewarmed, not yet started."""
     from ratis_tpu_torch.tools.bench import _device
     from ratis_tpu_torch.tools.cluster import Cluster
     dev = str(_device(device))
     servers = SNAPCATCH["servers"]
     cluster = Cluster(groups, servers, device=dev, transport=transport,
-                      properties=cluster_properties(groups, servers, dev,
-                                                    transport),
+                      properties=cluster_properties(
+                          groups, servers, dev, transport,
+                          loop_shards=loop_shards),
                       sm_storage_root=storage_root)
     cluster.prewarm()
     return cluster
@@ -196,21 +205,26 @@ async def snapcatch_rung(cluster, writes: int = SNAPCATCH["writes"],
                        if cluster.leader_of(g) is not leaders[g.group_id])
         pending = {g.group_id for g in cluster.groups
                    if snap_indexes.get(g.group_id, -1) >= 0}
-        # from the wipe to the last install, every POLL_S a row of the
-        # timeline: s since the wipe began, the loop's pause before it (how
-        # much later than asked the sleep woke), groups whose wiped
+        # from the wipe to the last install, the loop's pause before each
+        # poll (how much later than asked a POLL_S sleep woke), and every
+        # TIMELINE_EVERY polls a row of the timeline: s since the wipe
+        # began, the longest pause since the last row, groups whose wiped
         # replica has not applied its snapshot index (its old replica
         # counts while the wipe runs), groups led by another server than
         # at their snapshot, each server's election timeouts so far
-        timeline = []
+        timeline, pauses = [], []
 
         async def watch() -> None:
             while True:
                 t0 = time.monotonic()
                 await asyncio.sleep(POLL_S)
                 now = time.monotonic()
+                pauses.append(round(now - t0 - POLL_S, 3))
+                if len(pauses) % TIMELINE_EVERY:
+                    continue
                 timeline.append(
-                    [round(now - t_wipe, 3), round(now - t0 - POLL_S, 3),
+                    [round(now - t_wipe, 3),
+                     max(pauses[-TIMELINE_EVERY:]),
                      sum(1 for gid in pending
                          if (d := victim.divisions.get(gid)) is None
                          or d._applied_index < snap_indexes[gid]),
@@ -245,7 +259,6 @@ async def snapcatch_rung(cluster, writes: int = SNAPCATCH["writes"],
         # heartbeat handled
         timeout_min_s = RaftServerConfigKeys.Rpc.timeout_min(
             cluster.properties).to_ms() / 1000
-        pauses = [row[1] for row in timeline]
         longest_pause = max(pauses, default=0.0)
         long_pauses = sum(1 for p in pauses if p >= timeout_min_s)
         refresh_rows = engine.metrics["refresh_rows"] - refresh0
@@ -304,9 +317,10 @@ async def snapcatch_rung(cluster, writes: int = SNAPCATCH["writes"],
             # from the wipe to the last install
             "snapshot_election_timeouts": snapshot_timeouts,
             "catchup_election_timeouts": catchup_timeouts,
-            # a row a poll: s since the wipe, the pause before it, groups
-            # not yet caught up, groups led by another server than at
-            # their snapshot, each server's election timeouts so far
+            # a row every TIMELINE_EVERY polls: s since the wipe, the
+            # longest pause since the last row, groups not yet caught up,
+            # groups led by another server than at their snapshot, each
+            # server's election timeouts so far
             "catchup_timeline": timeline,
             "counters": {str(gid): v for gid, v in counters.items()},
             "replicas_read_back": len(counters) * len(cluster.servers),

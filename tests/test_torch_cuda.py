@@ -1179,3 +1179,43 @@ def test_multiproc_run_tiny_on_the_card(card):
         assert r["off_home_calls"] == {} and r["ledger_faults"] == []
     assert not any(c["cuda_initialized"] for c in res["clients"])
     assert live_children(res["child_pids"]) == []
+
+
+def test_scalar_cluster_runs_on_the_card(card):
+    """The scalar control tiny on the card (3 x 16 over TCP, every tick on
+    the per-division host loop): every counter read back from 3 replicas,
+    the engines on the card, no K1, K2, K3 or K5 launched after the
+    prewarm, and one K4 launch per ledger sample."""
+    from ratis_tpu_torch.tools.plan_recorder import ShapeRecorder
+    cluster = bench.e2e_cluster("cuda", 16, "tcp", batched=False)
+    kernels = (tq.K1, tq.K2, tq.K3, tl.K4, tq.K5)
+    before = [k.launches for k in kernels]
+    with ShapeRecorder() as rec:
+        res = asyncio.run(bench.e2e_rung(cluster, 2))
+    launched = [k.launches - n for k, n in zip(kernels, before)]
+    assert res["mode"] == "scalar" and res["acked"] == 16 * 3
+    assert res["replicas_read_back"] == 16 * 3
+    assert res["engine_device"].startswith("cuda")
+    assert launched[:3] == [0, 0, 0] and launched[4] == 0, launched
+    assert launched[3] == rec.ledger_samples > 0, launched
+
+
+def test_profiler_hook_traces_the_kernels_on_the_card(card, tmp_path):
+    """A profiled cluster on the card (3 x 16, simulated transport): the
+    owner's session has CUDA activity, so its trace holds the engine's
+    ``engine_tick`` ranges and the kernel events of ``tile_tick``."""
+    import json
+
+    from ratis_tpu_torch.conf import RaftServerConfigKeys
+    from ratis_tpu_torch.engine.engine import QuorumEngine
+    cluster = bench.e2e_cluster("cuda", 16, "sim", props={
+        RaftServerConfigKeys.Engine.PROFILE_DIR_KEY: str(tmp_path)})
+    res = asyncio.run(bench.e2e_rung(cluster, 2))
+    assert res["acked"] == 16 * 3
+    assert QuorumEngine._profiling_owner is None
+    traces = list(tmp_path.iterdir())
+    assert len(traces) == 1
+    events = json.loads(traces[0].read_text())["traceEvents"]
+    assert any(e.get("name") == "engine_tick" for e in events)
+    assert any(e.get("cat") == "kernel" and "tile_tick" in e.get("name", "")
+               for e in events)

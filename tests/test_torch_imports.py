@@ -181,3 +181,102 @@ def test_not_yet_ported_list_is_mirrored_in_the_roadmap():
     for m in NOT_YET_PORTED:
         rel = m.removeprefix("ratis_tpu_torch.").replace(".", "/")
         assert f"`{rel}" in roadmap, rel
+
+
+# ``ratis_tpu/tools/bench_cluster.py`` is not copied whole: its harness and
+# each of its loads are ported into the port's own tools/ modules
+BENCH_CLUSTER_PORTS = {
+    "bench_properties": "tools.cluster.cluster_properties",
+    "BenchCluster": "tools.cluster.Cluster",
+    "run_bench": "tools.bench.e2e_rung",
+    "run_multiproc_bench": "tools.multiproc_bench.run_multiproc_bench",
+    "run_upkeep_bench": "tools.upkeep_bench.upkeep_rung",
+    "run_churn_bench": "tools.bench.churn_rung",
+    "run_mixed_bench": "tools.filestore_bench.run_mixed_bench",
+    "run_read_write_bench": "tools.read_bench.readmix_rung",
+    "run_snapshot_catchup_bench": "tools.snapshot_bench.snapcatch_rung",
+    "run_stream_throughput_bench":
+        "tools.filestore_bench.run_stream_throughput_bench",
+    "run_zipf_fleet_bench": "tools.read_bench.zipf_rung",
+    "run_placement_bench": "tools.placement_bench.placement_rung",
+}
+# each leg of the JAX bench ladder (``bench.py`` ``main()``, by the name it
+# is stored under) and the port's rung of it (``tools/bench.py`` RUNGS)
+BENCH_LADDER = {
+    "ladder[1]": "sim_1", "ladder[64]": "sim_64", "ladder[1024]": "sim_1024",
+    "ladder[10240]": "sim_10240", "mesh_trials": "mesh",
+    "peer5_mp": "peer5_mp", "peer5_sp": "peer5_sp",
+    "peer5_scalar": "peer5_scalar", "peer7": "peer7", "headline": "e2e",
+    "scalar": "scalar", "win_sweep[1]": "win1", "win_sweep[4]": "win4",
+    "win_sweep[16]": "win16", "tel_on": "telemetry", "tel_off": "e2e",
+    "sparse_hib": "sparse_hib", "sparse_plain": "sparse_plain",
+    "traced": "traced", "churn": "churn", "mixed": "mixed",
+    "mixed_fs": "mix_fs", "stream": "stream", "filestore5": "filestore5",
+    "readmix": "readmix", "snapcatch": "snapcatch", "zipf": "zipf",
+    "placement": "placement", "upk_64": "upk_64", "upk_1024": "upk_1024",
+    "upk_tick": "upkeep", "chaos": "chaos", "kernel": "kernel",
+    "kernel_100k": "kernel_100k", "mesh100k": "mesh_100k",
+    # the 1024-group sim rung with the engine on the chip: every port rung
+    # runs on the card
+    "tpu_e2e": "sim_1024",
+}
+# the gRPC legs: the card host has no grpcio (gRPC is held against the JAX
+# package on the CPU, tests/test_torch_grpc.py)
+GRPC_LEGS = frozenset({"peer5_grpc", "peer5_grpc_scalar", "grpc_b",
+                       "grpc_s_1024", "grpc_s_256"})
+
+
+def test_every_jax_module_has_its_port():
+    """Every module of ``ratis_tpu/`` has a file at the same path in
+    ``ratis_tpu_torch/``, but ``tools/bench_cluster.py``, whose every
+    ``run_*`` load (and its harness) names its port function."""
+    import ast
+    import importlib
+    jax_root, port_root = ROOT / "ratis_tpu", ROOT / "ratis_tpu_torch"
+    missing = sorted(str(f.relative_to(jax_root))
+                     for f in jax_root.rglob("*.py")
+                     if "__pycache__" not in f.parts
+                     and not (port_root / f.relative_to(jax_root)).exists())
+    assert missing == ["tools/bench_cluster.py"]
+    tree = ast.parse((jax_root / "tools" / "bench_cluster.py").read_text())
+    loads = {n.name for n in tree.body
+             if isinstance(n, (ast.FunctionDef, ast.AsyncFunctionDef))
+             and n.name.startswith("run_")}
+    assert loads | {"bench_properties", "BenchCluster"} \
+        == set(BENCH_CLUSTER_PORTS)
+    for name, target in BENCH_CLUSTER_PORTS.items():
+        module, attr = target.rsplit(".", 1)
+        assert hasattr(importlib.import_module(f"ratis_tpu_torch.{module}"),
+                       attr), (name, target)
+
+
+def _ladder_legs() -> set:
+    """The names ``bench.py``'s ``main()`` stores a ladder leg's result
+    under (a call of ``_run_child`` or ``_run_trials``; the sim ladder's
+    and the window sweep's legs by their loops' stores)."""
+    import ast
+    tree = ast.parse((ROOT / "bench.py").read_text())
+    main = next(n for n in tree.body
+                if isinstance(n, ast.FunctionDef) and n.name == "main")
+    legs = set()
+    for node in ast.walk(main):
+        if isinstance(node, ast.Assign) and isinstance(node.value, ast.Call) \
+                and getattr(node.value.func, "id", "") in ("_run_child",
+                                                           "_run_trials"):
+            for t in node.targets:
+                legs.add(t.id if isinstance(t, ast.Name)
+                         else ast.unparse(t.value))
+    return legs
+
+
+def test_every_leg_of_the_jax_bench_ladder_has_its_port_rung():
+    from ratis_tpu_torch.tools.bench import RUNGS
+    legs = _ladder_legs()
+    # the window sweep's loop stores each child's result in ``r``
+    assert legs - {"r"} == ({k.split("[")[0] for k in BENCH_LADDER}
+                            - {"win_sweep"}) | GRPC_LEGS
+    assert set(BENCH_LADDER.values()) <= set(RUNGS)
+    # every port rung is a leg of the JAX ladder but ``durable`` and
+    # ``shared``: the headline on the logs of the JAX ladder's durable
+    # mixed pair (``mixed_fs``), with the arithmetic state machine
+    assert set(RUNGS) == set(BENCH_LADDER.values()) | {"shared", "durable"}
