@@ -1,0 +1,13 @@
+"""The 95th percentile (nearest rank) of send to answer over every read
+sent in the traced run's window, in ms; a read without a successful
+answer counts as its wait to the end of the drain.  A per-layer metric:
+its spread between runs on the card host is too wide for a bound (PERF.md
+section 2)."""
+
+from benchmark.generator import READ
+from benchmark.window import latencies_ms, percentile
+
+
+def read(records: dict, config: dict):
+    reads = latencies_ms(records, READ)
+    return percentile(reads, 0.95) if reads else None
