@@ -39,7 +39,7 @@ from ratis_tpu_torch.ops import quorum as q
 from ratis_tpu_torch.ops import reference as ref
 from ratis_tpu_torch.parallel.mesh import (pad_to_mesh, same_card,
                                            shard_device_state)
-from ratis_tpu_torch.trace.tracer import STAGE_ENGINE, TRACER
+from ratis_tpu_torch.trace.tracer import STAGE_ENGINE, TRACER, profiling
 
 _PACK_SENTINEL = q.PACK_SENTINEL
 
@@ -828,13 +828,7 @@ class QuorumEngine:
                     pass
             self._wake.clear()
             t0 = loop.time()
-            if QuorumEngine._profiling_owner is self:
-                # a named range a tick in the trace; only the owner
-                # annotates (co-hosted engines share its one session)
-                with torch.profiler.record_function("engine_tick"):
-                    await self.tick()
-            else:
-                await self.tick()
+            await self.tick()
             self.last_tick_monotonic = loop.time()
             cost = loop.time() - t0
             if cost > self.tick_interval_s:
@@ -889,8 +883,17 @@ class QuorumEngine:
         # host mirror.  The lock is released BEFORE listener callbacks —
         # holding a threading lock across awaits would stall every shard's
         # intake for the duration of division code.
-        with self._lock:
-            changed, votes = self._tick_locked()
+        if QuorumEngine._profiling_owner is self \
+                or (TRACER.enabled and profiling()):
+            # a named range a tick's math pass in the profiler's trace
+            # (the listener callbacks below may park: outside it): the
+            # owner of the session annotates its ticks, and with tracing
+            # on every engine annotates under any owner's session
+            with self._lock, torch.profiler.record_function("engine_tick"):
+                changed, votes = self._tick_locked()
+        else:
+            with self._lock:
+                changed, votes = self._tick_locked()
         for fut, result in votes:
             self._resolve_future(fut, result)
 
@@ -1027,8 +1030,8 @@ class QuorumEngine:
         if check_stale:
             self._next_staleness_ms = now + max(
                 1, self.leadership_timeout_ms // 4)
-        trace_t0 = (TRACER.now() if touched
-                    and TRACER.enabled and TRACER.sample() else 0)
+        unit = (TRACER.open_unit(STAGE_ENGINE) if touched and TRACER.enabled
+                else None)
 
         for slot in list(s.active):
             role = s.role[slot]
@@ -1050,9 +1053,8 @@ class QuorumEngine:
             elif role == ROLE_FOLLOWER and now >= s.election_deadline_ms[slot]:
                 s.election_deadline_ms[slot] = NO_DEADLINE  # re-armed by div
                 changed.append((slot, "timeout", 0))
-        if trace_t0:
-            TRACER.record(0, STAGE_ENGINE, trace_t0, TRACER.now(),
-                          tag=len(touched))
+        if unit is not None:
+            TRACER.close_unit(unit, len(touched))
         return changed
 
     # -- batched path --------------------------------------------------------
@@ -1255,16 +1257,20 @@ class QuorumEngine:
         # exception path so a wedged backend shows up in the p99
         with self._m.dispatch_timer.time():
             self._m.ack_batch.update(len(acks))
-            return self._tick_batched_dispatch(acks, now)
+            if not TRACER.enabled:
+                return self._tick_batched_dispatch(acks, now)
+            # engine.dispatch (process-level unit): the device round trip
+            # of one dispatch, tag = packed event count
+            unit = TRACER.open_unit(STAGE_ENGINE)
+            try:
+                return self._tick_batched_dispatch(acks, now)
+            finally:
+                TRACER.close_unit(unit, len(acks))
 
     def _tick_batched_dispatch(self, acks, now: int
                                ) -> list[tuple[int, str, int]]:
         s = self.state
         self._m.batched_dispatches.inc()
-        # engine.dispatch host-path span (process-level, sampled): the
-        # device round-trip cost per dispatch, tag = packed event count
-        trace_t0 = (TRACER.now()
-                    if TRACER.enabled and TRACER.sample() else 0)
 
         if self._dev is None or self._dev.match_index.shape != s.match_index.shape:
             # first batched tick / capacity regrow / epoch rebase: one full
@@ -1290,12 +1296,8 @@ class QuorumEngine:
                 self._pack_tick(acks, updates)
             out = self._fast_plan.run(self._last_event_cap, now,
                                       self.leadership_timeout_ms)
-            changed = self._collect_changed(out[0], out[1] != 0, out[2] != 0,
-                                            out[3] != 0)
-            if trace_t0:
-                TRACER.record(0, STAGE_ENGINE, trace_t0, TRACER.now(),
-                              tag=len(acks))
-            return changed
+            return self._collect_changed(out[0], out[1] != 0, out[2] != 0,
+                                         out[3] != 0)
 
         # dirty-row refresh: O(changed slots) host->device.  Slots with
         # queued packed updates fold in here — the mirror already holds
@@ -1327,12 +1329,8 @@ class QuorumEngine:
         # one prepared call: the packed bytes up, one launch, the [4, G]
         # outputs (masks + commit values) down, never the [G, P] state
         out = plan.run(dcap, ecap, now, self.leadership_timeout_ms)
-        changed = self._collect_changed(out[0], out[1] != 0, out[2] != 0,
-                                        out[3] != 0)
-        if trace_t0:
-            TRACER.record(0, STAGE_ENGINE, trace_t0, TRACER.now(),
-                          tag=len(acks))
-        return changed
+        return self._collect_changed(out[0], out[1] != 0, out[2] != 0,
+                                     out[3] != 0)
 
     def _collect_changed(self, new_commit_np, commit_changed_np, timeouts_np,
                          stale_np) -> list[tuple[int, str, int]]:

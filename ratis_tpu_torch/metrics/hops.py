@@ -41,12 +41,26 @@ advancing and its reply reaching the wire; the final client-waiter
 wakeup (transport reply hand-back) exists identically in both modes and
 is excluded as common cost, as is the connection coalescer's flush task
 (identical per-batch cost both modes).
+
+Three more counts share the store, none of them a scheduling hop:
+
+- ``transport_flush`` — one coalesced socket write
+  (``transport/coalesce.py``), and ``transport_frame`` the frames it
+  carried, both counted while tracing is on;
+- ``gc_ns`` — nanoseconds the collector ran, counted by the tracer's
+  ``gc.callbacks`` hook while tracing is on (``trace/tracer.py``).
+
+The tracer's window snapshot carries every site's count since its reset
+(or since :func:`reset`, if that came later: see :func:`epoch`).
 """
 
 from __future__ import annotations
 
-HOP_SITES = ("sender_wake", "engine_wake", "reply_future", "reply_window",
-             "reply_send", "reply_batch", "reply_flush")
+SCHEDULING_SITES = ("sender_wake", "engine_wake", "reply_future",
+                    "reply_window", "reply_send", "reply_batch",
+                    "reply_flush")
+HOP_SITES = SCHEDULING_SITES + ("transport_flush", "transport_frame",
+                                "gc_ns")
 
 # reply-plane subset: the SCHEDULED hops between a commit advancing and
 # its reply reaching the transport — the surface the fan-out collapse
@@ -54,12 +68,15 @@ HOP_SITES = ("sender_wake", "engine_wake", "reply_future", "reply_window",
 REPLY_SITES = ("reply_future", "reply_window", "reply_send", "reply_flush")
 
 _counts: dict[str, int] = {s: 0 for s in HOP_SITES}
+# bumped by every reset(): a baseline snapshot taken before it is void
+_epoch = 0
 
 
-def hop(site: str) -> None:
-    """Count one scheduling operation at ``site`` (hot path: one dict
-    increment; sites are fixed, an unknown site is a programming error)."""
-    _counts[site] += 1
+def hop(site: str, n: int = 1) -> None:
+    """Count ``n`` at ``site``: one scheduling operation by default (hot
+    path: one dict increment; sites are fixed, an unknown site is a
+    programming error)."""
+    _counts[site] += n
 
 
 def snapshot() -> dict[str, int]:
@@ -71,9 +88,16 @@ def reply_plane_hops() -> int:
 
 
 def total_hops() -> int:
-    return sum(_counts.values())
+    return sum(_counts[s] for s in SCHEDULING_SITES)
+
+
+def epoch() -> int:
+    """How many times :func:`reset` has zeroed the store."""
+    return _epoch
 
 
 def reset() -> None:
+    global _epoch
     for s in HOP_SITES:
         _counts[s] = 0
+    _epoch += 1

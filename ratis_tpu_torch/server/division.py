@@ -57,9 +57,11 @@ from ratis_tpu_torch.server.election import LeaderElection
 from ratis_tpu_torch.server.leader import FollowerInfo, LeaderContext
 from ratis_tpu_torch.server.state import ServerState
 from ratis_tpu_torch.server.statemachine import StateMachine, TransactionContext
-from ratis_tpu_torch.trace.tracer import (STAGE_APPEND, STAGE_APPLY, STAGE_FANOUT,
-                                    STAGE_REPLY, STAGE_REPLICATE, STAGE_TXN,
-                                    TRACER)
+from ratis_tpu_torch.trace.tracer import (STAGE_APPEND, STAGE_APPLY,
+                                          STAGE_APPLY_WAIT, STAGE_FANOUT,
+                                          STAGE_QUORUM, STAGE_REPLICATE,
+                                          STAGE_REPLY, STAGE_SEND_WAIT,
+                                          STAGE_TXN, TRACER)
 from ratis_tpu_torch.util import injection
 
 LOG = logging.getLogger(__name__)
@@ -207,12 +209,15 @@ class Division:
         # per-client ordered-async reorder windows (leader only; see
         # _write_ordered)
         self._client_windows: dict = {}
-        # Host-path tracing: log index -> (trace_id, append-done ns) for
-        # sampled writes in flight between append and apply; _apply_one
-        # pops each to close the replicate span and open the apply span,
-        # then parks (trace_id, apply-done ns) in _trace_applied for the
-        # write handler to close the reply span when its future resumes.
-        self._trace_pending: dict[int, tuple[int, int]] = {}
+        # Host-path tracing: log index -> [trace_id, append-done ns,
+        # first-hand-off ns, commit-seen ns] for sampled writes in flight
+        # between append and apply (the PeerSender stamps the hand-off,
+        # on_commit_advance_now the commit; 0 until then); _apply_one
+        # pops each to close the replicate span and its three waits and
+        # open the apply span, then parks (trace_id, apply-done ns) in
+        # _trace_applied for the write handler to close the reply span
+        # when its future resumes.
+        self._trace_pending: dict[int, list[int]] = {}
         self._trace_applied: dict[int, tuple[int, int]] = {}
         # Commit fan-out collapse (raft.tpu.replication.reply-fanout):
         # the apply loop resolves the batch's client waiters through ONE
@@ -869,10 +874,21 @@ class Division:
         win a turn on a loaded event loop; the body must stay await-free."""
         if not self.is_leader():
             return
+        if self._trace_pending:
+            self._trace_stamp(0, new_commit, 3)
         self.state.log.update_commit_index(new_commit,
                                            self.state.current_term, True)
         self._apply_wake.set()
         self._update_watch_frontiers()
+
+    def _trace_stamp(self, lo: int, hi: int, field: int) -> None:
+        """Stamp now into ``field`` (2: handed to the transport, 3: commit
+        seen) of every traced write whose index is in [lo, hi] and not yet
+        stamped there (a commit covers every index up to it)."""
+        now = TRACER.now()
+        for index, rec in self._trace_pending.items():
+            if lo <= index <= hi and not rec[field]:
+                rec[field] = now
 
     async def on_commit_advance(self, new_commit: int) -> None:
         self.on_commit_advance_now(new_commit)
@@ -2063,7 +2079,7 @@ class Division:
         if tid:
             now = TRACER.now()
             TRACER.record(tid, STAGE_APPEND, t0, now)
-            self._trace_pending[index] = (tid, now)
+            self._trace_pending[index] = [tid, now, 0, 0]
         self._engine_update_flush()
         self.leader_ctx.notify_appenders()
         if on_submitted is not None:
@@ -2460,7 +2476,7 @@ class Division:
         not one wakeup chain per request (hops metric site
         ``reply_batch``; span ``server.fanout``)."""
         hop("reply_batch")
-        t0 = TRACER.now() if TRACER.enabled and TRACER.sample() else 0
+        unit = TRACER.open_unit(STAGE_FANOUT) if TRACER.enabled else None
         for pending, exception, message, index in batch:
             try:
                 if exception is not None:
@@ -2471,9 +2487,8 @@ class Division:
                         log_index=index))
             except Exception:
                 LOG.exception("%s reply fan-out failed", self.member_id)
-        if t0:
-            TRACER.record(0, STAGE_FANOUT, t0, TRACER.now(),
-                          tag=len(batch))
+        if unit is not None:
+            TRACER.close_unit(unit, len(batch))
 
     async def _apply_one(self, entry: LogEntry,
                          reply_batch: Optional[list] = None) -> None:
@@ -2483,10 +2498,18 @@ class Division:
         trace = (self._trace_pending.pop(entry.index, None)
                  if self._trace_pending else None)
         if trace is not None:
-            # close the replicate span (append done -> apply starts: quorum
-            # wait + apply-queue wait) and open the apply span
+            # close the replicate span (append done -> apply starts) and
+            # its three waits, which tile it: to the first hand-off to the
+            # transport, to the commit, to here (a stamp never taken, or
+            # out of order, leaves its wait empty); open the apply span
             t_apply0 = TRACER.now()
-            TRACER.record(trace[0], STAGE_REPLICATE, trace[1], t_apply0)
+            tid, t_append, t_sent, t_commit = trace
+            TRACER.record(tid, STAGE_REPLICATE, t_append, t_apply0)
+            t_sent = min(max(t_sent, t_append), t_apply0)
+            t_commit = min(max(t_commit or t_apply0, t_sent), t_apply0)
+            TRACER.record(tid, STAGE_SEND_WAIT, t_append, t_sent)
+            TRACER.record(tid, STAGE_QUORUM, t_sent, t_commit)
+            TRACER.record(tid, STAGE_APPLY_WAIT, t_commit, t_apply0)
         if entry.kind == LogEntryKind.STATE_MACHINE:
             trx = self.server.transactions.pop((self.group_id, entry.index), None)
             if trx is None or trx.log_entry is None \

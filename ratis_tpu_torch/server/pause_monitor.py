@@ -12,13 +12,20 @@ at the followers; detecting the pause locally lets the server abdicate
 immediately (via the same leadership-stale path the engine uses) instead of
 serving stale reads or holding client requests it can no longer commit —
 the reference handler's leader.stepDown on pause > election timeout.
+
+With tracing on, every wake is a ``loop.lag`` span (``trace/``): t0 the
+time the sentinel was due, its length the lateness, its tag the process
+CPU microseconds since the previous wake.
 """
 
 from __future__ import annotations
 
 import asyncio
 import logging
+import time
 from typing import Optional
+
+from ratis_tpu_torch.trace.tracer import STAGE_LOOP_LAG, TRACER
 
 LOG = logging.getLogger(__name__)
 
@@ -80,10 +87,13 @@ class PauseMonitor:
 
     async def _run(self) -> None:
         loop = asyncio.get_running_loop()
+        cpu_ns = 0
         while self._running:
             t0 = loop.time()
             await asyncio.sleep(self.interval_s)
             pause = loop.time() - t0 - self.interval_s
+            if TRACER.enabled:
+                cpu_ns = self._record_lag(t0, pause, cpu_ns)
             if pause <= self.warn_s:
                 continue
             self.pause_count += 1
@@ -93,6 +103,16 @@ class PauseMonitor:
                         self.server.peer_id, pause * 1e3, self.warn_s * 1e3)
             if pause > self.stepdown_s:
                 await self._step_down_leaders(pause)
+
+    def _record_lag(self, t0: float, pause: float, cpu0_ns: int) -> int:
+        """One ``loop.lag`` span for this wake (the loop's clock is the
+        monotonic clock the tracer's ns share); returns the process CPU
+        ns now, the next wake's base (0: no previous wake)."""
+        cpu_ns = time.process_time_ns()
+        due = int((t0 + self.interval_s) * 1e9)
+        TRACER.record(0, STAGE_LOOP_LAG, due, due + int(max(pause, 0) * 1e9),
+                      tag=(cpu_ns - cpu0_ns) // 1000 if cpu0_ns else 0)
+        return cpu_ns
 
     async def _step_down_leaders(self, pause: float) -> None:
         for div in list(self.server.divisions.values()):

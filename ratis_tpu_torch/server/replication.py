@@ -44,6 +44,7 @@ from ratis_tpu_torch.protocol.exceptions import TimeoutIOException
 from ratis_tpu_torch.protocol.ids import RaftPeerId
 from ratis_tpu_torch.protocol.raftrpc import (ENV_OK, AppendEntriesRequest,
                                         AppendEnvelope, AppendResult)
+from ratis_tpu_torch.trace.tracer import STAGE_ACK_INTAKE, TRACER
 
 LOG = logging.getLogger(__name__)
 
@@ -69,6 +70,17 @@ class _LoopSweep:
     def __init__(self) -> None:
         self.due: dict["PeerSender", None] = {}
         self.armed = False
+
+
+def _trace_handoff(items) -> None:
+    """replicate.send_wait ends here: stamp the hand-off to the transport
+    on every traced write these items carry that no earlier envelope (to
+    another follower) carried."""
+    for it in items:
+        div = it.appender.division
+        entries = it.request.entries
+        if div._trace_pending and entries:
+            div._trace_stamp(entries[0].index, entries[-1].index, 2)
 
 
 class OutItem(NamedTuple):
@@ -328,6 +340,8 @@ class PeerSender:
         """Baseline (coalescing-disabled) path: one RPC per collected batch,
         reply dispatched independently — the reference's per-(group,
         follower) send shape."""
+        if TRACER.enabled:
+            _trace_handoff((it,))
         try:
             reply = await self.server.send_server_rpc(self.to, it.request)
         except asyncio.CancelledError:
@@ -356,11 +370,14 @@ class PeerSender:
         # instead of a scalar QuorumEngine.on_ack call, and the whole
         # frame batch enters the engine under ONE intake-lock round-trip.
         ack_rows: Optional[list] = [] if self.sweep else None
+        unit = None
         # One outer try/finally owns the latch + slot: ANY exit (including
         # cancellation from a source other than close(), which used to skip
         # the slot release and wedge the sender after inflight_cap events)
         # releases the envelope slot and the appenders' busy latch.
         try:
+            if TRACER.enabled:
+                _trace_handoff(items)
             try:
                 if seq >= 0:
                     # sequenced lane frame: even a single-item flush must
@@ -404,6 +421,10 @@ class PeerSender:
                     # the frame may never have reached the receiver: later
                     # frames of this lane would stall on the hole — re-cut
                     self._reset_lane()
+            # leader.ack_intake: the reply frame's acks landing (tag =
+            # the items it answered)
+            if TRACER.enabled:
+                unit = TRACER.open_unit(STAGE_ACK_INTAKE)
             for i, it in enumerate(items):
                 rep = error if error is not None else replies[i]
                 try:
@@ -434,6 +455,8 @@ class PeerSender:
             if ack_rows:
                 server.engine.on_ack_batch(ack_rows)
         finally:
+            if unit is not None:
+                TRACER.close_unit(unit, len(items))
             for a in {it.appender for it in items}:
                 a.envelope_done(remark=remark)
             self._release_slot()

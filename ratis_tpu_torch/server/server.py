@@ -31,6 +31,8 @@ from ratis_tpu_torch.protocol.requests import (DEFERRED_REPLY, RaftClientReply,
 from ratis_tpu_torch.protocol.termindex import TermIndex
 from ratis_tpu_torch.server.division import Division
 from ratis_tpu_torch.server.statemachine import StateMachine
+from ratis_tpu_torch.trace.tracer import (STAGE_ACK_INTAKE,
+                                          STAGE_FOLLOWER_APPEND, TRACER)
 from ratis_tpu_torch.transport.base import ServerTransport, TransportFactory
 from ratis_tpu_torch.util.lifecycle import LifeCycle, LifeCycleState
 
@@ -312,16 +314,23 @@ class BulkHeartbeatService:
         # on_ack (and one intake-lock round-trip) per item
         ack_rows = ([] if getattr(self.server, "replication_sweep", False)
                     else None)
-        for appender, item in zip(appenders, reply.items):
-            try:
-                await appender.on_bulk_reply(*item, ack_sink=ack_rows)
-            except asyncio.CancelledError:
-                raise
-            except Exception:
-                LOG.exception("%s bulk heartbeat reply dispatch failed",
-                              self.server.peer_id)
-        if ack_rows:
-            self.server.engine.on_ack_batch(ack_rows)
+        # leader.ack_intake: the bulk reply's acks landing
+        unit = (TRACER.open_unit(STAGE_ACK_INTAKE) if TRACER.enabled
+                else None)
+        try:
+            for appender, item in zip(appenders, reply.items):
+                try:
+                    await appender.on_bulk_reply(*item, ack_sink=ack_rows)
+                except asyncio.CancelledError:
+                    raise
+                except Exception:
+                    LOG.exception("%s bulk heartbeat reply dispatch failed",
+                                  self.server.peer_id)
+            if ack_rows:
+                self.server.engine.on_ack_batch(ack_rows)
+        finally:
+            if unit is not None:
+                TRACER.close_unit(unit, len(items))
 
     async def close(self) -> None:
         for task in list(self._pending):
@@ -541,7 +550,7 @@ class RaftServer:
             prefix=str(peer_id), application="ratis", component="server",
             name="replication_plane")
         plane = MetricRegistries.global_registries().create(self._plane_info)
-        for site in hops_mod.HOP_SITES:
+        for site in hops_mod.SCHEDULING_SITES:
             plane.gauge(labeled("schedulingHops", site=site),
                         lambda s=site: hops_mod.snapshot()[s])
         plane.gauge("replyHopsPerCommit", self.reply_hops_per_commit)
@@ -1379,7 +1388,18 @@ class RaftServer:
         sweep mode every item's engine flush update is collected and
         enters the engine as ONE batched intake after the whole frame has
         appended (one intake-lock round-trip per frame instead of one per
-        item)."""
+        item).  Traced, this admission (after any lane park) is one
+        ``follower.append`` unit (tag = items); the group runs are tasks
+        of their own, which may park on the log, and hold no unit."""
+        if not TRACER.enabled:
+            return self._admit_append_envelope(env)
+        unit = TRACER.open_unit(STAGE_FOLLOWER_APPEND)
+        try:
+            return self._admit_append_envelope(env)
+        finally:
+            TRACER.close_unit(unit, len(env.items))
+
+    def _admit_append_envelope(self, env: AppendEnvelope):
         items = env.items
         chained = env.seq >= 0
         results: list = [None] * len(items)

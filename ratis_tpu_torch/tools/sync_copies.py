@@ -31,7 +31,7 @@ VERBATIM = (
     "client/__init__.py", "client/client.py",
     "conf/__init__.py", "conf/properties.py", "conf/reconfiguration.py",
     "engine/__init__.py", "engine/roles.py", "engine/state.py",
-    "metrics/__init__.py", "metrics/hops.py", "metrics/registry.py",
+    "metrics/__init__.py", "metrics/registry.py",
     "metrics/server_metrics.py",
     "metrics/prometheus.py", "metrics/timeseries.py", "metrics/flight.py",
     "metrics/aggregate.py",
@@ -48,8 +48,7 @@ VERBATIM = (
     "server/__init__.py", "server/admin.py", "server/config.py",
     "server/datastream.py",
     "server/election.py", "server/leader.py",
-    "server/messagestream.py", "server/pause_monitor.py", "server/read.py",
-    "server/replication.py", "server/shards.py",
+    "server/messagestream.py", "server/read.py", "server/shards.py",
     "server/state.py", "server/statemachine.py", "server/storage.py",
     "server/upkeep.py", "server/watch.py", "server/watchdog.py",
     "server/log/__init__.py", "server/log/base.py", "server/log/memory.py",
@@ -57,8 +56,8 @@ VERBATIM = (
     "server/serving/readbatch.py",
     "shell/__init__.py", "shell/__main__.py", "shell/cli.py",
     "tools/loadgen.py", "tools/parse_log.py",
-    "trace/__init__.py", "trace/tracer.py", "trace/export.py",
-    "transport/__init__.py", "transport/base.py", "transport/coalesce.py",
+    "trace/__init__.py",
+    "transport/__init__.py", "transport/base.py",
     "transport/datastream.py", "transport/grpc.py",
     "transport/simulated.py",
     "util/__init__.py", "util/gcdiscipline.py", "util/injection.py",
@@ -79,7 +78,11 @@ VERBATIM = (
 # the expiry was applied twice), and the dev tools pointed
 # at the port: the load profiler on its harness and --device, the three
 # drift gates on its package, the conf gate also reading the README's
-# port section); maintained by hand
+# port section, and the host loops' tracing: server.replicate split into
+# its three waits, spans and torch.profiler ranges for the loops' units of
+# work, the pause monitor's loop lag, the collector's pauses, the socket
+# flushes' counts and the counts in the tracer's snapshot); maintained by
+# hand
 CHANGED = (
     "__init__.py", "chaos/campaign.py", "chaos/cluster.py", "conf/keys.py",
     "engine/engine.py", "engine/ledger.py",
@@ -90,6 +93,9 @@ CHANGED = (
     "tools/membership_console.py", "tools/profile_load.py",
     "tools/check_conf_docs.py", "tools/check_hot_loops.py",
     "tools/check_metrics_docs.py", "server/retrycache.py",
+    "trace/tracer.py", "trace/export.py", "metrics/hops.py",
+    "server/replication.py", "server/pause_monitor.py",
+    "transport/coalesce.py",
 )
 
 _NAME = re.compile(r"\bratis_tpu\.")

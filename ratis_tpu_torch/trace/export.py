@@ -19,8 +19,10 @@ import json
 
 import numpy as np
 
-from ratis_tpu_torch.trace.tracer import (NUM_STAGES, STAGE_CLIENT, STAGE_NAMES,
-                                    TILING_STAGES)
+from ratis_tpu_torch.metrics.hops import HOP_SITES
+from ratis_tpu_torch.trace.tracer import (NUM_STAGES, STAGE_CLIENT,
+                                          STAGE_COUNTER, STAGE_NAMES,
+                                          TILING_STAGES)
 
 # Stages whose spans OVERLAP others (client total, transport rtt, engine
 # dispatch): reported in the table, excluded from the coverage sum.
@@ -44,12 +46,19 @@ def host_path_decomposition(records) -> dict:
     apply — non-overlapping by construction) and divide by the client
     wall.  A coverage near 1.0 means the table explains where the latency
     goes; the residual is event-loop scheduling plus (over real sockets)
-    wire time."""
+    wire time.  ``server.replicate``'s sub-stages (``replicate.*``) tile
+    it, so they stay out of the sum.  Counter records, where the snapshot
+    has them, become a ``counters`` table (site -> count)."""
     by_stage: dict[int, list[int]] = {s: [] for s in range(NUM_STAGES)}
     client_wall: dict[int, int] = {}
     covered: dict[int, int] = {}
+    counters: dict[str, int] = {}
     for rec in records:
         tid, stage, _t0, dur = rec[0], rec[1], rec[2], rec[3]
+        if stage == STAGE_COUNTER:
+            site = HOP_SITES[rec[5]]
+            counters[site] = counters.get(site, 0) + rec[4]
+            continue
         by_stage[stage].append(dur)
         if stage == STAGE_CLIENT and tid:
             client_wall[tid] = client_wall.get(tid, 0) + dur
@@ -74,13 +83,16 @@ def host_path_decomposition(records) -> dict:
 
     wall_ns = sum(client_wall.values())
     covered_ns = sum(covered.get(tid, 0) for tid in client_wall)
-    return {
+    out = {
         "traced_requests": len(client_wall),
         "wall_ms_total": round(wall_ns / 1e6, 2),
         "covered_ms_total": round(covered_ns / 1e6, 2),
         "coverage": round(covered_ns / wall_ns, 3) if wall_ns else 0.0,
         "stages": stages,
     }
+    if counters:
+        out["counters"] = counters
+    return out
 
 
 def to_chrome_trace(records) -> dict:
@@ -92,7 +104,8 @@ def to_chrome_trace(records) -> dict:
     process id and — when the runtime runs sharded event loops
     (raft.tpu.server.loop-shards) — the origin loop thread, compressed to
     a small per-process shard ordinal, so a cross-shard/cross-process
-    merge stays attributable."""
+    merge stays attributable.  A counter record is a counter event
+    (``"ph": "C"``) named by its site, its value the count."""
     import os
     pid = os.getpid()
     events = []
@@ -100,6 +113,12 @@ def to_chrome_trace(records) -> dict:
     for rec in records:
         tid, stage, t0, dur, tag = rec[0], rec[1], rec[2], rec[3], rec[4]
         origin = rec[5] if len(rec) > 5 else 0
+        if stage == STAGE_COUNTER:
+            site = HOP_SITES[origin]
+            events.append({"name": site, "cat": "hostpath", "ph": "C",
+                           "ts": t0 / 1e3, "pid": pid,
+                           "args": {site: tag}})
+            continue
         shard = shard_of.setdefault(origin, len(shard_of)) if origin else 0
         events.append({
             "name": STAGE_NAMES[stage],

@@ -20,6 +20,17 @@ always-available, low-overhead structured spans:
   with tracing disabled (the default) every instrumentation site is a
   single attribute check.
 
+Beside the request path it records the loops' own work: units of work
+(an envelope handled, a reply frame's acks landed, a socket flush, an
+engine dispatch, a reply fan-out) through :meth:`Tracer.open_unit`, the
+pause monitor's wakes (``loop.lag``) and the collector's pauses
+(``gc.pause``, with every collection's time in the ``gc_ns`` count).
+While a ``torch.profiler`` session is active in the process, each unit
+and each collection of generation 1 or 2 is also a profiler range of the
+stage's name, so the device trace names the host work on its own clock;
+:meth:`Tracer.snapshot` appends the window's
+:mod:`ratis_tpu_torch.metrics.hops` counts as counter records.
+
 Aggregation/export (Chrome trace-event JSON for Perfetto, and the
 per-stage percentile decomposition table) lives in
 :mod:`ratis_tpu_torch.trace.export`.
@@ -32,11 +43,15 @@ in-process clients; cross-process propagation rides the wire field.
 from __future__ import annotations
 
 import contextvars
+import gc
 import itertools
+import sys
 import threading
 import time
 
 import numpy as np
+
+from ratis_tpu_torch.metrics import hops
 
 # Transport ingress timestamp for the in-flight request: the transport sets
 # it just before handing off to the server handler, and the handler's route
@@ -70,13 +85,43 @@ STAGE_ENGINE = 11     # engine.dispatch — one quorum-engine tick dispatch
 STAGE_FANOUT = 12     # server.fanout — one waterline reply fan-out pass
                       # (batch of committed requests resolved in one unit;
                       # tag = batch size; process-level like engine.dispatch)
-NUM_STAGES = 13
+# server.replicate's three waits on the leader, which tile it exactly
+# (same trace id; sub-stages, so outside the coverage sum):
+STAGE_SEND_WAIT = 13  # replicate.send_wait — append done -> the first
+                      # envelope (or unary AppendEntries) carrying the
+                      # index is handed to the transport
+STAGE_QUORUM = 14     # replicate.quorum — that hand-off -> the leader's
+                      # commit covers the index (inline at ack intake, or
+                      # the tick's commit event)
+STAGE_APPLY_WAIT = 15  # replicate.apply_wait — commit -> apply starts
+# process-level units of the loops' work (trace id 0, sampled like
+# engine.dispatch; each also a torch.profiler range, see open_unit)
+STAGE_FOLLOWER_APPEND = 16  # follower.append — one received envelope
+                            # handled (tag = items)
+STAGE_ACK_INTAKE = 17  # leader.ack_intake — one reply frame's acks landed
+                       # (tag = acks)
+STAGE_FLUSH = 18      # transport.flush — one coalesced socket write
+                      # (tag = frames)
+# the loops' runtime, recorded whenever tracing is on (not sampled)
+STAGE_LOOP_LAG = 19   # loop.lag — one pause-monitor wake: t0 the due
+                      # time, dur the lateness, tag the process CPU us
+                      # since the previous wake
+STAGE_GC_PAUSE = 20   # gc.pause — one collection of generation 2 or of
+                      # 1 ms or more (tag = generation)
+# snapshot()'s window counts: one record per metrics/hops.py site, trace
+# id 0, dur 0, tag = the count since reset(), origin = the site's index
+# in HOP_SITES; made by snapshot(), so its ring stays empty
+STAGE_COUNTER = 21
+NUM_STAGES = 22
 
 STAGE_NAMES = (
     "client.send", "codec.encode", "codec.decode", "wire.rtt",
     "server.route", "server.txn_start", "server.append",
     "server.replicate", "server.apply", "server.reply", "server.respond",
     "engine.dispatch", "server.fanout",
+    "replicate.send_wait", "replicate.quorum", "replicate.apply_wait",
+    "follower.append", "leader.ack_intake", "transport.flush",
+    "loop.lag", "gc.pause", "counter",
 )
 
 # Stages whose durations tile the per-request path (no mutual overlap):
@@ -143,10 +188,37 @@ class SpanRing:
         self._n = 0
 
 
+def profiling() -> bool:
+    """Whether a ``torch.profiler`` session (of any owner) is active in
+    this process.  The tracer never imports torch: client processes run
+    without it."""
+    torch = sys.modules.get("torch")
+    return torch is not None and torch.autograd.profiler._is_profiler_enabled
+
+
+def _open_range(name: str):
+    """A ``torch.profiler.record_function`` range of ``name`` (a
+    ``user_annotation`` event on the profiler's own clock), entered, while
+    :func:`profiling`; else None.  Exit it with :func:`_close_range`."""
+    if not profiling():
+        return None
+    rf = sys.modules["torch"].profiler.record_function(name)
+    rf.__enter__()
+    return rf
+
+
+def _close_range(rf) -> None:
+    if rf is not None:
+        rf.__exit__(None, None, None)
+
+
 class Tracer:
     """Process-wide span recorder.  Disabled (the default) it costs one
     attribute check per instrumentation site; enabled, each Nth request
     (``sample_every``) gets a trace id and its stages record spans."""
+
+    # a collection this long or longer is a gc.pause span at any generation
+    GC_PAUSE_NS = 1_000_000
 
     DEFAULT_RING_SIZE = 4096
 
@@ -163,6 +235,13 @@ class Tracer:
         # handler's return crosses (a ContextVar cannot flow back out of
         # the handler task — task creation copies the context one way).
         self._egress: dict[int, int] = {}
+        # hops' epoch and counts at the last reset()/configure():
+        # snapshot()'s counter records are the counts since
+        self._hops0 = (hops.epoch(), hops.snapshot())
+        # the collector hook (installed while enabled): the running
+        # collection's start ns and its profiler range
+        self._gc_t0 = 0
+        self._gc_range = None
 
     # -- configuration -------------------------------------------------------
 
@@ -175,13 +254,20 @@ class Tracer:
         self._req_tick = 0
         self._proc_tick = 0
         self._egress = {}
+        self._hops0 = (hops.epoch(), hops.snapshot())
         self.enabled = bool(enabled)
+        if self.enabled and self._on_gc not in gc.callbacks:
+            gc.callbacks.append(self._on_gc)
+        elif not self.enabled and self._on_gc in gc.callbacks:
+            gc.callbacks.remove(self._on_gc)
 
     def reset(self) -> None:
-        """Drop recorded spans; keep configuration."""
+        """Drop recorded spans and start the counts anew; keep
+        configuration."""
         for ring in self._rings:
             ring.clear()
         self._egress.clear()
+        self._hops0 = (hops.epoch(), hops.snapshot())
 
     # -- hot path ------------------------------------------------------------
 
@@ -214,6 +300,45 @@ class Tracer:
         self._rings[stage].record(trace_id, t0_ns, t1_ns, tag,
                                   origin=threading.get_ident())
 
+    def open_unit(self, stage: int):
+        """Start one process-level unit of work (call only while enabled):
+        a ``torch.profiler`` range of the stage's name while a session is
+        active, for every unit, and a span on ``sample()``.  A unit holds
+        no await that parks, so the range says what the loop's thread is
+        doing.  Close it with :meth:`close_unit`, also when the work
+        raises."""
+        rf = _open_range(STAGE_NAMES[stage])
+        t0 = time.monotonic_ns() if self.sample() else 0
+        return stage, t0, rf
+
+    def close_unit(self, unit, tag: int = 0) -> None:
+        stage, t0, rf = unit
+        _close_range(rf)
+        if t0 and self.enabled:
+            self._rings[stage].record(0, t0, time.monotonic_ns(), tag,
+                                      origin=threading.get_ident())
+
+    def _on_gc(self, phase: str, info: dict) -> None:
+        """``gc.callbacks`` hook: every collection's time into the
+        ``gc_ns`` count, a ``gc.pause`` span for each of generation 2 or
+        of ``GC_PAUSE_NS`` or more, and a profiler range over each of
+        generation 1 or 2 while a session is active (the frequent short
+        generation-0 passes get none)."""
+        if phase == "start":
+            self._gc_t0 = time.monotonic_ns()
+            if info["generation"]:
+                self._gc_range = _open_range("gc.pause")
+            return
+        t1 = time.monotonic_ns()
+        _close_range(self._gc_range)
+        self._gc_range = None
+        took = t1 - self._gc_t0
+        hops.hop("gc_ns", took)
+        gen = info["generation"]
+        if self.enabled and (gen == 2 or took >= self.GC_PAUSE_NS):
+            self._rings[STAGE_GC_PAUSE].record(
+                0, self._gc_t0, t1, gen, origin=threading.get_ident())
+
     def mark_egress(self, trace_id: int) -> None:
         """Server handler is done with this request NOW; the transport pops
         the mark to record the respond span (serialize + hand-back/socket
@@ -234,11 +359,23 @@ class Tracer:
 
     def snapshot(self) -> list[tuple[int, int, int, int, int, int]]:
         """Every held record as
-        (trace_id, stage, t0_ns, dur_ns, tag, origin_thread)."""
+        (trace_id, stage, t0_ns, dur_ns, tag, origin_thread), then one
+        ``STAGE_COUNTER`` record per ``hops.HOP_SITES`` site: (0,
+        STAGE_COUNTER, now, 0, the count since the last reset, the site's
+        index).  A ``hops.reset()`` after the last reset starts the counts
+        anew from zero."""
         out: list[tuple[int, int, int, int, int, int]] = []
         for stage, ring in enumerate(self._rings):
             for tid, t0, dur, tag, origin in ring.rows().tolist():
                 out.append((tid, stage, t0, dur, tag, origin))
+        now = time.monotonic_ns()
+        counts = hops.snapshot()
+        epoch, base = self._hops0
+        if epoch != hops.epoch():
+            base = {}  # the store was zeroed since
+        for i, site in enumerate(hops.HOP_SITES):
+            out.append((0, STAGE_COUNTER, now, 0,
+                        counts[site] - base.get(site, 0), i))
         return out
 
     def stage_dropped(self) -> dict[str, int]:

@@ -21,6 +21,11 @@ Policy (``raft.tpu.tcp.*`` / ``raft.tpu.grpc.*`` keys, conf/keys.py):
   write+drain of the per-frame path, serialized, byte-identical on the
   wire (asserted in tests/test_wire_fastpath.py).
 
+With tracing on, every flush counts in ``metrics/hops.py``
+(``transport_flush``, and the frames it carried under
+``transport_frame``); the TCP transport's write of the batch is one
+``transport.flush`` unit (``tcp.py``).
+
 Failure contract: a flush error fails every send awaiting that batch and
 POISONS the coalescer — some frames of the batch may be half-written, so
 the connection is unusable and later sends fail fast; the error never
@@ -32,6 +37,9 @@ from __future__ import annotations
 
 import asyncio
 from typing import Optional
+
+from ratis_tpu_torch.metrics.hops import hop
+from ratis_tpu_torch.trace.tracer import TRACER
 
 __all__ = ["WriteCoalescer"]
 
@@ -71,6 +79,13 @@ class WriteCoalescer:
     async def _flush_batch(self, frames: list) -> None:
         raise NotImplementedError
 
+    @staticmethod
+    def _count_flush(frames: list) -> None:
+        """Count one flush of ``frames`` while tracing is on."""
+        if TRACER.enabled:
+            hop("transport_flush")
+            hop("transport_frame", len(frames))
+
     async def send(self, frame, nbytes: int) -> None:
         """Queue ``frame`` and return once the flush carrying it drained
         (backpressure: callers wait out the transport's flow control
@@ -82,6 +97,7 @@ class WriteCoalescer:
             async with self._lock:
                 if self._dead is not None:
                     raise self._dead
+                self._count_flush([frame])
                 await self._flush_batch([frame])
                 self.metrics["flushes"] += 1
                 self.metrics["frames"] += 1
@@ -134,6 +150,7 @@ class WriteCoalescer:
             waiters = self._waiters
             self._pending, self._waiters = [], []
             self._pending_bytes = 0
+            self._count_flush(frames)
             try:
                 await self._flush_batch(frames)
             except asyncio.CancelledError:

@@ -31,7 +31,8 @@ from ratis_tpu_torch.protocol.requests import (DEFERRED_REPLY, RaftClientReply,
                                          RaftClientRequest,
                                          attach_reply_sink)
 from ratis_tpu_torch.trace.tracer import (INGRESS_NS, STAGE_DECODE, STAGE_ENCODE,
-                                    STAGE_RESPOND, STAGE_WIRE, TRACER)
+                                    STAGE_FLUSH, STAGE_RESPOND, STAGE_WIRE,
+                                    TRACER)
 from ratis_tpu_torch.transport.base import (ClientRequestHandler, ClientTransport,
                                       ServerRpcHandler, ServerTransport,
                                       TransportFactory)
@@ -55,7 +56,9 @@ def _encode_frame(call_seq: int, kind: int, body: bytes) -> bytes:
 class _StreamFrameCoalescer(WriteCoalescer):
     """WriteCoalescer over an asyncio StreamWriter: the batch goes out as
     ONE buffered write (frames are already length-prefixed, so joining is
-    byte-identical to writing them one by one) followed by ONE drain."""
+    byte-identical to writing them one by one) followed by ONE drain.
+    Traced, the join and the write are one ``transport.flush`` unit (tag =
+    frames); the drain, which parks under backpressure, is outside it."""
 
     def __init__(self, writer: asyncio.StreamWriter,
                  flush_bytes: int = 0, flush_micros: int = 0):
@@ -64,7 +67,14 @@ class _StreamFrameCoalescer(WriteCoalescer):
 
     async def _flush_batch(self, frames: list) -> None:
         w = self._writer
-        w.write(frames[0] if len(frames) == 1 else b"".join(frames))
+        if TRACER.enabled:
+            unit = TRACER.open_unit(STAGE_FLUSH)
+            try:
+                w.write(frames[0] if len(frames) == 1 else b"".join(frames))
+            finally:
+                TRACER.close_unit(unit, len(frames))
+        else:
+            w.write(frames[0] if len(frames) == 1 else b"".join(frames))
         await w.drain()
 
 
